@@ -1,0 +1,68 @@
+"""Global configuration for deepquantum_tpu_torch: dtype policy and device.
+
+PyTorch counterpart of ``deepquantum_tpu/config.py``. complex64 is the
+default (two float32 planes on the planar engine); complex128 runs the
+complex einsum engine. Quantum amplitudes need full-precision float32
+products everywhere: TF32 keeps about three decimal digits and drifts
+unitarity over tens of gates, so both TF32 switches are turned off here
+(the JAX package pins ``Precision.HIGHEST`` for the same reason).
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ['set_dtype', 'cdtype', 'rdtype', 'set_device', 'default_device', 'resolve_device']
+
+_COMPLEX = torch.complex64
+_REAL = torch.float32
+_DEVICE = torch.device('cpu')
+
+_DTYPES = {
+    'complex64': (torch.complex64, torch.float32),
+    'complex128': (torch.complex128, torch.float64),
+    torch.complex64: (torch.complex64, torch.float32),
+    torch.complex128: (torch.complex128, torch.float64),
+}
+
+
+def set_dtype(dtype) -> None:
+    """Set the global complex dtype ('complex64' or 'complex128')."""
+    global _COMPLEX, _REAL
+    key = dtype if isinstance(dtype, torch.dtype) else str(dtype)
+    if key not in _DTYPES:
+        raise ValueError(f'Unsupported complex dtype: {dtype}')
+    _COMPLEX, _REAL = _DTYPES[key]
+
+
+def cdtype() -> torch.dtype:
+    """Current complex dtype."""
+    return _COMPLEX
+
+
+def rdtype() -> torch.dtype:
+    """Current real dtype."""
+    return _REAL
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device (the default device when None). Asking
+    for a CUDA device on a machine without one raises."""
+    dev = _DEVICE if device is None else torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'device {dev} requested but CUDA is not available')
+    return dev
+
+
+def set_device(device) -> None:
+    """Set the default device for new circuits and states."""
+    global _DEVICE
+    _DEVICE = resolve_device(device)
+
+
+def default_device() -> torch.device:
+    """Current default device."""
+    return _DEVICE

@@ -1,0 +1,95 @@
+// The window tile body shared by K2 (window_apply.cu) and the win steps of
+// K3 (window_chain.cu): y = W x for one tile of TC columns of the state
+// viewed as two (128, R) float32 planes, R = 2^(n - 7), written back in place.
+//
+// The tile of both planes is staged in shared memory, W is staged in chunks
+// of 32 columns (transposed, so a thread reads its rows as float4), and each
+// thread accumulates 128 * TC / 256 outputs of one column in FP32 FMA. No
+// TF32 and no tensor cores: the sums keep full float32 products.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace dq {
+
+constexpr int kWinRows = 128;                 // 2^w, w = 7
+constexpr int kWinThreads = 256;
+constexpr int kChunk = 32;                    // columns of W staged at a time
+constexpr int kChunkStride = kWinRows + 4;    // padded, keeps float4 alignment
+
+template <int TC>
+struct WindowSmem {
+  float xr[kWinRows][TC];
+  float xi[kWinRows][TC];
+  float wr[kChunk][kChunkStride];   // wr[kk][r] = W_re[r][k0 + kk]
+  float wi[kChunk][kChunkStride];
+};
+
+// All kWinThreads threads of the block call this together. W (wre, wim,
+// row-major 128 x 128) must not change during the kernel (read through the
+// read-only cache); the state planes xr/xi are read with plain loads, since
+// a persistent kernel writes them between calls.
+template <int TC>
+__device__ __forceinline__ void window_tile(const float* __restrict__ wre,
+                                            const float* __restrict__ wim, float* xr,
+                                            float* xi, int64_t R, int64_t c0,
+                                            WindowSmem<TC>& s) {
+  constexpr int kRows = kWinRows * TC / kWinThreads;   // outputs per thread
+  static_assert(kRows % 4 == 0, "rows per thread must be a multiple of 4");
+  const int t = threadIdx.x;
+  const int col = t % TC;
+  const int r0 = (t / TC) * kRows;
+  for (int e = t; e < kWinRows * TC; e += kWinThreads) {
+    const int r = e / TC;
+    const int c = e % TC;
+    s.xr[r][c] = xr[r * R + c0 + c];
+    s.xi[r][c] = xi[r * R + c0 + c];
+  }
+  float acc_r[kRows];
+  float acc_i[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    acc_r[i] = 0.f;
+    acc_i[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < kWinRows; k0 += kChunk) {
+    __syncthreads();   // tile staged; previous chunk consumed
+    for (int e = t; e < kWinRows * kChunk; e += kWinThreads) {
+      const int r = e / kChunk;
+      const int kk = e % kChunk;
+      s.wr[kk][r] = __ldg(wre + r * kWinRows + k0 + kk);
+      s.wi[kk][r] = __ldg(wim + r * kWinRows + k0 + kk);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kChunk; ++kk) {
+      const float vr = s.xr[k0 + kk][col];
+      const float vi = s.xi[k0 + kk][col];
+#pragma unroll
+      for (int i = 0; i < kRows; i += 4) {
+        const float4 mr = *reinterpret_cast<const float4*>(&s.wr[kk][r0 + i]);
+        const float4 mi = *reinterpret_cast<const float4*>(&s.wi[kk][r0 + i]);
+        acc_r[i + 0] = fmaf(-mi.x, vi, fmaf(mr.x, vr, acc_r[i + 0]));
+        acc_i[i + 0] = fmaf(mi.x, vr, fmaf(mr.x, vi, acc_i[i + 0]));
+        acc_r[i + 1] = fmaf(-mi.y, vi, fmaf(mr.y, vr, acc_r[i + 1]));
+        acc_i[i + 1] = fmaf(mi.y, vr, fmaf(mr.y, vi, acc_i[i + 1]));
+        acc_r[i + 2] = fmaf(-mi.z, vi, fmaf(mr.z, vr, acc_r[i + 2]));
+        acc_i[i + 2] = fmaf(mi.z, vr, fmaf(mr.z, vi, acc_i[i + 2]));
+        acc_r[i + 3] = fmaf(-mi.w, vi, fmaf(mr.w, vr, acc_r[i + 3]));
+        acc_i[i + 3] = fmaf(mi.w, vr, fmaf(mr.w, vi, acc_i[i + 3]));
+      }
+    }
+  }
+  // in place: only this block reads these columns, and it has staged them
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    xr[(r0 + i) * R + c0 + col] = acc_r[i];
+    xi[(r0 + i) * R + c0 + col] = acc_i[i];
+  }
+  __syncthreads();   // shared memory is reused by the next tile
+}
+
+}  // namespace dq

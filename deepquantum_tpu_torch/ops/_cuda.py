@@ -1,0 +1,151 @@
+"""Build, load and call the port's CUDA kernels.
+
+The kernels live in ``deepquantum_tpu_torch/csrc/*.cu`` and are compiled by
+``nvcc`` for ``sm_90a`` into ONE shared library with a plain C interface, at
+first use, into ``deepquantum_tpu_torch/_build/<key>/`` where the key is a
+hash of the sources and the flags (a changed source rebuilds). The library
+is loaded with ``ctypes``: pointers and the stream go as ``c_void_p``, every
+entry point takes the device index and PyTorch's current stream last and
+returns ``cudaGetLastError()`` after its launch, and a non-zero code raises
+here. Nothing in the port catches these errors to fall back on a plain
+version: a CUDA tensor runs the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ['build', 'launch', 'check_state', 'check_planes', 'source_key']
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / 'csrc'
+BUILD_DIR = _PKG_DIR / '_build'
+LIB_NAME = 'libdq_kernels.so'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argument types before the trailing (device, stream)
+_SIGNATURES = {
+    'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I),   # x, mre, mim, n, k, bits[3]
+    'dq_window_apply_f32': (_P, _P, _P, _I),                   # x, mre, mim, n
+    'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I),   # table, nstep, wre, wim, a, b, n
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ''   # compiler output of the last build (ptxas register/spill report)
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in ('.cu', '.cuh'))
+
+
+def source_key() -> str:
+    """Hash of the kernel sources and the compiler flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cands = []
+    for var in ('CUDA_HOME', 'CUDA_PATH'):
+        if os.environ.get(var):
+            cands.append(os.path.join(os.environ[var], 'bin', 'nvcc'))
+    found = shutil.which('nvcc')
+    if found:
+        cands.append(found)
+    cands.append('/usr/local/cuda/bin/nvcc')
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA kernels '
+                       'of deepquantum_tpu_torch are built from csrc/ at first use')
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless this key is built."""
+    global build_log
+    out = BUILD_DIR / source_key() / LIB_NAME
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{LIB_NAME}.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-I', str(CSRC_DIR), '-o', str(tmp),
+           *[str(p) for p in _sources() if p.suffix == '.cu']]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{build_log}')
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [*args, _I, _P]
+                fn.restype = _I
+            lib.dq_error_string.argtypes = [_I]
+            lib.dq_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; tensors go
+    as their data pointers. Raises on a non-zero CUDA error code."""
+    lib = _load()
+    cargs = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else int(a) for a in args]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = getattr(lib, name)(*cargs, index, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA error {rc} ({lib.dq_error_string(rc).decode()})')
+
+
+def _no_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f'{name}: the CUDA route is forward-only; backward kernels are ROADMAP queue 2 '
+            '(window_chain_bwd, _planar_grad). Run under torch.inference_mode().')
+
+
+def check_state(x: torch.Tensor, n: int, name: str) -> None:
+    """A kernel's planar state: CUDA float32, contiguous, (2, 2^n)."""
+    _no_grad(name, x)
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name}: state must be a CUDA tensor, got {x.device}')
+    if x.dtype != torch.float32:
+        raise TypeError(f'{name}: the CUDA kernel takes float32 planes, got {x.dtype}')
+    if tuple(x.shape) != (2, 1 << n) or not x.is_contiguous():
+        raise ValueError(f'{name}: state must be contiguous (2, 2^{n}), got {tuple(x.shape)}')
+
+
+def check_planes(name: str, x: torch.Tensor, shape, *planes):
+    """Matrix planes on x's device, float32, ``shape``; returned contiguous."""
+    _no_grad(name, *planes)
+    out = []
+    for m in planes:
+        if m.device != x.device:
+            raise ValueError(f'{name}: matrix planes on {m.device}, state on {x.device}')
+        if tuple(m.shape) != tuple(shape):
+            raise ValueError(f'{name}: matrix planes must be {tuple(shape)}, got {tuple(m.shape)}')
+        out.append(m.to(torch.float32).contiguous())
+    return out

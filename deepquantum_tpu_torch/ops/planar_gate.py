@@ -1,0 +1,305 @@
+"""Planar-f32 gate engine: the statevector as two float32 planes.
+
+PyTorch counterpart of ``deepquantum_tpu/ops/planar_gate.py`` (forward
+only). The state lives as (2, 2^n) float32 planes (re, im); every fused gate
+group of k <= 3 wires is one in-place pass of the ``planar_apply`` kernel
+(``csrc/planar_apply.cu`` on a CUDA tensor, the plain twin
+``planar_evolve_xla`` on a CPU tensor). Gate matrices arrive as real planes
+in sorted-wire order. Wire 0 is the most significant bit of the amplitude
+index (the ``evolve_state`` convention).
+
+The relabel scheduler (``schedule_rotations``) and its costs are ported line
+for line so that the port's step lists equal the JAX package's; they were
+tuned on TPU tile geometry, and whether Hopper wants them is a later
+measurement. ``_rotate_planar`` stays plain torch, as the JAX package leaves
+it to XLA.
+
+In-place rule: ``planar_apply`` updates its argument. ``planar_chain`` and
+``planar_pauli_expectation`` copy the caller's state once into a work buffer
+and never write to a tensor the caller holds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ['planar_apply', 'planar_evolve_xla', 'planar_chain', 'planar_pauli_expectation',
+           'schedule_planar_seq', 'schedule_rotations', 'to_planar', 'from_planar']
+
+_T_BITS = 7            # TPU lane block (scheduler geometry only)
+_RB_BITS_MAX = 7       # TPU row block (scheduler geometry only)
+
+
+def to_planar(psi: torch.Tensor) -> torch.Tensor:
+    """complex (...,) statevector -> contiguous (2, N) real planes."""
+    from ..config import rdtype
+    flat = psi.reshape(-1)
+    return torch.stack([flat.real, flat.imag]).to(rdtype()).contiguous()
+
+
+def from_planar(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2, N) real planes -> complex (..., N) statevector."""
+    return torch.complex(x[..., 0, :], x[..., 1, :])
+
+
+def _sorted_mat_planes(matrix: torch.Tensor, wires):
+    """Permute a complex (2^k, 2^k) gate matrix from wires-list order to
+    sorted-wire order and split it into real planes (policy real dtype)."""
+    from ..config import rdtype
+    from .apply import permute_matrix_wires
+    ws = list(wires)
+    order = sorted(range(len(ws)), key=lambda i: ws[i])
+    if order != list(range(len(ws))):
+        matrix = permute_matrix_wires(matrix, order)
+    return matrix.real.to(rdtype()), matrix.imag.to(rdtype())
+
+
+# ----------------------------------------------------------------- kernel K1
+def _combo_view(x: torch.Tensor, n: int, ws):
+    """(2, 2^n) planes -> (2, 2^k, M) with the k sorted wires' bit
+    combinations as the middle axis, plus the map back to (2, 2^n)."""
+    k = len(ws)
+    shape = [2]
+    axes = []
+    prev = -1
+    for w in ws:
+        shape.append(1 << (w - prev - 1))
+        shape.append(2)
+        axes.append(len(shape) - 1)
+        prev = w
+    shape.append(1 << (n - 1 - prev))
+    rest = [i for i in range(1, len(shape)) if i not in axes]
+    perm = [0] + axes + rest
+    xv = x.reshape(shape).permute(perm)
+    pshape = xv.shape
+    inv = sorted(range(len(perm)), key=lambda i: perm[i])
+
+    def restore(y):
+        return y.reshape(pshape).permute(inv).reshape(x.shape)
+
+    return xv.reshape(2, 1 << k, -1), restore
+
+
+def planar_evolve_xla(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
+    """Plain torch twin of the ``planar_apply`` kernel (named after the JAX
+    package's XLA twin): y = M x on the sorted wires, real matmuls, returns
+    a new tensor. Matrix planes are in sorted-wire order."""
+    xv, restore = _combo_view(x, n, sorted(wires))
+    mre = mre.to(x.dtype)
+    mim = mim.to(x.dtype)
+    yr = mre @ xv[0] - mim @ xv[1]
+    yi = mre @ xv[1] + mim @ xv[0]
+    return restore(torch.stack([yr, yi]))
+
+
+def planar_apply(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
+    """Apply a k <= 3 wire gate (planes in sorted-wire order) to the planar
+    state x = (2, 2^n) in place, and return x.
+
+    A CUDA tensor launches the ``csrc/planar_apply.cu`` kernel (float32
+    only) and raises if the build or the launch fails; a CPU tensor takes
+    the twin ``planar_evolve_xla``."""
+    ws = tuple(sorted(wires))
+    if x.device.type == 'cpu':
+        x.copy_(planar_evolve_xla(x, mre, mim, n, ws))
+        return x
+    from . import _cuda
+    if x.dim() != 2:
+        raise NotImplementedError('planar_apply: the batched (B, 2, 2^n) form has no CUDA '
+                                  'kernel yet (ROADMAP queue 2, batched forward)')
+    k = len(ws)
+    if not 1 <= k <= 3 or len(set(ws)) != k or not all(0 <= w < n for w in ws):
+        raise ValueError(f'planar_apply: wires {ws} on n={n}')
+    _cuda.check_state(x, n, 'planar_apply')
+    mre, mim = _cuda.check_planes('planar_apply', x, (1 << k, 1 << k), mre, mim)
+    bits = [n - 1 - w for w in ws] + [0] * (3 - k)
+    _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, n, k, *bits)
+    planar_apply.launches += 1
+    return x
+
+
+planar_apply.launches = 0
+
+
+# ----------------------------------------------------- wire-relabel schedule
+_ROT_MIN_BITS = 7      # both runs of the rotation transpose >= 128 elements
+_ROLL_LIMIT = _T_BITS + _RB_BITS_MAX   # positions with bit < this needed TPU rolls
+
+
+def _rotate_planar(x: torch.Tensor, delta: int, n: int) -> torch.Tensor:
+    """Cyclically rotate qubit POSITIONS of a planar state left by delta:
+    the wire at position delta moves to position 0 ((..., 2, 2^n) -> same).
+    A two-run transpose in plain torch; returns a new tensor."""
+    delta %= n
+    if delta == 0:
+        return x
+    lead = x.shape[:-1]
+    v = x.reshape(lead + (1 << delta, 1 << (n - delta)))
+    return v.transpose(-1, -2).reshape(x.shape).contiguous()
+
+
+def _rot_legal(delta: int, n: int) -> bool:
+    delta %= n
+    return delta == 0 or _ROT_MIN_BITS <= delta <= n - _ROT_MIN_BITS
+
+
+def _roll_count(pw, n: int) -> int:
+    """Positions of a physical wire set below the TPU kernel's head region."""
+    return sum(1 for p in pw if (n - 1 - p) < _ROLL_LIMIT)
+
+
+def _gate_cost(pw, n: int) -> float:
+    """Relative pass cost by roll count (the JAX package's TPU costs, kept
+    so that plans are identical)."""
+    nr = _roll_count(pw, n)
+    return (1.0, 1.0, 3.5, 7.0)[min(nr, 3)]
+
+
+_ROT_COST = 2.0        # relabel transpose ~1-2 gate passes
+_LOOKAHEAD = 24        # groups simulated when scoring a candidate rotation
+
+
+def _rot_path(cur: int, target: int, n: int):
+    """Shortest sequence of LEGAL rotation deltas moving the labeling from
+    cur to target (BFS over compositions, depth <= 4). None if unreachable."""
+    net = (target - cur) % n
+    if net == 0:
+        return []
+    legal = range(_ROT_MIN_BITS, n - _ROT_MIN_BITS + 1)
+    frontier = {0: []}
+    for _ in range(4):
+        nxt = {}
+        for got, path in frontier.items():
+            for d in legal:
+                g2 = (got + d) % n
+                if g2 == net:
+                    return path + [d]
+                if g2 not in nxt:
+                    nxt[g2] = path + [d]
+        frontier = nxt
+    return None
+
+
+def schedule_rotations(wires_list, n: int):
+    """Host-side relabel scheduler for planar gate chains.
+
+    Returns (plan, changed): plan entries are ('rot', delta) or
+    ('gate', idx, phys_wires) with phys_wires in the SAME element order as
+    wires_list[idx]. The plan always closes rotated back to the identity
+    labeling. changed is False when no rotation was worth emitting.
+    """
+    H = n - _ROLL_LIMIT                   # head positions [0, H)
+    if H < 2 or n < 2 * _ROT_MIN_BITS:
+        return ([('gate', i, tuple(ws)) for i, ws in enumerate(wires_list)],
+                False)
+
+    def sim_cost(rot, start, budget):
+        c = 0.0
+        for ws in wires_list[start:start + budget]:
+            c += _gate_cost([(w - rot) % n for w in ws], n)
+        return c
+
+    rot = 0
+    plan = []
+    changed = False
+    for idx, ws in enumerate(wires_list):
+        pw = [(w - rot) % n for w in ws]
+        if _roll_count(pw, n) >= 2:
+            cands = {(w - back) % n for w in ws for back in range(min(H, 3))}
+            best = (sim_cost(rot, idx, _LOOKAHEAD), rot, [])
+            for cand in cands:
+                path = _rot_path(rot, cand, n)
+                if not path:
+                    continue
+                if _rot_path(cand, 0, n) is None:
+                    continue
+                cost = _ROT_COST * len(path) + sim_cost(cand, idx, _LOOKAHEAD)
+                if cost < best[0] - 1e-9:
+                    best = (cost, cand, path)
+            _, cand, path = best
+            for d in path:
+                plan.append(('rot', d))
+                changed = True
+            rot = cand
+            pw = [(w - rot) % n for w in ws]
+        plan.append(('gate', idx, tuple(pw)))
+    closing = _rot_path(rot, 0, n)
+    if closing is None:
+        raise RuntimeError(f'no legal closing rotation from {rot} (n={n})')
+    for d in closing:
+        plan.append(('rot', d))
+    return plan, changed
+
+
+def schedule_planar_seq(mres, mims, wseq, n: int):
+    """Insert relabel rotations or dense windows into an already-sorted
+    planar chain spec. mres/mims: per-gate (K, K) planes in sorted-LOGICAL
+    wire order; wseq: sorted logical wire tuples.
+
+    Returns (mres', mims', wseq'): wseq' entries are ('rot', delta) relabels
+    (with None planes), ('win', w) dense windows (ops/window_gate.py) or
+    sorted physical wire tuples, whose planes are re-permuted to sorted
+    PHYSICAL order under the labeling in effect."""
+    from .apply import permute_matrix_wires
+    from .window_gate import schedule_window_seq
+    win = schedule_window_seq(mres, mims, wseq, n)
+    if win is not None:
+        return win
+    plan, changed = schedule_rotations(list(wseq), n)
+    if not changed:
+        return tuple(mres), tuple(mims), tuple(wseq)
+    out_r, out_i, out_w = [], [], []
+    for ent in plan:
+        if ent[0] == 'rot':
+            out_r.append(None)
+            out_i.append(None)
+            out_w.append(('rot', ent[1]))
+            continue
+        _, i, pw = ent
+        mre, mim = mres[i], mims[i]
+        order = sorted(range(len(pw)), key=lambda j: pw[j])
+        if order != list(range(len(pw))):
+            mre = permute_matrix_wires(mre, order)
+            mim = permute_matrix_wires(mim, order)
+        out_r.append(mre)
+        out_i.append(mim)
+        out_w.append(tuple(sorted(pw)))
+    return tuple(out_r), tuple(out_i), tuple(out_w)
+
+
+# --------------------------------------------------------------- gate chains
+def _run_steps(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """Walk a scheduled sequence step by step, updating the work buffer x in
+    place where the step allows (gates, windows); rotations return a new
+    buffer."""
+    from .window_gate import window_apply
+    for mre, mim, ws in zip(mres, mims, wires_seq):
+        if ws[0] == 'rot':
+            x = _rotate_planar(x, ws[1], n)
+        elif ws[0] == 'win':
+            x = window_apply(x, mre, mim, n, ws[1])
+        else:
+            x = planar_apply(x, mre, mim, n, ws)
+    return x
+
+
+def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """Apply a scheduled sequence of unitaries to the planar state x and
+    return the final state (forward only; x is not modified).
+
+    When the whole sequence is windows + relabels and 14 <= n <= 19, it runs
+    as ONE launch of the window-chain kernel (ops/chain_kernel.py). Otherwise
+    x is copied once into a work buffer and each step runs its own kernel."""
+    from .chain_kernel import chain_fused_ok, window_chain_fwd
+    if x.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
+        return window_chain_fwd(x, mres, mims, n, wires_seq)
+    return _run_steps(x.clone(), mres, mims, n, wires_seq)
+
+
+def planar_pauli_expectation(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """Re<x|P|x> for a Hermitian Pauli string P given as a scheduled chain of
+    constant k <= 3 wire blocks (relabels close back to the identity
+    labeling, so Px ends aligned with x)."""
+    ox = planar_chain(x, mres, mims, n, wires_seq)
+    return torch.sum(x[..., 0, :] * ox[..., 0, :] + x[..., 1, :] * ox[..., 1, :], dim=-1)
+

@@ -46,3 +46,9 @@ if os.path.isdir(REFERENCE_SRC) and REFERENCE_SRC not in sys.path:
                 for _a in _attrs:
                     setattr(_mod, _a, type(_a, (), {}))
                 sys.modules[_name] = _mod
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs an NVIDIA GPU (CUDA kernels of deepquantum_tpu_torch); '
+        'skipped without one; on the card run `pytest --noconftest -m cuda tests/test_torch_cuda.py`')
