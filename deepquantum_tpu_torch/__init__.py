@@ -5,11 +5,16 @@ the same circuits under the same public names with PyTorch, on the CPU
 through plain torch and on an NVIDIA H100 through hand-written CUDA kernels
 (``csrc/``). It never imports JAX.
 
+The default device is the CUDA card; ``set_device('cpu')`` or
+``device='cpu'`` asks for the CPU.
+
     import deepquantum_tpu_torch as dqt
-    cir = dqt.QubitCircuit(18, device='cuda')
+    cir = dqt.QubitCircuit(18)                  # on the card
     ...
-    with torch.inference_mode():
+    with torch.inference_mode():                # serving
         cir.expectation()
+    p = cir.params.requires_grad_()             # training
+    cir.expectation(params=p)[0].backward()     # fills p.grad
 """
 
 from .circuit import Observable, QubitCircuit

@@ -1,16 +1,19 @@
-"""QubitCircuit: the qubit-circuit API of the PyTorch port (forward slice).
+"""QubitCircuit: the qubit-circuit API of the PyTorch port.
 
 PyTorch counterpart of the ``deepquantum_tpu/circuit.py`` subset that the
-serving path uses: build a circuit, run ``forward`` on one state and take
-Pauli-string ``expectation`` values. The circuit records an op list (the IR)
-plus one flat parameter vector; simulation runs eagerly on the circuit's
-device.
+serving and training paths use: build a circuit, run ``forward`` on one
+state, take Pauli-string ``expectation`` values, and differentiate them in
+the parameters (``expectation(params=p)[0].backward()`` with ``p`` a leaf
+that requires grad). The circuit records an op list (the IR) plus one flat
+parameter vector; simulation runs eagerly on the circuit's device.
 
 Routing is a pure function of the dtype, n, the plan and the device: at
 complex64 with n >= 10 and every fused group a unitary on <= 3 wires, the
 state runs as float32 planes through the planar engine (ops/planar_gate.py,
 its window scheduler and its CUDA kernels on a CUDA device); everything
-else runs the complex einsum engine (ops/apply.py).
+else runs the complex einsum engine (ops/apply.py). Gradients follow the
+route: the planar engine's chain has an adjoint backward over its own
+kernels, the einsum engine is plain autograd.
 """
 
 from __future__ import annotations
@@ -96,12 +99,17 @@ class QubitCircuit:
         init_state: 'zeros' | 'equal' | 'ghz'/'GHZ'/'entangle' | array | QubitState.
         name: optional label.
         device: where states, parameters and matrices live (default: the
-            config's default device). 'cuda' without CUDA raises.
+            config's default device, which is the CUDA card unless
+            ``set_device`` chose another). 'cuda' without CUDA raises.
     """
 
     #: max combined wire support of one fused gate group (the JAX package's
     #: default, K = 2, kept so that plans are identical)
     fuse_max_support: int = 2
+    #: run a gate step of the planar backward as the single fused kernel
+    #: (planar_bwd_fused) instead of apply + grad + apply (default off, as
+    #: the JAX package's switch)
+    fused_bwd: bool = False
 
     def __init__(self, nqubit: int, init_state: Any = 'zeros', name: str | None = None,
                  device=None) -> None:
@@ -352,7 +360,8 @@ class QubitCircuit:
         from .ops.planar_gate import from_planar, planar_chain, to_planar
         n = self.nqubit
         mres, mims, wseq = self._planar_seq(full_params)
-        p = planar_chain(to_planar(x.reshape(-1)), mres, mims, n, wseq)
+        p = planar_chain(to_planar(x.reshape(-1)), mres, mims, n, wseq,
+                         fused_bwd=self.fused_bwd)
         return from_planar(p).reshape([2] * n)
 
     def _sim_tensor(self, full_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

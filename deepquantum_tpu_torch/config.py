@@ -1,6 +1,9 @@
 """Global configuration for deepquantum_tpu_torch: dtype policy and device.
 
-PyTorch counterpart of ``deepquantum_tpu/config.py``. complex64 is the
+PyTorch counterpart of ``deepquantum_tpu/config.py``. The default device is
+the CUDA card: circuits, states and parameters built without a ``device``
+land there, and raise on a machine that has none. ``set_device('cpu')`` (or
+``device='cpu'`` at the call) asks for the CPU. complex64 is the
 default (two float32 planes on the planar engine); complex128 runs the
 complex einsum engine. Quantum amplitudes need full-precision float32
 products everywhere: TF32 keeps about three decimal digits and drifts
@@ -19,7 +22,7 @@ __all__ = ['set_dtype', 'cdtype', 'rdtype', 'set_device', 'default_device', 'res
 
 _COMPLEX = torch.complex64
 _REAL = torch.float32
-_DEVICE = torch.device('cpu')
+_DEVICE = None           # None: the CUDA card, resolved at first use (not at import)
 
 _DTYPES = {
     'complex64': (torch.complex64, torch.float32),
@@ -48,21 +51,25 @@ def rdtype() -> torch.dtype:
     return _REAL
 
 
+def default_device() -> torch.device:
+    """Current default device (the CUDA card unless ``set_device`` chose
+    another)."""
+    return torch.device('cuda') if _DEVICE is None else _DEVICE
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device (the default device when None). Asking
-    for a CUDA device on a machine without one raises."""
-    dev = _DEVICE if device is None else torch.device(device)
+    for a CUDA device, explicitly or by default, on a machine without one
+    raises."""
+    dev = default_device() if device is None else torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'device {dev} requested but CUDA is not available')
+        raise RuntimeError(f"device {dev} requested but CUDA is not available; call "
+                           "set_device('cpu') or pass device='cpu' to run on the CPU")
     return dev
 
 
 def set_device(device) -> None:
-    """Set the default device for new circuits and states."""
+    """Set the default device for new circuits and states; ``None`` restores
+    the default (the CUDA card)."""
     global _DEVICE
-    _DEVICE = resolve_device(device)
-
-
-def default_device() -> torch.device:
-    """Current default device."""
-    return _DEVICE
+    _DEVICE = None if device is None else resolve_device(device)

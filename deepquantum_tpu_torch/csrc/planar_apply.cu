@@ -16,23 +16,12 @@
 // machinery (XOR lane/sublane rolls, head/mid/tail split, row blocks) is
 // carried over: the card gathers amplitudes by address.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "planar_group.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = dq::kGateThreads;
 
-// Insert a zero bit at position b of i: the bits at and above b move up one.
-__device__ __forceinline__ uint64_t insert_zero(uint64_t i, int b) {
-  const uint64_t low = i & ((uint64_t(1) << b) - 1);
-  return ((i >> b) << (b + 1)) | low;
-}
-
-// bits[j] is the amplitude bit of the j-th sorted wire (n - 1 - wire), so
-// bits[0] > bits[1] > bits[2]; gate row/column index bit (K - 1 - j)
-// belongs to wire j.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 planar_apply_kernel(float* xr, float* xi, const float* __restrict__ mre,
@@ -50,19 +39,13 @@ planar_apply_kernel(float* xr, float* xi, const float* __restrict__ mre,
   const uint64_t stride = uint64_t(gridDim.x) * blockDim.x;
   for (uint64_t g = uint64_t(blockIdx.x) * blockDim.x + threadIdx.x; g < ngroups;
        g += stride) {
-    uint64_t base = g;
-#pragma unroll
-    for (int j = K - 1; j >= 0; --j) base = insert_zero(base, bits[j]);  // ascending bits
+    const uint64_t base = dq::group_base<K>(g, bits);
     uint64_t off[D];
     float vr[D];
     float vi[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      uint64_t o = base;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        if ((c >> (K - 1 - j)) & 1) o |= uint64_t(1) << bits[j];
-      }
+      const uint64_t o = dq::group_offset<K>(base, c, bits);
       off[c] = o;
       vr[c] = xr[o];
       vi[c] = xi[o];

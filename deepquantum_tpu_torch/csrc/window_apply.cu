@@ -28,7 +28,7 @@ window_apply_kernel(const float* __restrict__ wre, const float* __restrict__ wim
   auto& s = *reinterpret_cast<dq::WindowSmem<kTileCols>*>(smem_raw);
   const int64_t tiles = R / kTileCols;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    dq::window_tile<kTileCols>(wre, wim, xr, xi, R, tile * kTileCols, s);
+    dq::window_tile<kTileCols>(wre, wim, xr, xi, xr, xi, R, tile * kTileCols, s);
   }
 }
 

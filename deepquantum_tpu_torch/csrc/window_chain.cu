@@ -15,9 +15,10 @@
 // place on the current buffer; its windows arrive as a compact
 // (n_win, 128, 128) stack. A rot step relabels the qubit positions like
 // _rot2 / _rotate_planar: the plane viewed as (2^d, 2^(n - d)) is
-// transposed, through 32 x 32 shared-memory tiles, into the other buffer,
-// and the buffers swap roles. The grid is sized from the occupancy
-// calculator so that every block is resident, which grid.sync() requires.
+// transposed, through 32 x 32 shared-memory tiles (rotate_planes in
+// window_tile.cuh), into the other buffer, and the buffers swap roles. The
+// grid is sized from the occupancy calculator so that every block is
+// resident, which grid.sync() requires.
 // (A thread-block cluster holding the state in distributed shared memory
 // does not fit at n = 18: 8 x 227 KB is less than 2 MiB.)
 
@@ -30,35 +31,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kChainCols = 16;   // tile columns of a win step
-constexpr int kT = 32;           // edge of a transpose tile
+using dq::kT;
 
 static_assert(sizeof(dq::WindowSmem<kChainCols>) >= sizeof(float) * kT * (kT + 1),
               "the transpose tile must fit the window tile's shared memory");
-
-// Both planes of `in`, each viewed as (P, Q) = (2^d, 2^(n - d)), transposed
-// into `out` as (Q, P). Plain loads: `in` was written earlier in the launch.
-__device__ void rotate_planes(const float* in, float* out, int n, int d,
-                              float (*tile)[kT + 1]) {
-  const int64_t N = int64_t(1) << n;
-  const int64_t P = int64_t(1) << d;
-  const int64_t Q = int64_t(1) << (n - d);
-  const int64_t tiles_q = Q / kT;
-  const int64_t per_plane = (P / kT) * tiles_q;
-  const int tx = threadIdx.x % kT;
-  const int ty = threadIdx.x / kT;
-  constexpr int kRowStep = dq::kWinThreads / kT;
-  for (int64_t tt = blockIdx.x; tt < 2 * per_plane; tt += gridDim.x) {
-    const int64_t plane = tt / per_plane;
-    const int64_t ti = (tt % per_plane) / tiles_q;
-    const int64_t tj = (tt % per_plane) % tiles_q;
-    const float* src = in + plane * N;
-    float* dst = out + plane * N;
-    for (int r = ty; r < kT; r += kRowStep) tile[r][tx] = src[(ti * kT + r) * Q + tj * kT + tx];
-    __syncthreads();
-    for (int r = ty; r < kT; r += kRowStep) dst[(tj * kT + r) * P + ti * kT + tx] = tile[tx][r];
-    __syncthreads();
-  }
-}
 
 // table: nstep rows of (kind, delta, window index); kind 1 = window,
 // 0 = relabel by delta. a holds the input state; the result ends in a after
@@ -82,10 +58,10 @@ window_chain_fwd_kernel(const int* __restrict__ table, int nstep, const float* _
       const float* wr = wre + w * dq::kWinRows * dq::kWinRows;
       const float* wi = wim + w * dq::kWinRows * dq::kWinRows;
       for (int64_t t = blockIdx.x; t < win_tiles; t += gridDim.x) {
-        dq::window_tile<kChainCols>(wr, wi, cur, cur + N, R, t * kChainCols, win);
+        dq::window_tile<kChainCols>(wr, wi, cur, cur + N, cur, cur + N, R, t * kChainCols, win);
       }
     } else {
-      rotate_planes(cur, nxt, n, table[3 * s + 1], tile);
+      dq::rotate_planes(cur, nxt, n, table[3 * s + 1], tile);
       float* tmp = cur;
       cur = nxt;
       nxt = tmp;

@@ -1,6 +1,10 @@
-// The window tile body shared by K2 (window_apply.cu) and the win steps of
-// K3 (window_chain.cu): y = W x for one tile of TC columns of the state
-// viewed as two (128, R) float32 planes, R = 2^(n - 7), written back in place.
+// The tile bodies shared by K2 (window_apply.cu) and the chain kernels K3
+// (window_chain.cu) and K4 (window_chain_bwd.cu).
+//
+// window_tile: y = W x for one tile of TC columns of the state viewed as two
+// (128, R) float32 planes, R = 2^(n - 7), written back in place or into
+// another buffer. rotate_planes: a wire relabel of both planes, a transpose
+// through 32 x 32 shared-memory tiles into another buffer.
 //
 // The tile of both planes is staged in shared memory, W is staged in chunks
 // of 32 columns (transposed, so a thread reads its rows as float4), and each
@@ -31,12 +35,13 @@ struct WindowSmem {
 // All kWinThreads threads of the block call this together. W (wre, wim,
 // row-major 128 x 128) must not change during the kernel (read through the
 // read-only cache); the state planes xr/xi are read with plain loads, since
-// a persistent kernel writes them between calls.
+// a persistent kernel writes them between calls. The result goes to yr/yi,
+// which may be xr/xi themselves (in place) or the planes of another buffer.
 template <int TC>
 __device__ __forceinline__ void window_tile(const float* __restrict__ wre,
-                                            const float* __restrict__ wim, float* xr,
-                                            float* xi, int64_t R, int64_t c0,
-                                            WindowSmem<TC>& s) {
+                                            const float* __restrict__ wim, const float* xr,
+                                            const float* xi, float* yr, float* yi, int64_t R,
+                                            int64_t c0, WindowSmem<TC>& s) {
   constexpr int kRows = kWinRows * TC / kWinThreads;   // outputs per thread
   static_assert(kRows % 4 == 0, "rows per thread must be a multiple of 4");
   const int t = threadIdx.x;
@@ -83,13 +88,42 @@ __device__ __forceinline__ void window_tile(const float* __restrict__ wre,
       }
     }
   }
-  // in place: only this block reads these columns, and it has staged them
+  // in place is safe: only this block reads these columns, and it has staged them
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    xr[(r0 + i) * R + c0 + col] = acc_r[i];
-    xi[(r0 + i) * R + c0 + col] = acc_i[i];
+    yr[(r0 + i) * R + c0 + col] = acc_r[i];
+    yi[(r0 + i) * R + c0 + col] = acc_i[i];
   }
   __syncthreads();   // shared memory is reused by the next tile
+}
+
+constexpr int kT = 32;   // edge of a transpose tile
+
+// Both planes of `in`, each viewed as (P, Q) = (2^d, 2^(n - d)), transposed
+// into `out` as (Q, P): the qubit positions rotate left by d. All threads of
+// the block call this together; the blocks of the grid share the tiles.
+// Plain loads: `in` was written earlier in the launch.
+__device__ __forceinline__ void rotate_planes(const float* in, float* out, int n, int d,
+                                              float (*tile)[kT + 1]) {
+  const int64_t N = int64_t(1) << n;
+  const int64_t P = int64_t(1) << d;
+  const int64_t Q = int64_t(1) << (n - d);
+  const int64_t tiles_q = Q / kT;
+  const int64_t per_plane = (P / kT) * tiles_q;
+  const int tx = threadIdx.x % kT;
+  const int ty = threadIdx.x / kT;
+  constexpr int kRowStep = kWinThreads / kT;
+  for (int64_t tt = blockIdx.x; tt < 2 * per_plane; tt += gridDim.x) {
+    const int64_t plane = tt / per_plane;
+    const int64_t ti = (tt % per_plane) / tiles_q;
+    const int64_t tj = (tt % per_plane) % tiles_q;
+    const float* src = in + plane * N;
+    float* dst = out + plane * N;
+    for (int r = ty; r < kT; r += kRowStep) tile[r][tx] = src[(ti * kT + r) * Q + tj * kT + tx];
+    __syncthreads();
+    for (int r = ty; r < kT; r += kRowStep) dst[(tj * kT + r) * P + ti * kT + tx] = tile[tx][r];
+    __syncthreads();
+  }
 }
 
 }  // namespace dq

@@ -16,11 +16,13 @@ from .gate import GATE_REGISTRY, GateOp
 __all__ = ['from_jax', 'params_from_numpy']
 
 
-def params_from_numpy(a, device=None, dtype=None) -> torch.Tensor:
-    """A parameter vector (numpy or array-like) as a 1-D real tensor."""
+def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -> torch.Tensor:
+    """A parameter vector (numpy or array-like) as a 1-D real tensor; with
+    ``requires_grad`` a leaf whose ``.grad`` a backward pass fills."""
     dtype = rdtype() if dtype is None else dtype
-    return torch.as_tensor(np.array(a, dtype=np.float64).reshape(-1),
-                           device=resolve_device(device)).to(dtype)
+    p = torch.as_tensor(np.array(a, dtype=np.float64).reshape(-1),
+                        device=resolve_device(device)).to(dtype)
+    return p.requires_grad_(requires_grad)
 
 
 def from_jax(cir, device=None):

@@ -29,7 +29,8 @@ _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / 'csrc'
 BUILD_DIR = _PKG_DIR / '_build'
 LIB_NAME = 'libdq_kernels.so'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+# --threads 0: nvcc compiles the sources side by side, one thread per CPU
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '--threads', '0',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
@@ -39,6 +40,12 @@ _SIGNATURES = {
     'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I),   # x, mre, mim, n, k, bits[3]
     'dq_window_apply_f32': (_P, _P, _P, _I),                   # x, mre, mim, n
     'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I),   # table, nstep, wre, wim, a, b, n
+    # g, x, parts, nblocks, n, k, bits[3]
+    'dq_planar_grad_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # y, g, mre_t, mim_t, parts, nblocks, n, k, bits[3]
+    'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, n
+    'dq_window_chain_bwd_f32': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I),
 }
 
 _lock = threading.Lock()
@@ -123,8 +130,9 @@ def launch(name: str, device: torch.device, *args) -> None:
 def _no_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f'{name}: the CUDA route is forward-only; backward kernels are ROADMAP queue 2 '
-            '(window_chain_bwd, _planar_grad). Run under torch.inference_mode().')
+            f'{name}: a kernel wrapper is not differentiable when called directly; gradients '
+            'come from planar_chain and planar_pauli_expectation (QubitCircuit.forward / '
+            'expectation with params=). Detach the tensor or call under torch.no_grad().')
 
 
 def check_state(x: torch.Tensor, n: int, name: str) -> None:

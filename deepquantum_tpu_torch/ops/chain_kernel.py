@@ -1,13 +1,19 @@
 """Window-chain engine: a whole scheduled window sequence in one launch.
 
-PyTorch counterpart of ``deepquantum_tpu/ops/chain_kernel.py`` (forward
-only). A sequence of ('win', w) / ('rot', d) steps from
+PyTorch counterpart of ``deepquantum_tpu/ops/chain_kernel.py``. A sequence of ('win', w) / ('rot', d) steps from
 ops/window_gate.py::schedule_window_seq runs as ONE cooperative launch of
 ``csrc/window_chain.cu`` on a CUDA tensor: the state stays in two ping-pong
 buffers that fit the H100's L2 at 14 <= n <= 19 (the counterpart of the TPU
 kernel's VMEM-resident state), a device-side step table drives the walk,
 and the windows ride as a compact (n_win, 128, 128) stack. On a CPU tensor
 the plain twin ``window_chain_plain`` walks the same steps in Python.
+
+The backward, ``window_chain_bwd``, is the adjoint recurrence of
+``planar_chain`` over the same sequence in ONE cooperative launch of
+``csrc/window_chain_bwd.cu``: it carries the final state y and its
+cotangent g (each with a ping-pong partner) through the steps in reverse,
+at a window x = W^H y, dW = g x^H, g = W^H g, at a relabel both are
+relabelled back. Its twin ``window_chain_bwd_plain`` is the Python loop.
 
 The JAX kernel's per-step zero window blocks at rot steps and its hand-split
 bf16 matmuls are TPU artefacts and are not carried over.
@@ -17,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ['chain_fused_ok', 'window_chain_fwd', 'window_chain_plain']
+__all__ = ['chain_fused_ok', 'window_chain_fwd', 'window_chain_plain', 'window_chain_bwd',
+           'window_chain_bwd_plain']
 
 _MAX_N = 19
 _MIN_N = 14
@@ -37,10 +44,12 @@ def chain_fused_ok(wires_seq, n: int, mres) -> bool:
     return all(m.dim() == 2 for m in mres if m is not None)
 
 
-def _step_table(wires_seq, n: int):
+def _step_table(wires_seq, n: int, backward: bool = False):
     """Host-side step table, one row per step: (kind, delta, window index),
     kind 1 for a window (its index into the compact stack), 0 for a
-    relabel by delta. Returns (rows, window step positions)."""
+    relabel by delta. Returns (rows, window step positions). For the
+    backward walk the rows are reversed and every delta inverted (n - d);
+    the window indices still count the windows in forward order."""
     rows = []
     win_steps = []
     for i, st in enumerate(wires_seq):
@@ -48,7 +57,22 @@ def _step_table(wires_seq, n: int):
             rows.append((1, 0, len(win_steps)))
             win_steps.append(i)
         else:
-            rows.append((0, st[1] % n, 0))
+            rows.append((0, (n - st[1]) % n if backward else st[1] % n, 0))
+    return (rows[::-1] if backward else rows), win_steps
+
+
+def _check_chain(name: str, x: torch.Tensor, mres, n: int, wires_seq, backward: bool):
+    """Validate a one-launch call on the card; (table rows, window steps)."""
+    from . import _cuda
+    if not chain_fused_ok(wires_seq, n, mres):
+        raise ValueError(f'{name}: the sequence does not qualify (chain_fused_ok)')
+    w = next(s[1] for s in wires_seq if s[0] == 'win')
+    if w != 7:
+        raise ValueError(f'{name}: the CUDA kernel takes w = 7, got {w}')
+    _cuda.check_state(x, n, name)
+    rows, win_steps = _step_table(wires_seq, n, backward)
+    if any(kind == 0 and not 7 <= d <= n - 7 for kind, d, _ in rows):
+        raise ValueError(f'{name}: relabel deltas must lie in [7, n - 7]')
     return rows, win_steps
 
 
@@ -74,15 +98,7 @@ def window_chain_fwd(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Te
     if x.device.type == 'cpu':
         return window_chain_plain(x, mres, mims, n, wires_seq)
     from . import _cuda
-    if not chain_fused_ok(wires_seq, n, mres):
-        raise ValueError('window_chain_fwd: the sequence does not qualify (chain_fused_ok)')
-    w = next(s[1] for s in wires_seq if s[0] == 'win')
-    if w != 7:
-        raise ValueError(f'window_chain_fwd: the CUDA kernel takes w = 7, got {w}')
-    _cuda.check_state(x, n, 'window_chain_fwd')
-    rows, win_steps = _step_table(wires_seq, n)
-    if any(kind == 0 and not 7 <= d <= n - 7 for kind, d, _ in rows):
-        raise ValueError('window_chain_fwd: relabel deltas must lie in [7, n - 7]')
+    rows, win_steps = _check_chain('window_chain_fwd', x, mres, n, wires_seq, backward=False)
     wre = torch.stack([mres[i] for i in win_steps])
     wim = torch.stack([mims[i] for i in win_steps])
     wre, wim = _cuda.check_planes('window_chain_fwd', x, (len(win_steps), 128, 128), wre, wim)
@@ -97,3 +113,72 @@ def window_chain_fwd(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Te
 
 
 window_chain_fwd.launches = 0
+
+
+def window_chain_bwd_plain(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq):
+    """Plain torch twin of the backward window-chain kernel: the reverse
+    walk as a Python loop of out-of-place steps. Returns (x, g_in, dres,
+    dims) with dres/dims aligned to the step list (None at relabel slots);
+    y and g are left untouched."""
+    from .planar_gate import _rotate_planar
+    from .window_gate import window_apply_plain, window_grad
+    dres = [None] * len(wires_seq)
+    dims = [None] * len(wires_seq)
+    for i in range(len(wires_seq) - 1, -1, -1):
+        st = wires_seq[i]
+        if st[0] == 'rot':
+            y = _rotate_planar(y, -st[1], n)
+            g = _rotate_planar(g, -st[1], n)
+            continue
+        wre_t, wim_t = mres[i].t(), -mims[i].t()
+        y = window_apply_plain(y, wre_t, wim_t, n, st[1])
+        dres[i], dims[i] = window_grad(g, y, n, st[1])
+        g = window_apply_plain(g, wre_t, wim_t, n, st[1])
+    return y, g, dres, dims
+
+
+def window_chain_bwd(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq):
+    """One-launch backward over a qualifying scheduled sequence: from the
+    final state y and its cotangent g, both (2, 2^n) planes, give
+    (x, g_in, dres, dims): the chain's input state, the input cotangent and
+    the window-plane cotangents aligned to the step list (None at relabel
+    slots). Neither y nor g is modified: both are copied into work buffers.
+
+    CUDA tensors launch ``csrc/window_chain_bwd.cu`` (float32, w = 7) and
+    raise if the build or the launch fails; CPU tensors take the twin."""
+    if y.device.type == 'cpu':
+        return window_chain_bwd_plain(y, g, mres, mims, n, wires_seq)
+    from . import _cuda
+    if g.device != y.device or tuple(g.shape) != tuple(y.shape):
+        raise ValueError(f'window_chain_bwd: g {tuple(g.shape)} on {g.device}, '
+                         f'y {tuple(y.shape)} on {y.device}')
+    rows, win_steps = _check_chain('window_chain_bwd', y, mres, n, wires_seq, backward=True)
+    # the kernel applies W^H as a plain window product with the (W_re^T,
+    # -W_im^T) planes: one small transpose of the stack, outside the kernel
+    wre_t = torch.stack([mres[i] for i in win_steps]).transpose(1, 2)
+    wim_t = -torch.stack([mims[i] for i in win_steps]).transpose(1, 2)
+    wre_t, wim_t = _cuda.check_planes('window_chain_bwd', y, (len(win_steps), 128, 128),
+                                      wre_t, wim_t)
+    table = torch.tensor(rows, dtype=torch.int32).to(y.device)
+    # work buffers: y is the saved forward output and g is autograd's (it may
+    # arrive non-contiguous); each gets a ping-pong partner
+    ya = y.clone()
+    ga = g.clone(memory_format=torch.contiguous_format)
+    _cuda.check_state(ga, n, 'window_chain_bwd')
+    yb = torch.empty_like(ya)
+    gb = torch.empty_like(ga)
+    dw = torch.empty((2, len(win_steps), 128, 128), dtype=torch.float32, device=y.device)
+    _cuda.launch('dq_window_chain_bwd_f32', y.device, table, len(rows), wre_t, wim_t,
+                 ya, yb, ga, gb, dw[0], dw[1], n)
+    window_chain_bwd.launches += 1
+    # y swaps buffers at every relabel, g at every step
+    n_rot = len(rows) - len(win_steps)
+    dres = [None] * len(wires_seq)
+    dims = [None] * len(wires_seq)
+    for k, i in enumerate(win_steps):
+        dres[i] = dw[0, k]
+        dims[i] = dw[1, k]
+    return (yb if n_rot % 2 else ya), (gb if len(rows) % 2 else ga), dres, dims
+
+
+window_chain_bwd.launches = 0

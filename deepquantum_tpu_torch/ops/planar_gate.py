@@ -1,12 +1,22 @@
 """Planar-f32 gate engine: the statevector as two float32 planes.
 
-PyTorch counterpart of ``deepquantum_tpu/ops/planar_gate.py`` (forward
-only). The state lives as (2, 2^n) float32 planes (re, im); every fused gate
-group of k <= 3 wires is one in-place pass of the ``planar_apply`` kernel
-(``csrc/planar_apply.cu`` on a CUDA tensor, the plain twin
-``planar_evolve_xla`` on a CPU tensor). Gate matrices arrive as real planes
-in sorted-wire order. Wire 0 is the most significant bit of the amplitude
-index (the ``evolve_state`` convention).
+PyTorch counterpart of ``deepquantum_tpu/ops/planar_gate.py`` (forward and
+first-order backward). The state lives as (2, 2^n) float32 planes (re, im);
+every fused gate group of k <= 3 wires is one in-place pass of the
+``planar_apply`` kernel (``csrc/planar_apply.cu`` on a CUDA tensor, the
+plain twin ``planar_evolve_xla`` on a CPU tensor). Gate matrices arrive as
+real planes in sorted-wire order. Wire 0 is the most significant bit of the
+amplitude index (the ``evolve_state`` convention).
+
+Gradients come from two ``torch.autograd.Function``s, ``planar_chain`` and
+``planar_pauli_expectation``. The chain's backward is the adjoint method:
+the forward keeps only the final state, and the backward walks the steps in
+reverse, recovering each step's input with U^H, reducing the matrix
+cotangent (``planar_grad``, ``csrc/planar_grad.cu``) and carrying the state
+cotangent on with U^H; ``planar_bwd_fused`` (``csrc/planar_bwd_fused.cu``)
+does the three in one pass. Both are first order only (second order raises).
+The kernel wrappers themselves are not differentiable: called directly with
+a tensor that requires grad, on the card, they raise.
 
 The relabel scheduler (``schedule_rotations``) and its costs are ported line
 for line so that the port's step lists equal the JAX package's; they were
@@ -14,17 +24,22 @@ tuned on TPU tile geometry, and whether Hopper wants them is a later
 measurement. ``_rotate_planar`` stays plain torch, as the JAX package leaves
 it to XLA.
 
-In-place rule: ``planar_apply`` updates its argument. ``planar_chain`` and
-``planar_pauli_expectation`` copy the caller's state once into a work buffer
-and never write to a tensor the caller holds.
+In-place rule: ``planar_apply`` and ``planar_bwd_fused`` update their
+state arguments. ``planar_chain`` and ``planar_pauli_expectation`` copy the
+caller's state (and, in the backward, autograd's cotangent) once into work
+buffers and never write to a tensor the caller holds.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ['planar_apply', 'planar_evolve_xla', 'planar_chain', 'planar_pauli_expectation',
-           'schedule_planar_seq', 'schedule_rotations', 'to_planar', 'from_planar']
+__all__ = ['planar_apply', 'planar_evolve_xla', 'planar_grad', 'planar_grad_xla',
+           'planar_bwd_fused', 'planar_bwd_fused_plain', 'planar_chain',
+           'planar_pauli_expectation', 'schedule_planar_seq', 'schedule_rotations',
+           'to_planar', 'from_planar']
 
 _T_BITS = 7            # TPU lane block (scheduler geometry only)
 _RB_BITS_MAX = 7       # TPU row block (scheduler geometry only)
@@ -107,18 +122,131 @@ def planar_apply(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, 
     if x.dim() != 2:
         raise NotImplementedError('planar_apply: the batched (B, 2, 2^n) form has no CUDA '
                                   'kernel yet (ROADMAP queue 2, batched forward)')
+    bits = _gate_bits('planar_apply', n, ws)
     k = len(ws)
-    if not 1 <= k <= 3 or len(set(ws)) != k or not all(0 <= w < n for w in ws):
-        raise ValueError(f'planar_apply: wires {ws} on n={n}')
     _cuda.check_state(x, n, 'planar_apply')
     mre, mim = _cuda.check_planes('planar_apply', x, (1 << k, 1 << k), mre, mim)
-    bits = [n - 1 - w for w in ws] + [0] * (3 - k)
     _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, n, k, *bits)
     planar_apply.launches += 1
     return x
 
 
 planar_apply.launches = 0
+
+
+def _gate_bits(name: str, n: int, ws):
+    """Validate sorted wires ws on n qubits; the amplitude bits of the wires
+    padded to three entries."""
+    k = len(ws)
+    if not 1 <= k <= 3 or len(set(ws)) != k or not all(0 <= w < n for w in ws):
+        raise ValueError(f'{name}: wires {ws} on n={n}')
+    return [n - 1 - w for w in ws] + [0] * (3 - k)
+
+
+# ----------------------------------------------------------------- kernel K5
+_GRAD_THREADS = 256     # threads per block of the reduction kernels (csrc)
+_GRAD_MAX_BLOCKS = 1024
+
+
+def _grad_blocks(n: int, k: int) -> int:
+    """Blocks of the reduction kernels: one thread per 2^k-amplitude group
+    (two at k = 3, which splits the rows), a power of two capped so that
+    each thread walks several groups before the block reduces."""
+    threads = (1 << (n - k)) * (2 if k == 3 else 1)
+    if threads < _GRAD_THREADS:
+        raise ValueError(f'the CUDA reduction kernels need n - k >= 8, got n={n}, k={k}')
+    return min(_GRAD_MAX_BLOCKS, threads // _GRAD_THREADS)
+
+
+def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
+    """Plain torch twin of the ``planar_grad`` kernel (named after the JAX
+    package's XLA twin): matrix-plane cotangents of y = U x from the output
+    cotangent g and the gate's input x,
+    dRe[i, j] = sum_m gr_i[m] xr_j[m] + gi_i[m] xi_j[m],
+    dIm[i, j] = sum_m gi_i[m] xr_j[m] - gr_i[m] xi_j[m],
+    over the 2^(n-k) non-gate positions m, rows/columns in sorted-wire order."""
+    ws = sorted(wires)
+    gv, _ = _combo_view(g, n, ws)
+    xv, _ = _combo_view(x, n, ws)
+    dre = gv[0] @ xv[0].T + gv[1] @ xv[1].T
+    dim = gv[1] @ xv[0].T - gv[0] @ xv[1].T
+    return dre, dim
+
+
+def planar_grad(g: torch.Tensor, x: torch.Tensor, n: int, wires):
+    """(dRe, dIm), each (2^k, 2^k), of a k <= 3 wire gate from the planar
+    cotangent g and the gate's input x, both (2, 2^n); pure reads.
+
+    CUDA tensors launch ``csrc/planar_grad.cu`` (float32 only), which
+    leaves one partial per block that is summed here in a fixed order, and
+    raise if the build or the launch fails; CPU tensors take the twin
+    ``planar_grad_xla``."""
+    ws = tuple(sorted(wires))
+    if g.device.type == 'cpu':
+        return planar_grad_xla(g, x, n, ws)
+    from . import _cuda
+    bits = _gate_bits('planar_grad', n, ws)
+    _cuda.check_state(g, n, 'planar_grad')
+    _cuda.check_state(x, n, 'planar_grad')
+    if x.device != g.device:
+        raise ValueError(f'planar_grad: g on {g.device}, x on {x.device}')
+    k = len(ws)
+    nblocks = _grad_blocks(n, k)
+    parts = torch.empty((nblocks, 2, 1 << k, 1 << k), dtype=torch.float32, device=g.device)
+    _cuda.launch('dq_planar_grad_f32', g.device, g, x, parts, nblocks, n, k, *bits)
+    planar_grad.launches += 1
+    total = parts.sum(dim=0)
+    return total[0], total[1]
+
+
+planar_grad.launches = 0
+
+
+# ----------------------------------------------------------------- kernel K6
+def planar_bwd_fused_plain(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
+                           mim_t: torch.Tensor, n: int, wires):
+    """Plain torch twin of the ``planar_bwd_fused`` kernel: one backward gate
+    step as its three parts. mre_t/mim_t are the U^H planes (U_re^T,
+    -U_im^T). Returns new tensors (x, g', dRe, dIm) with x = U^H y,
+    g' = U^H g and the cotangent planes reduced from the RAW g against the
+    recovered x."""
+    x = planar_evolve_xla(y, mre_t, mim_t, n, wires)
+    dre, dim = planar_grad_xla(g, x, n, wires)
+    return x, planar_evolve_xla(g, mre_t, mim_t, n, wires), dre, dim
+
+
+def planar_bwd_fused(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
+                     mim_t: torch.Tensor, n: int, wires):
+    """One backward step of a k <= 3 wire gate in one pass: y becomes
+    x = U^H y and g becomes U^H g, both in place, and (dRe, dIm) come from
+    the raw g and the recovered x. Returns (y, g, dRe, dIm).
+
+    CUDA tensors launch ``csrc/planar_bwd_fused.cu`` (float32 only) and
+    raise if the build or the launch fails; CPU tensors take the twin."""
+    ws = tuple(sorted(wires))
+    if y.device.type == 'cpu':
+        x, g2, dre, dim = planar_bwd_fused_plain(y, g, mre_t, mim_t, n, ws)
+        y.copy_(x)
+        g.copy_(g2)
+        return y, g, dre, dim
+    from . import _cuda
+    bits = _gate_bits('planar_bwd_fused', n, ws)
+    _cuda.check_state(y, n, 'planar_bwd_fused')
+    _cuda.check_state(g, n, 'planar_bwd_fused')
+    if y.device != g.device or y.data_ptr() == g.data_ptr():
+        raise ValueError('planar_bwd_fused: y and g must be two tensors on one device')
+    k = len(ws)
+    mre_t, mim_t = _cuda.check_planes('planar_bwd_fused', y, (1 << k, 1 << k), mre_t, mim_t)
+    nblocks = _grad_blocks(n, k)
+    parts = torch.empty((nblocks, 2, 1 << k, 1 << k), dtype=torch.float32, device=y.device)
+    _cuda.launch('dq_planar_bwd_fused_f32', y.device, y, g, mre_t, mim_t, parts, nblocks, n, k,
+                 *bits)
+    planar_bwd_fused.launches += 1
+    total = parts.sum(dim=0)
+    return y, g, total[0], total[1]
+
+
+planar_bwd_fused.launches = 0
 
 
 # ----------------------------------------------------- wire-relabel schedule
@@ -283,23 +411,152 @@ def _run_steps(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
     return x
 
 
-def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
-    """Apply a scheduled sequence of unitaries to the planar state x and
-    return the final state (forward only; x is not modified).
-
-    When the whole sequence is windows + relabels and 14 <= n <= 19, it runs
-    as ONE launch of the window-chain kernel (ops/chain_kernel.py). Otherwise
-    x is copied once into a work buffer and each step runs its own kernel."""
+def _chain_forward(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """The chain without autograd: the final state in a new tensor. When the
+    whole sequence is windows + relabels and 14 <= n <= 19, it runs as ONE
+    launch of the window-chain kernel (ops/chain_kernel.py). Otherwise x is
+    copied once into a work buffer and each step runs its own kernel."""
     from .chain_kernel import chain_fused_ok, window_chain_fwd
     if x.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
         return window_chain_fwd(x, mres, mims, n, wires_seq)
     return _run_steps(x.clone(), mres, mims, n, wires_seq)
 
 
+def _conj_t(mre: torch.Tensor, mim: torch.Tensor):
+    """Planes of U^H from the planes of U: (U_re^T, -U_im^T)."""
+    return mre.t().contiguous(), -mim.t()
+
+
+def _chain_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq,
+                    fused_bwd: bool):
+    """The adjoint recurrence over a scheduled sequence: from the final state
+    y and its cotangent g give (g_in, dres, dims), dres/dims aligned to the
+    step list with None at relabel slots. Neither y nor g is written."""
+    from .chain_kernel import chain_fused_ok, window_chain_bwd
+    from .window_gate import window_apply, window_grad
+    if y.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
+        _, g_in, dres, dims = window_chain_bwd(y, g, mres, mims, n, wires_seq)
+        return g_in, dres, dims
+    y = y.clone(memory_format=torch.contiguous_format)
+    g = g.clone(memory_format=torch.contiguous_format)
+    dres = [None] * len(wires_seq)
+    dims = [None] * len(wires_seq)
+    for i in range(len(wires_seq) - 1, -1, -1):
+        ws = wires_seq[i]
+        if ws[0] == 'rot':
+            # a relabel is a constant permutation: undo it on both
+            y = _rotate_planar(y, -ws[1], n)
+            g = _rotate_planar(g, -ws[1], n)
+            continue
+        mre_t, mim_t = _conj_t(mres[i], mims[i])
+        if ws[0] == 'win':
+            # recover the window's input, reduce dW = g x^H, carry g on
+            window_apply(y, mre_t, mim_t, n, ws[1])
+            dres[i], dims[i] = window_grad(g, y, n, ws[1])
+            window_apply(g, mre_t, mim_t, n, ws[1])
+        elif fused_bwd:
+            _, _, dres[i], dims[i] = planar_bwd_fused(y, g, mre_t, mim_t, n, ws)
+        else:
+            planar_apply(y, mre_t, mim_t, n, ws)
+            dres[i], dims[i] = planar_grad(g, y, n, ws)
+            planar_apply(g, mre_t, mim_t, n, ws)
+    return g, dres, dims
+
+
+def _split_planes(planes, wires_seq):
+    """Tensor arguments of a Function back into step-aligned (mres, mims)
+    lists with None at relabel slots."""
+    half = len(planes) // 2
+    it_r, it_i = iter(planes[:half]), iter(planes[half:])
+    mres = [None if ws[0] == 'rot' else next(it_r) for ws in wires_seq]
+    mims = [None if ws[0] == 'rot' else next(it_i) for ws in wires_seq]
+    return mres, mims
+
+
+def _flat_planes(mres, mims, wires_seq):
+    """Step-aligned planes as flat tensor arguments: all re, then all im,
+    relabel slots left out."""
+    keep = [i for i, ws in enumerate(wires_seq) if ws[0] != 'rot']
+    return [mres[i] for i in keep] + [mims[i] for i in keep]
+
+
+def _first_order_only(backward):
+    """Refuse a backward that is itself being recorded (create_graph=True).
+    This stands in place of ``once_differentiable``, which only guards
+    cotangents that require grad: the adjoint backward also depends on the
+    saved state and planes, so a second derivative through it would
+    silently miss those terms."""
+    @functools.wraps(backward)
+    def guarded(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError('the planar engine is first order only: its adjoint backward '
+                               'cannot be differentiated again (create_graph=True)')
+        return backward(ctx, *grads)
+    return guarded
+
+
+class _PlanarChain(torch.autograd.Function):
+    """planar_chain with the adjoint (O(1) memory) backward."""
+
+    @staticmethod
+    def forward(ctx, x, n, wires_seq, fused_bwd, *planes):
+        mres, mims = _split_planes(planes, wires_seq)
+        y = _chain_forward(x, mres, mims, n, wires_seq)
+        ctx.save_for_backward(y, *planes)
+        ctx.spec = (n, wires_seq, fused_bwd)
+        return y
+
+    @staticmethod
+    @_first_order_only
+    def backward(ctx, g):
+        n, wires_seq, fused_bwd = ctx.spec
+        y, *planes = ctx.saved_tensors
+        mres, mims = _split_planes(planes, wires_seq)
+        g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd)
+        dplanes = [d.to(m.dtype) for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
+        return (g_in, None, None, None, *dplanes)
+
+
+def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq,
+                 fused_bwd: bool = False) -> torch.Tensor:
+    """Apply a scheduled sequence of unitaries to the planar state x and
+    return the final state (x is not modified). Differentiable in x and in
+    every matrix plane, first order only.
+
+    The forward stores only the FINAL state. The backward walks the steps in
+    reverse: it un-applies each unitary to recover its input (U^H y), reduces
+    the matrix cotangent and carries the state cotangent on (U^H g). When the
+    whole sequence is windows + relabels and 14 <= n <= 19, each direction is
+    ONE launch (ops/chain_kernel.py); otherwise each step runs its own
+    kernels, a gate step as three launches or, with ``fused_bwd``, as the
+    single ``planar_bwd_fused``. The recurrence is exact for unitary steps."""
+    wires_seq = tuple(wires_seq)
+    return _PlanarChain.apply(x, n, wires_seq, bool(fused_bwd),
+                              *_flat_planes(mres, mims, wires_seq))
+
+
+class _PauliExpectation(torch.autograd.Function):
+    """planar_pauli_expectation: keeps Px; d/dx = 2 g Px, no matrix
+    cotangent (the observable is constant)."""
+
+    @staticmethod
+    def forward(ctx, x, n, wires_seq, *planes):
+        mres, mims = _split_planes(planes, wires_seq)
+        ox = _chain_forward(x, mres, mims, n, wires_seq)
+        ctx.save_for_backward(ox)
+        return torch.sum(x[..., 0, :] * ox[..., 0, :] + x[..., 1, :] * ox[..., 1, :], dim=-1)
+
+    @staticmethod
+    @_first_order_only
+    def backward(ctx, g):
+        ox, = ctx.saved_tensors
+        return (2.0 * g[..., None, None] * ox, None, None, *[None] * (len(ctx.needs_input_grad) - 3))
+
+
 def planar_pauli_expectation(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
     """Re<x|P|x> for a Hermitian Pauli string P given as a scheduled chain of
     constant k <= 3 wire blocks (relabels close back to the identity
-    labeling, so Px ends aligned with x)."""
-    ox = planar_chain(x, mres, mims, n, wires_seq)
-    return torch.sum(x[..., 0, :] * ox[..., 0, :] + x[..., 1, :] * ox[..., 1, :], dim=-1)
-
+    labeling, so Px ends aligned with x). Differentiable in x, first order
+    only: the forward keeps Px and the backward is one elementwise pass."""
+    wires_seq = tuple(wires_seq)
+    return _PauliExpectation.apply(x, n, wires_seq, *_flat_planes(mres, mims, wires_seq))

@@ -1,7 +1,6 @@
 """Window engine: whole runs of gates fused into one dense 2^w x 2^w unitary.
 
-PyTorch counterpart of ``deepquantum_tpu/ops/window_gate.py`` (forward
-only). Runs of gates whose wires sit in the top w qubit positions (after a
+PyTorch counterpart of ``deepquantum_tpu/ops/window_gate.py``. Runs of gates whose wires sit in the top w qubit positions (after a
 cyclic relabel from ops/planar_gate.py) are multiplied into one window W on
 the host side of the kernel (small ``torch.matmul`` products, as the JAX
 package leaves them to XLA) and applied in one sweep:
@@ -12,6 +11,13 @@ by the ``window_apply`` kernel (``csrc/window_apply.cu``) on a CUDA tensor,
 or its plain twin ``window_apply_plain`` on a CPU tensor. ``window_width``
 and ``_MIN_COLS`` keep the JAX values (w = 7) so the plans are identical;
 whether Hopper prefers another width is a later measurement.
+
+In the backward walk of a per-step chain (n >= 20) a window's input is
+recovered with ``window_apply`` on the W^H planes and its cotangent comes
+from ``window_grad``: two large real products that the JAX package computes
+outside any kernel, so they stay ``torch.matmul`` here (full float32). The
+window products are differentiable torch, which carries dW back to the gate
+parameters.
 """
 
 from __future__ import annotations
@@ -21,8 +27,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ['window_apply', 'window_apply_plain', 'schedule_window_seq', 'plan_windows',
-           'window_width']
+__all__ = ['window_apply', 'window_apply_plain', 'window_grad', 'schedule_window_seq',
+           'plan_windows', 'window_width']
 
 _MIN_COLS = 7          # keep the column run >= 128: w <= n - 7
 
@@ -64,6 +70,18 @@ def window_apply(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, 
 
 
 window_apply.launches = 0
+
+
+def window_grad(g: torch.Tensor, x: torch.Tensor, n: int, w: int):
+    """Window-plane cotangents (dRe, dIm), each (2^w, 2^w), from the output
+    cotangent g and the recovered input x: dRe = gr xr^T + gi xi^T,
+    dIm = gi xr^T - gr xi^T on the (2^w, 2^(n-w)) views. Plain matmuls on
+    any device; pure reads."""
+    gv = g.reshape(2, 1 << w, -1)
+    xv = x.reshape(2, 1 << w, -1)
+    dre = gv[0] @ xv[0].T + gv[1] @ xv[1].T
+    dim = gv[1] @ xv[0].T - gv[0] @ xv[1].T
+    return dre, dim
 
 
 # ---------------------------------------------------------------- embedding

@@ -23,6 +23,14 @@ from test_torch_window import bench, jax_planar_seq
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu():
+    """The port's default device is the card; these tests ask for the CPU."""
+    dqt.set_device('cpu')
+    yield
+    dqt.set_device(None)
+
+
 @pytest.fixture()
 def c64():
     dq.set_dtype('complex64')

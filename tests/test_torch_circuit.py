@@ -22,6 +22,14 @@ from test_torch_window import bench
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu():
+    """The port's default device is the card; these tests ask for the CPU."""
+    dqt.set_device('cpu')
+    yield
+    dqt.set_device(None)
+
+
 @pytest.fixture()
 def c128():
     os.environ.pop('DQ_PLANAR', None)
@@ -150,3 +158,17 @@ def test_cuda_request_without_a_card_raises():
         pytest.skip('this machine has a CUDA card')
     with pytest.raises(RuntimeError):
         dqt.QubitCircuit(10, device='cuda')
+
+
+def test_default_device_is_the_card():
+    """With the default device untouched, a machine without CUDA refuses to
+    build a circuit and says how to ask for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('this machine has a CUDA card')
+    dqt.set_device(None)
+    assert dqt.default_device().type == 'cuda'
+    with pytest.raises(RuntimeError, match=r"set_device\('cpu'\)"):
+        dqt.QubitCircuit(4)
+    with pytest.raises(RuntimeError, match=r"set_device\('cpu'\)"):
+        dqt.params_from_numpy(np.zeros(3))
+    assert dqt.QubitCircuit(4, device='cpu').device.type == 'cpu'

@@ -8,8 +8,9 @@ without them (tests/conftest.py imports JAX, hence --noconftest):
 
 Tolerances: float32 with at most 8 products per amplitude (planar_apply,
 2e-6), 128-term sums (window_apply, 1e-5 absolute on unit-variance
-states), and up to ~30 chained windows (window_chain_fwd and the slice,
-1e-5).
+states), up to ~30 chained windows (window_chain_fwd, window_chain_bwd and
+the slice, 1e-5), and cotangent planes that sum 2^(n-k) products in another
+order than the twin's matmul (1e-5 of max|ref|; the H100 reads 2e-6 at n=22).
 """
 
 import numpy as np
@@ -48,7 +49,9 @@ def _state(n, rng, device):
     return torch.as_tensor(rng.standard_normal((2, 1 << n)), dtype=torch.float32, device=device)
 
 
-def _bench(n, layers, device):
+def _bench(n, layers, device=None, extra_cnot=None):
+    """The bench ansatz; with no device it lands on the default device,
+    which is the card."""
     cir = dqt.QubitCircuit(n, device=device)
     for _ in range(layers):
         for i in range(n):
@@ -56,9 +59,46 @@ def _bench(n, layers, device):
             cir.rz(i)
             cir.rx(i)
         cir.cnot_ring()
+        if extra_cnot is not None:
+            cir.cnot(*extra_cnot)
     cir.observable(list(range(n)), basis='x' * n)
     cir.init_para(n)
     return cir
+
+
+def _plane_close(got, want):
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+def _grad(cir):
+    p = cir.params.requires_grad_()
+    loss = cir.expectation(params=p)[0]
+    loss.backward()
+    return loss.detach(), p.grad
+
+
+@pytest.fixture()
+def twin_route(monkeypatch):
+    """Run the planar engine's steps through the plain twins on the card."""
+    def planar(x, mre, mim, n, wires):
+        return x.copy_(tpg.planar_evolve_xla(x, mre, mim, n, wires))
+
+    def window(x, mre, mim, n, w):
+        return x.copy_(twg.window_apply_plain(x, mre, mim, n, w))
+
+    def bwd_fused(y, g, mre_t, mim_t, n, wires):
+        x, g2, dre, dim = tpg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
+        return y.copy_(x), g.copy_(g2), dre, dim
+
+    def enter():
+        monkeypatch.setattr(tpg, 'planar_apply', planar)
+        monkeypatch.setattr(twg, 'window_apply', window)
+        monkeypatch.setattr(tck, 'window_chain_fwd', tck.window_chain_plain)
+        monkeypatch.setattr(tck, 'window_chain_bwd', tck.window_chain_bwd_plain)
+        monkeypatch.setattr(tpg, 'planar_grad', tpg.planar_grad_xla)
+        monkeypatch.setattr(tpg, 'planar_bwd_fused', bwd_fused)
+
+    return enter
 
 
 @pytest.mark.parametrize('n,wires', [(16, (0,)), (16, (15,)), (16, (3, 9)), (16, (0, 8, 15)),
@@ -120,11 +160,155 @@ def test_slice_matches_complex128(card):
     assert abs(e.item() - ref_e.item()) <= 1e-5
 
 
-def test_cuda_route_refuses_gradients(card):
-    cir = _bench(16, 1, card)
-    p = cir.params.requires_grad_(True)
+GATE_CASES = [(16, (0,)), (16, (15,)), (16, (3, 9)), (16, (0, 8, 15)), (12, (4, 5, 6)),
+              (10, (9,)), (10, (2, 5, 9))]
+
+
+@pytest.mark.parametrize('n,wires', GATE_CASES)
+def test_planar_grad_kernel_matches_twin(n, wires, card):
+    rng = np.random.default_rng(n + sum(wires))
+    g, x = _state(n, rng, card), _state(n, rng, card)
+    want = tpg.planar_grad_xla(g, x, n, wires)
+    before = tpg.planar_grad.launches
+    got = tpg.planar_grad(g, x, n, wires)
+    assert tpg.planar_grad.launches == before + 1
+    for a, b in zip(got, want):
+        _plane_close(a, b)
+    again = tpg.planar_grad(g, x, n, wires)     # the sum's order is fixed
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize('n,wires', GATE_CASES)
+def test_planar_bwd_fused_kernel_matches_twin(n, wires, card):
+    rng = np.random.default_rng(n + 3 * sum(wires))
+    u = _haar(1 << len(wires), rng)
+    mre_t, mim_t = _planes(u.conj().T, card)
+    y, g = _state(n, rng, card), _state(n, rng, card)
+    want = tpg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
+    before = tpg.planar_bwd_fused.launches
+    got = tpg.planar_bwd_fused(y, g, mre_t, mim_t, n, wires)
+    assert tpg.planar_bwd_fused.launches == before + 1
+    assert got[0] is y and got[1] is g          # in place on both
+    torch.testing.assert_close(y, want[0], atol=2e-6, rtol=0)
+    torch.testing.assert_close(g, want[1], atol=2e-6, rtol=0)
+    _plane_close(got[2], want[2])
+    _plane_close(got[3], want[3])
+
+
+@pytest.mark.parametrize('n', [14, 16, 19])
+def test_chain_bwd_kernel_matches_twin(n, card):
+    cir = _bench(n, 2, card)
+    with torch.no_grad():
+        mres, mims, wseq = cir._planar_seq(cir._full_params())
+        if n == 14:     # the bench plan has per-gate steps at n=14: keep its windows and relabels
+            keep = [i for i, s in enumerate(wseq) if s[0] in ('win', 'rot')]
+            mres, mims = [mres[i] for i in keep], [mims[i] for i in keep]
+            wseq = tuple(wseq[i] for i in keep)
+        assert tck.chain_fused_ok(wseq, n, mres)
+        rng = np.random.default_rng(n)
+        x0 = _state(n, rng, card)
+        y = tck.window_chain_plain(x0, mres, mims, n, wseq)
+        g = _state(n, rng, card).t().contiguous().t()    # autograd may hand over any strides
+        assert not g.is_contiguous()
+        y0, g0 = y.clone(), g.clone()
+        want = tck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
+        before = tck.window_chain_bwd.launches
+        got = tck.window_chain_bwd(y, g, mres, mims, n, wseq)
+        assert tck.window_chain_bwd.launches == before + 1
+    assert torch.equal(y, y0) and torch.equal(g, g0)     # neither input is written
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    # the round trip (twin forward, kernel backward) passes twice the windows, each a
+    # 128-term float32 sum on unit-variance amplitudes: 1.24e-5 on the H100 at n=19
+    torch.testing.assert_close(got[0], x0, atol=5e-5, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+    for st, dr, di, wr, wi in zip(wseq, got[2], got[3], want[2], want[3]):
+        if st[0] == 'rot':
+            assert dr is None and di is None
+        else:
+            _plane_close(dr, wr)
+            _plane_close(di, wi)
+
+
+@pytest.mark.parametrize('n,layers,extra,fused', [(16, 2, None, False), (12, 2, None, False),
+                                                  (12, 2, None, True), (20, 1, (0, 10), False),
+                                                  (20, 1, (0, 10), True)])
+def test_gradient_kernel_route_matches_twin_route(n, layers, extra, fused, card, twin_route):
+    """The training path on the default device: one-launch chain (n=16),
+    per-gate steps (n=12), windows + a gate no window holds (n=20)."""
+    cir = _bench(n, layers, None, extra)
+    assert cir.device.type == 'cuda'
+    cir.fused_bwd = fused
+    names = {'chain_bwd': tck.window_chain_bwd, 'grad': tpg.planar_grad,
+             'fused': tpg.planar_bwd_fused}
+    before = {k: fn.launches for k, fn in names.items()}
+    loss, grad = _grad(cir)
+    torch.cuda.synchronize()
+    used = {k: fn.launches - before[k] for k, fn in names.items()}
+    if n == 16:
+        assert used == {'chain_bwd': 1, 'grad': 0, 'fused': 0}
+    elif fused:
+        assert used['fused'] > 0 and used['grad'] == 0 and used['chain_bwd'] == 0
+    else:
+        assert used['grad'] > 0 and used['fused'] == 0 and used['chain_bwd'] == 0
+    twin_route()
+    twin_loss, twin_grad = _grad(cir)
+    assert {k: fn.launches - before[k] for k, fn in names.items()} == used
+    assert abs(loss.item() - twin_loss.item()) <= 1e-5
+    torch.testing.assert_close(grad, twin_grad, atol=1e-5, rtol=0)
+
+
+def test_training_step_matches_complex128(card):
+    n = 16
+    cir = _bench(n, 5)
+    before = tck.window_chain_fwd.launches, tck.window_chain_bwd.launches
+    loss, grad = _grad(cir)
+    assert (tck.window_chain_fwd.launches, tck.window_chain_bwd.launches) == \
+        (before[0] + 2, before[1] + 1)
+    dqt.set_dtype('complex128')
+    ref = _bench(n, 5)
+    assert not ref._planar_ok()
+    ref_loss, ref_grad = _grad(ref)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5
+    assert (grad.double() - ref_grad).abs().max().item() <= 1e-4
+
+
+def test_second_order_raises_on_the_card(card):
+    cir = _bench(16, 1)
+    p = cir.params.requires_grad_()
+    loss = cir.expectation(params=p)[0]
+    with pytest.raises(RuntimeError, match='first order only'):
+        torch.autograd.grad(loss, p, create_graph=True)
+
+
+def test_direct_wrapper_call_refuses_gradients(card):
+    """Gradients come from the Functions; a kernel wrapper called directly
+    with a tensor that requires grad raises instead of taking the twin."""
+    x = torch.zeros(2, 1 << 12, device=card, requires_grad=True)
+    m = torch.eye(2, device=card)
     with pytest.raises(NotImplementedError):
-        cir.expectation(params=p)
+        tpg.planar_apply(x, m, m, 12, (0,))
+    with pytest.raises(NotImplementedError):
+        tpg.planar_grad(x, x.detach(), 12, (0,))
+
+
+def test_cuda_tensor_never_reaches_a_twin(card):
+    """What a kernel does not take raises: a CUDA tensor of the wrong dtype
+    or shape is not handed to the plain version."""
+    m = torch.eye(2, device=card)
+    x64 = torch.zeros(2, 1 << 12, device=card, dtype=torch.float64)
+    x32 = torch.zeros(2, 1 << 12, device=card)
+    for call in (lambda: tpg.planar_apply(x64, m, m, 12, (0,)),
+                 lambda: tpg.planar_grad(x64, x64, 12, (0,)),
+                 lambda: tpg.planar_bwd_fused(x64, x64.clone(), m, m, 12, (0,))):
+        with pytest.raises(TypeError):
+            call()
+    for call in (lambda: tpg.planar_grad(x32, x32[:, :1 << 11], 12, (0,)),
+                 lambda: tpg.planar_bwd_fused(x32, x32, m, m, 12, (0,)),
+                 lambda: tpg.planar_grad(x32[:, :1 << 8], x32[:, :1 << 8], 8, (0, 1, 2)),
+                 lambda: tpg.planar_bwd_fused(x32, x32.clone(), torch.eye(4, device=card), m, 12,
+                                              (0,))):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_cuda_entry_refuses_batched_state(card):

@@ -91,9 +91,10 @@ def test_schedule_rotations_matches_jax(n, wires_list):
 
 
 def test_cuda_checks_refuse_gradients():
-    """The CUDA route is forward-only: it raises rather than differentiating
-    through the twin (checked here on the argument validation, which runs
-    before any build)."""
+    """A kernel wrapper called directly is not differentiable: it raises
+    rather than differentiating through the twin (checked here on the
+    argument validation, which runs before any build). Gradients come from
+    the planar_chain / planar_pauli_expectation Functions."""
     from deepquantum_tpu_torch.ops import _cuda
     x = torch.zeros(2, 1 << 10, requires_grad=True)
     with pytest.raises(NotImplementedError):

@@ -22,6 +22,14 @@ from deepquantum_tpu_torch.ops import window_gate as twg
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _cpu():
+    """The port's default device is the card; these tests ask for the CPU."""
+    dqt.set_device('cpu')
+    yield
+    dqt.set_device(None)
+
+
 @pytest.fixture()
 def c64():
     dq.set_dtype('complex64')
