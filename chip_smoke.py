@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile [--out FILE]   # where a grad step's time goes
+    python3 chip_smoke.py --profile [--out FILE]   # where a grad step's and a
+                                                   # photonic call's time goes
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -10,8 +11,8 @@ Phases (each raises on failure, so the run exits non-zero):
    CUDA versions;
 2. build the CUDA kernels from deepquantum_tpu_torch/csrc and print the
    build time;
-3. hold each of the six kernels against its plain PyTorch twin on the card
-   (float32, unnormalised randn states from a fixed seed; state error =
+3. hold each of the nine kernels against its plain PyTorch twin on the card
+   (K1-K6: float32, unnormalised randn states from a fixed seed; state error =
    max|d| / max|ref| of the state outputs, plane error the same for the
    reduced cotangent planes), with CUDA-event median times and the least
    time the card could take (bound_ms, from the bytes each call must move
@@ -21,7 +22,17 @@ Phases (each raises on failure, so the run exits non-zero):
    random unitary (<= 1e-6; also timed against the one library call that
    computes the same function, a real 256 x 256 block matmul), window_chain_fwd
    and window_chain_bwd at n=18 on the bench ansatz's scheduled sequence
-   (states <= 1e-5, dW <= 1e-5);
+   (states <= 1e-5, dW <= 1e-5). K7-K9 compute in float64 and are bounded
+   against the FP64 rate: permanent_cuda_batch on Haar unitaries at (B, n) =
+   (12376, 6), (3, 4), (2, 5), (1000, 14) (<= 1e-10 of the twin, and of a
+   numpy Ryser of its own), (1, 20), (4, 20), (1, 22) (<= 1e-8: the terms
+   cancel by 1e4 to 1e5; at n=20 also against a long-double numpy Ryser),
+   and n=26 once for time and a finite value; tor_dets_cuda and tor_dets_quads_cuda at
+   m = 8, 10, 12, 14 on O = I - (I + M M^T)^-1 and on O plus a non-symmetric
+   perturbation (per-subset det and quad <= 1e-9 of the twin, the
+   torontonian <= 1e-6, or 1e-15 times its cancellation where that is
+   more), tor_dets_cuda also timed against torch.linalg.det
+   on the pre-gathered stacks;
 4. the serving slice at n=18, 5 layers: the bench ansatz (rx/rz/rx per
    wire plus a CNOT ring, X string on all wires) through the public
    QubitCircuit API on the default device (the card) at complex64 with
@@ -42,7 +53,18 @@ Phases (each raises on failure, so the run exits non-zero):
    default route launches planar_grad >= 2, planar_apply and window_apply;
    with fused_bwd it launches planar_bwd_fused >= 2 and planar_grad 0; both
    gradients against complex128 (<= 1e-4) and against each other (<= 1e-5);
-8. print the kernels' JSON line, the card line, and last
+8. boson sampling at complex128: Clements(12 modes, 6 photons) with seeded
+   angles gives 12376 probabilities from ONE permanent_cuda_batch launch
+   (sum 1 within 1e-6, twin route within 1e-8), then get_amplitude of the
+   all-ones outcome of a 20-mode, 20-photon mesh (one 20 x 20 permanent);
+9. Gaussian boson sampling with click detectors at complex128:
+   GaussianBosonSampling(10 modes, threshold) gives 1024 click-pattern
+   probabilities, the 968 patterns of >= 3 clicks through tor_dets_cuda
+   (sum 1 within 1e-6, twin route within 1e-8); with a displacement on two
+   modes tor_dets_quads_cuda takes them instead; then get_prob of the
+   all-click pattern at 14 modes (2m = 28, 16383 subsets that cancel by
+   1e11: the routes agree to 1e-3), both ways;
+10. print the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Nothing of JAX is imported.
@@ -73,6 +95,7 @@ PLANE_BAR = 1e-5
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_S = 3.35e12       # device memory
 PEAK_FP32_S = 67e12          # float32 outside the tensor cores
+PEAK_FP64_S = 34e12          # float64 outside the tensor cores
 
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
     'planar_apply': ('deepquantum_tpu_torch/csrc/planar_apply.cu',
@@ -87,6 +110,12 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
                     'deepquantum_tpu/ops/planar_gate.py:560'),
     'planar_bwd_fused': ('deepquantum_tpu_torch/csrc/planar_bwd_fused.cu',
                          'deepquantum_tpu/ops/planar_gate.py:687'),
+    'permanent_cuda_batch': ('deepquantum_tpu_torch/csrc/permanent_ryser.cu',
+                             'deepquantum_tpu/ops/pallas_kernels.py:228'),
+    'tor_dets_cuda': ('deepquantum_tpu_torch/csrc/tor_lu.cu',
+                      'deepquantum_tpu/photonic/tor_kernel.py:188'),
+    'tor_dets_quads_cuda': ('deepquantum_tpu_torch/csrc/tor_lu.cu',
+                            'deepquantum_tpu/photonic/tor_kernel.py:230'),
 }
 GATE_WIRE_SETS = [(0,), (21,), (10,), (0, 1), (3, 17), (20, 21), (0, 10, 21), (5, 6, 7)]
 
@@ -99,11 +128,21 @@ def _pkg():
     return dqt, planar_gate, window_gate, chain_kernel
 
 
+def _photonic():
+    _pkg()
+    from deepquantum_tpu_torch.ops import permanent_kernel
+    from deepquantum_tpu_torch.photonic import qmath, tor_kernel, torontonian_
+    return permanent_kernel, qmath, tor_kernel, torontonian_
+
+
 def _wrappers():
     _, pg, wg, ck = _pkg()
+    pk, _, tk, _ = _photonic()
     return {'planar_apply': pg.planar_apply, 'window_apply': wg.window_apply,
             'window_chain_fwd': ck.window_chain_fwd, 'window_chain_bwd': ck.window_chain_bwd,
-            'planar_grad': pg.planar_grad, 'planar_bwd_fused': pg.planar_bwd_fused}
+            'planar_grad': pg.planar_grad, 'planar_bwd_fused': pg.planar_bwd_fused,
+            'permanent_cuda_batch': pk.permanent_cuda_batch, 'tor_dets_cuda': tk.tor_dets_cuda,
+            'tor_dets_quads_cuda': tk.tor_dets_quads_cuda}
 
 
 def reset_counts():
@@ -138,11 +177,11 @@ def rel_err(y, ref):
     return d / ref.abs().max().item(), d
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_S) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the float32 peak."""
+    memory rate and operations over the peak rate of their type."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_S * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
@@ -156,10 +195,25 @@ def mean_bound(bounds) -> dict:
 
 
 @contextlib.contextmanager
+def complex128():
+    """The photonic phases run at the complex128 policy (K7-K9 compute in
+    float64 either way; the policy sets the type of the circuit's matrices
+    and of the values returned)."""
+    dqt = _pkg()[0]
+    dqt.set_dtype('complex128')
+    try:
+        yield
+    finally:
+        dqt.set_dtype('complex64')
+
+
+@contextlib.contextmanager
 def twin_route():
-    """Run the planar engine's steps, forward and backward, through the
-    plain twins on the card (the same contracts as the kernel wrappers)."""
+    """Run the planar engine's steps, forward and backward, and the photonic
+    sweeps through the plain twins on the card (the same contracts as the
+    kernel wrappers)."""
     _, pg, wg, ck = _pkg()
+    pk, pq, tk, pt = _photonic()
 
     def planar(x, mre, mim, n, wires):
         x.copy_(pg.planar_evolve_xla(x, mre, mim, n, wires))
@@ -178,7 +232,10 @@ def twin_route():
     patches = [(pg, 'planar_apply', planar), (wg, 'window_apply', window),
                (ck, 'window_chain_fwd', ck.window_chain_plain),
                (ck, 'window_chain_bwd', ck.window_chain_bwd_plain),
-               (pg, 'planar_grad', pg.planar_grad_xla), (pg, 'planar_bwd_fused', bwd_fused)]
+               (pg, 'planar_grad', pg.planar_grad_xla), (pg, 'planar_bwd_fused', bwd_fused),
+               (pq, 'permanent_cuda_batch', pk.permanent_plain_batch),
+               (pt, 'tor_dets_cuda', tk.tor_dets_plain),
+               (pt, 'tor_dets_quads_cuda', tk.tor_dets_quads_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -619,6 +676,320 @@ def check_step_backward(n: int = 22, extra_cnot=(0, 11), layers: int = 2, reps: 
     return c_def, c_fus
 
 
+# ---------------------------------------------------------------- photonic
+def _ryser_numpy(a: np.ndarray, dtype=np.complex128) -> complex:
+    """Ryser permanent of one matrix in numpy, by doubling: the column sums
+    of the subsets of the first i + 1 rows are those of the first i rows,
+    and those plus row i. With ``np.clongdouble`` (64-bit mantissa on x86)
+    it is the yardstick for the float64 sweeps at n = 20."""
+    n = a.shape[0]
+    a = a.astype(dtype)
+    sums = np.zeros((1, n), dtype)
+    signs = np.ones(1, dtype)
+    for i in range(n):
+        sums = np.concatenate([sums, sums + a[i]])
+        signs = np.concatenate([signs, -signs])
+    return complex((-1) ** n * np.sum(signs * np.prod(sums, axis=1)))
+
+
+def _perm_bar(n: int) -> float:
+    """Kernel against twin, both float64 sweeps in different orders. A term
+    (a product of n column sums) carries about n * 2^-53 of its own size, and
+    the 2^n terms cancel down to a permanent some 1e4 (n = 20) to 1e5
+    (n = 22) times smaller than their typical size: the card reads 1e-12 at
+    n = 14, 6e-11 at n = 20 and 4e-10 at n = 22."""
+    return 1e-10 if n <= 14 else 1e-8
+
+
+BS_MODES, BS_PHOTONS = 12, 6      # path (a): C(17, 6) = 12376 outcomes
+BS_BIG = 20                       # get_amplitude: one 20 x 20 permanent
+GBS_MODES, GBS_BIG = 10, 14       # path (b): 1024 patterns; the kernel's limit 2m = 28
+TOR_MODES = (14, 8, 10, 12)       # m = 14 first: the shape get_prob gives at 14 modes
+PERM_SHAPES = [   # (B, n, input type); the first two are what path (a) gives the kernel
+    (12376, 6, 'complex128'), (1, 20, 'complex128'), (3, 4, 'complex128'), (2, 5, 'complex64'),
+    (1000, 14, 'complex64'), (4, 20, 'complex64'), (1, 22, 'complex128'),
+    (1, 26, 'complex128')]        # n = 26: too slow for the twin, time and a finite value only
+
+
+def check_permanent_kernel(results: dict, rng):
+    """Phase 3, K7 on Haar unitaries, against its twin and a numpy Ryser."""
+    import torch
+    pk = _photonic()[0]
+    dev = torch.device('cuda')
+    rows = []
+    for b, n, dtype in PERM_SHAPES:
+        mats = torch.as_tensor(np.stack([_haar(n, rng) for _ in range(b)]), device=dev).to(
+            getattr(torch, dtype))
+        got = pk.permanent_cuda_batch(mats)
+        torch.cuda.synchronize()
+        if got.dtype != torch.complex128 or tuple(got.shape) != (b,):
+            raise AssertionError(f'permanent (B={b}, n={n}): {got.dtype} {tuple(got.shape)}')
+        tk_ms, _ = time_ms(lambda: pk.permanent_cuda_batch(mats), reps=10 if n >= 22 else REPS)
+        # n complex adds and n complex multiplies per subset (Gray-code Ryser)
+        bnd = bound(mats.numel() * mats.element_size() + b * 16, b * (1 << n) * 8 * n, PEAK_FP64_S)
+        if n > 22:
+            if not torch.isfinite(torch.view_as_real(got)).all():
+                raise AssertionError(f'permanent n={n}: non-finite')
+            print(f'permanent_cuda_batch B={b} n={n} {dtype}: value {complex(got[0]):.6e}, '
+                  f'kernel {tk_ms:.4f} ms, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
+            rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, **bnd))
+            continue
+        ref = pk.permanent_plain_batch(mats)
+        e, d = rel_err(got, ref)
+        _hold(f'permanent_cuda_batch B={b} n={n}', e, _perm_bar(n))
+        e_np = None
+        if n <= 14 or (b, n) == (1, 20):
+            host = mats[:8].cpu().numpy().astype(np.complex128)
+            oracle = np.array([_ryser_numpy(m, np.complex128 if n <= 14 else np.clongdouble)
+                               for m in host])
+            e_np = float(np.abs(got[:8].cpu().numpy() - oracle).max() / np.abs(oracle).max())
+            _hold(f'permanent_cuda_batch B={b} n={n} against numpy', e_np, _perm_bar(n))
+            if n == 20:
+                e_twin = float(np.abs(ref.cpu().numpy() - oracle).max() / np.abs(oracle).max())
+                print(f'permanent n=20 against a long-double numpy Ryser: kernel {e_np:.2e}, '
+                      f'twin {e_twin:.2e}')
+        tp_ms, _ = time_ms(lambda: pk.permanent_plain_batch(mats), reps=5, warmup=1)
+        print(f'permanent_cuda_batch B={b} n={n} {dtype}: rel err {e:.2e}'
+              + (f' (numpy Ryser {e_np:.2e})' if e_np is not None else '')
+              + f', kernel {tk_ms:.4f} ms, twin {tp_ms:.4f} ms, bound {bnd["bound_ms"]:.5f} ms '
+              f'({bnd["bound_by"]})')
+        rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, plain_ms=tp_ms, rel_err=e,
+                         max_abs_err=d, **bnd))
+    # no single PyTorch call computes a permanent: library_ms stays null
+    results['permanent_cuda_batch'] = dict(rows[0], plane_rel_err=None, other_shapes=rows[1:])
+
+
+def _tor_inputs(m: int, rng, perturb: bool):
+    """O = I - (I + M M^T)^-1 (symmetric), optionally plus a small
+    non-symmetric complex perturbation, and gamma with gamma[m:] =
+    conj(gamma[:m])."""
+    mm = rng.standard_normal((2 * m, 2 * m)) * 0.1
+    o = (np.eye(2 * m) - np.linalg.inv(np.eye(2 * m) + mm @ mm.T)).astype(np.complex128)
+    if perturb:
+        o = o + 0.01 * (rng.standard_normal((2 * m, 2 * m))
+                        + 1j * rng.standard_normal((2 * m, 2 * m)))
+    gam = rng.standard_normal(2 * m) * 0.1 + 0.05j * rng.standard_normal(2 * m)
+    gam[m:] = np.conj(gam[:m])
+    return o, gam
+
+
+def check_tor_kernels(results: dict, rng):
+    """Phase 3, K8 and K9 against their twins; K8 also against the library's
+    batched determinant on stacks gathered beforehand."""
+    import torch
+    from math import comb
+    _, _, tk, pt = _photonic()
+    dev = torch.device('cuda')
+    rows8, rows9 = [], []
+    for m in TOR_MODES:
+        idx, valid, sign = pt._padded_tor_indices(m, dev)
+        nsub = idx.shape[0]
+        lu_flops = sum(comb(m, r) * 8 * (2 * r) ** 3 / 3 for r in range(1, m + 1))
+        solve_flops = sum(comb(m, r) * 8 * (2 * r) ** 2 for r in range(1, m + 1))
+        scaffold_bytes = idx.numel() * 8 + valid.numel() * 4
+        for perturb in (False, True):
+            o_np, g_np = _tor_inputs(m, rng, perturb)
+            o, g = torch.as_tensor(o_np, device=dev), torch.as_tensor(g_np, device=dev)
+            label = f'm={m}, {"non-symmetric" if perturb else "symmetric"} O'
+            det, _ = tk.tor_dets_cuda(o, idx, valid, sign)
+            det9, quad, _ = tk.tor_dets_quads_cuda(o, g, idx, valid, sign)
+            torch.cuda.synchronize()
+            ref, _ = tk.tor_dets_plain(o, idx, valid, sign)
+            ref9, refq, _ = tk.tor_dets_quads_plain(o, g, idx, valid, sign)
+            e8 = ((det - ref).abs() / ref.abs()).max().item()
+            e9 = max(((det9 - ref9).abs() / ref9.abs()).max().item(),
+                     ((quad - refq).abs() / refq.abs()).max().item())
+            _hold(f'tor_dets_cuda {label}', e8, 1e-9)
+            _hold(f'tor_dets_quads_cuda {label}', e9, 1e-9)
+            t8, t8r = pt._tor_epilogue(det, sign, m), pt._tor_epilogue(ref, sign, m)
+            t9, t9r = pt._tor_epilogue(det9, sign, m, quad), pt._tor_epilogue(ref9, sign, m, refq)
+            et8 = (abs(t8 - t8r) / abs(t8r)).item()
+            et9 = (abs(t9 - t9r) / abs(t9r)).item()
+            # the signed sum cancels: two float64 sums of terms that agree to
+            # 1e-15 can differ by that times the cancellation (sum |term| over
+            # |torontonian|: 1e8 at m = 8, 1e11 at m = 14), so the bar is 1e-6
+            # where the cancellation allows it and 1e-15 times it beyond
+            amp8 = ((1 / ref.sqrt()).abs().sum() / abs(t8r)).item()
+            amp9 = ((refq / 2).exp() / ref9.sqrt()).abs().sum().item() / abs(t9r).item()
+            _hold(f'torontonian from tor_dets_cuda {label}', et8, max(1e-6, 1e-15 * amp8))
+            _hold(f'torontonian from tor_dets_quads_cuda {label}', et9, max(1e-6, 1e-15 * amp9))
+            k8, _ = time_ms(lambda: tk.tor_dets_cuda(o, idx, valid, sign))
+            k9, _ = time_ms(lambda: tk.tor_dets_quads_cuda(o, g, idx, valid, sign))
+            p8, _ = time_ms(lambda: tk.tor_dets_plain(o, idx, valid, sign), reps=5, warmup=1)
+            p9, _ = time_ms(lambda: tk.tor_dets_quads_plain(o, g, idx, valid, sign), reps=5,
+                            warmup=1)
+            # the library yardstick, used nowhere in the port: one batched det per
+            # size group on stacks gathered outside the timed region
+            stacks = [tk._gathered(o, idx, p, a, b)[0] for p, a, b in tk._group_slices(m)]
+            lib, _ = time_ms(lambda: [torch.linalg.det(st) for st in stacks], reps=5, warmup=1)
+            b8 = bound(o.numel() * 16 + scaffold_bytes + nsub * 16, lu_flops, PEAK_FP64_S)
+            b9 = bound((o.numel() + g.numel()) * 16 + scaffold_bytes + nsub * 32,
+                       lu_flops + solve_flops, PEAK_FP64_S)
+            print(f'tor_dets_cuda {label} ({nsub} subsets): det rel err {e8:.2e}, torontonian '
+                  f'{t8.real.item():.6e} rel err {et8:.2e} (terms cancel by {amp8:.1e}), '
+                  f'kernel {k8:.4f} ms, twin {p8:.4f} ms, '
+                  f'linalg.det on gathered stacks {lib:.4f} ms, bound {b8["bound_ms"]:.5f} ms '
+                  f'({b8["bound_by"]})')
+            print(f'tor_dets_quads_cuda {label}: det / quad rel err {e9:.2e}, torontonian '
+                  f'{t9.real.item():.6e} rel err {et9:.2e}, kernel {k9:.4f} ms, twin {p9:.4f} ms, '
+                  f'bound {b9["bound_ms"]:.5f} ms ({b9["bound_by"]})')
+            rows8.append(dict(shape=label, ms=k8, plain_ms=p8, library_ms=lib, rel_err=e8,
+                              max_abs_err=(det - ref).abs().max().item(),
+                              torontonian_rel_err=et8, **b8))
+            rows9.append(dict(shape=label, ms=k9, plain_ms=p9, rel_err=e9,
+                              max_abs_err=max((det9 - ref9).abs().max().item(),
+                                              (quad - refq).abs().max().item()),
+                              torontonian_rel_err=et9, **b9))
+    # K9 has no single library call: det and solve are two, and the form a third
+    results['tor_dets_cuda'] = dict(rows8[0], plane_rel_err=None, other_shapes=rows8[1:])
+    results['tor_dets_quads_cuda'] = dict(rows9[0], plane_rel_err=None, other_shapes=rows9[1:])
+
+
+def _by_state(out: dict) -> dict:
+    return {tuple(k.state.tolist()): v for k, v in out.items()}
+
+
+def _probs_close(name: str, got: dict, ref: dict, bar: float):
+    got, ref = _by_state(got), _by_state(ref)
+    if got.keys() != ref.keys():
+        raise AssertionError(f'{name}: the routes give different outcomes')
+    import torch
+    keys = list(ref)
+    d = (torch.stack([got[k] for k in keys]) - torch.stack([ref[k] for k in keys])).abs().max()
+    if not d.item() <= bar:
+        raise AssertionError(f'{name}: kernel and twin route differ by {d.item()} > {bar}')
+    return d.item()
+
+
+def check_boson_sampling(card: str, rng):
+    """Phase 8, path (a): the Fock backend in basis mode, at complex128."""
+    import torch
+    from math import comb
+    dqt = _pkg()[0]
+    with complex128():
+        nmode, nphoton = BS_MODES, BS_PHOTONS
+        cir = dqt.photonic.Clements(nmode, init_state=[1] * nphoton + [0] * (nmode - nphoton),
+                                    cutoff=nphoton + 1)
+        if cir.device.type != 'cuda':
+            raise AssertionError(f'boson sampling: the circuit landed on {cir.device}')
+        angles = rng.uniform(0, 2 * np.pi, cir.ndata)
+        with torch.no_grad():
+            reset_counts()
+            probs = cir(data=angles, is_prob=True)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            total = torch.stack(list(probs.values())).sum().item()
+            print(f'boson sampling {nmode} modes, {nphoton} photons: {len(probs)} outcomes, '
+                  f'sum {total:.10f}, launches {counts}')
+            nout = comb(nmode + nphoton - 1, nphoton)
+            if len(probs) != nout or counts['permanent_cuda_batch'] != 1:
+                raise AssertionError(f'boson sampling: expected {nout} outcomes from one launch')
+            if not abs(total - 1) <= 1e-6:
+                raise AssertionError(f'boson sampling: probabilities sum to {total}')
+            t_kernel, _ = time_ms(lambda: cir(data=angles, is_prob=True), reps=5, warmup=1)
+            reset_counts()
+            with twin_route():
+                ref = cir(data=angles, is_prob=True)
+                t_twin, _ = time_ms(lambda: cir(data=angles, is_prob=True), reps=5, warmup=1)
+            if sum(read_counts().values()) != 0:
+                raise AssertionError('the twin route launched a kernel')
+            d = _probs_close('boson sampling', probs, ref, 1e-8)
+            print(f'boson sampling: max |d prob| to the twin route {d:.2e}; median over 5 calls: '
+                  f'kernel route {t_kernel:.3f} ms, twin route {t_twin:.3f} ms [{card}]')
+
+            n20 = BS_BIG
+            big = dqt.photonic.Clements(n20, init_state=[1] * n20, cutoff=n20 + 1)
+            big.encode(rng.uniform(0, 2 * np.pi, big.ndata))
+            reset_counts()
+            amp = big.get_amplitude([1] * n20)
+            torch.cuda.synchronize()
+            c20 = read_counts()
+            with twin_route():
+                amp_ref = big.get_amplitude([1] * n20)
+            e = (abs(amp - amp_ref) / abs(amp_ref)).item()
+            t_amp, _ = time_ms(lambda: big.get_amplitude([1] * n20), reps=5, warmup=1)
+            print(f'get_amplitude {n20} modes, {n20} photons: {complex(amp):.6e}, rel err to the '
+                  f'twin route {e:.2e}, launches {c20}, median {t_amp:.3f} ms [{card}]')
+            if c20['permanent_cuda_batch'] != 1 or not e <= 1e-8:
+                raise AssertionError('get_amplitude: expected one launch and the twin value')
+    for name, c in c20.items():
+        counts[name] += c
+    return counts
+
+
+def check_gbs(card: str, rng):
+    """Phase 9, path (b): Gaussian boson sampling with click detectors, at
+    complex128."""
+    import torch
+    from math import comb
+    dqt = _pkg()[0]
+    total_counts = {name: 0 for name in KERNELS}
+
+    def gbs(nmode, displaced):
+        cir = dqt.photonic.GaussianBosonSampling(
+            nmode, rng.uniform(0.2, 0.6, nmode), _haar(nmode, rng), detector='threshold')
+        if displaced:
+            cir.d(0, 0.3, 0.4)
+            cir.d(nmode // 2, 0.2, 1.0)
+        return cir
+
+    with complex128():
+        nmode = GBS_MODES
+        expected = (1 << nmode) - sum(comb(nmode, c) for c in range(3))    # >= 3 clicks: 968
+        with torch.no_grad():
+            for displaced, hot, cold in ((False, 'tor_dets_cuda', 'tor_dets_quads_cuda'),
+                                         (True, 'tor_dets_quads_cuda', 'tor_dets_cuda')):
+                cir = gbs(nmode, displaced)
+                label = f'GBS {nmode} modes, threshold' + (', displaced' if displaced else '')
+                reset_counts()
+                probs = cir(is_prob=True)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                total = torch.stack(list(probs.values())).sum().item()
+                print(f'{label}: {len(probs)} patterns, sum {total:.10f}, launches {counts}')
+                if len(probs) != 1 << nmode or counts[hot] != expected or counts[cold] != 0:
+                    raise AssertionError(f'{label}: expected {expected} launches of {hot}')
+                if not abs(total - 1) <= 1e-6:
+                    raise AssertionError(f'{label}: probabilities sum to {total}')
+                t_kernel, _ = time_ms(lambda: cir(is_prob=True), reps=3, warmup=1)
+                reset_counts()
+                with twin_route():
+                    ref = cir(is_prob=True)
+                    t_twin, _ = time_ms(lambda: cir(is_prob=True), reps=3, warmup=0)
+                if sum(read_counts().values()) != 0:
+                    raise AssertionError('the twin route launched a kernel')
+                d = _probs_close(label, probs, ref, 1e-8)
+                print(f'{label}: max |d prob| to the twin route {d:.2e}; median over 3 calls: '
+                      f'kernel route {t_kernel:.3f} ms, twin route {t_twin:.3f} ms [{card}]')
+                for name, c in counts.items():
+                    total_counts[name] += c
+
+                big = gbs(GBS_BIG, displaced)
+                big()                                   # the Gaussian state of the circuit
+                clicks = [1] * GBS_BIG
+                reset_counts()
+                p = big.get_prob(clicks)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                with twin_route():
+                    p_ref = big.get_prob(clicks)
+                e = (abs(p - p_ref) / abs(p_ref)).item()
+                t_p, _ = time_ms(lambda: big.get_prob(clicks), reps=5, warmup=1)
+                print(f'get_prob all-click at {GBS_BIG} modes{", displaced" if displaced else ""}: '
+                      f'{p.item():.6e}, rel err to the twin route {e:.2e}, launches {counts}, '
+                      f'median {t_p:.3f} ms [{card}]')
+                # 1e-3: the 16383 terms of this torontonian cancel by 1e11 to 1e12, so
+                # two float64 routes agree to 1e-5 to 1e-4 of the probability at best
+                # (phase 3 holds the per-subset values themselves at 1e-9)
+                if counts[hot] != 1 or counts[cold] != 0 or not e <= 1e-3 \
+                        or not 0 < p.item() < 1:
+                    raise AssertionError('get_prob of all clicks: expected one launch of '
+                                         f'{hot} and the twin value')
+                for name, c in counts.items():
+                    total_counts[name] += c
+    return total_counts
+
+
 # ----------------------------------------------------------------- profile
 PARTS = {   # label -> where the real step spends host time
     'sequence': 'QubitCircuit._planar_seq (gate matrices, window plan and products)',
@@ -658,6 +1029,16 @@ def labelled_parts(host_ms: dict):
             setattr(mod, name, fn)
 
 
+def _synced(fn):
+    """(fn(), host ms until the device has finished it)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def profile_training(card: str, n: int = 18, reps: int = 10, steps: int = 5) -> dict:
     """Where one grad step (phase 6's ``grad_step`` on ``bench_circuit``)
     spends its time: the free-running median; the host time of each of
@@ -681,12 +1062,6 @@ def profile_training(card: str, n: int = 18, reps: int = 10, steps: int = 5) -> 
         t_labelled = (time.perf_counter() - t0) * 1e3 / reps
     host_ms = {k: v / reps for k, v in host_ms.items()}
 
-    def synced(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     def update():
         with torch.no_grad():
             p.sub_(LR * p.grad)
@@ -695,16 +1070,32 @@ def profile_training(card: str, n: int = 18, reps: int = 10, steps: int = 5) -> 
     split = []
     torch.cuda.synchronize()
     for _ in range(reps):
-        loss, t_fwd = synced(lambda: cir.expectation(params=p)[0])
-        _, t_bwd = synced(loss.backward)
-        _, t_upd = synced(update)
+        loss, t_fwd = _synced(lambda: cir.expectation(params=p)[0])
+        _, t_bwd = _synced(loss.backward)
+        _, t_upd = _synced(update)
         split.append((t_fwd, t_bwd, t_upd))
     t_fwd, t_bwd, t_upd = (float(v) for v in np.median(np.array(split), axis=0))
 
+    with labelled_parts({}):
+        dev = _device_profile(lambda: grad_step(cir, p), steps)
+    return dict(
+        card=card, device=torch.cuda.get_device_name(0), n=n, layers=LAYERS, parts=PARTS,
+        step_ms_median=t_step, step_ms_all=all_steps, step_ms_with_labels=t_labelled,
+        host_ms_per_step=host_ms,
+        sync_split_ms=dict(forward_and_expectation=t_fwd, backward=t_bwd, update=t_upd,
+                           total=t_fwd + t_bwd + t_upd),
+        profiled_steps=steps, device_busy_share=dev['device_ms_per_step'] / t_step, **dev)
+
+
+def _device_profile(step, steps: int) -> dict:
+    """One torch.profiler window of ``steps`` calls of ``step``: device time,
+    device operations, CPU time in cudaLaunchKernel, the host time of the
+    ``dq:`` ranges and the top kernels, per call."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with labelled_parts({}), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            grad_step(cir, p)
+            step()
         torch.cuda.synchronize()
     dev_us, dev_ops, by_name, launch_us, ranges = 0.0, 0, [], 0.0, {}
     for ev in prof.key_averages():
@@ -724,31 +1115,78 @@ def profile_training(card: str, n: int = 18, reps: int = 10, steps: int = 5) -> 
             launch_us = ev.self_cpu_time_total
     by_name.sort(reverse=True)
     return dict(
-        card=card, device=torch.cuda.get_device_name(0), n=n, layers=LAYERS, parts=PARTS,
-        step_ms_median=t_step, step_ms_all=all_steps, step_ms_with_labels=t_labelled,
-        host_ms_per_step=host_ms,
-        sync_split_ms=dict(forward_and_expectation=t_fwd, backward=t_bwd, update=t_upd,
-                           total=t_fwd + t_bwd + t_upd),
-        profiled_steps=steps, profiled_range_host_ms_per_step=ranges,
+        profiled_range_host_ms_per_step=ranges,
         device_ms_per_step=dev_us / 1e3 / steps, device_ops_per_step=dev_ops / steps,
         cuda_launch_cpu_ms_per_step=launch_us / 1e3 / steps,
-        device_busy_share=dev_us / 1e3 / steps / t_step,
         top_kernels=[dict(name=k[:90], ms_per_step=t / 1e3 / steps, calls_per_step=c / steps)
                      for t, c, k in by_name[:12]])
+
+
+def profile_photonic(card: str) -> dict:
+    """Where one call of each photonic path spends its time, at complex128:
+    the free-running median, a split with a synchronise after each part
+    (medians of 3), and one torch.profiler window for the device time."""
+    import torch
+    dqt = _pkg()[0]
+    from deepquantum_tpu_torch.photonic import gaussian_prob
+    rng = np.random.default_rng(SEED + 2)
+
+    def split(parts):
+        rows = [[_synced(fn)[1] for _, fn in parts] for _ in range(3)]
+        return {name: float(v) for (name, _), v in zip(parts, np.median(np.array(rows), axis=0))}
+
+    out = dict(card=card, device=torch.cuda.get_device_name(0))
+    with complex128(), torch.no_grad():
+        cir = dqt.photonic.Clements(BS_MODES, [1] * BS_PHOTONS + [0] * (BS_MODES - BS_PHOTONS),
+                                    cutoff=BS_PHOTONS + 1)
+        angles = rng.uniform(0, 2 * np.pi, cir.ndata)
+        in_state = cir._basis_input(None)
+        basis = cir._output_basis(in_state)
+        full = cir._full_params(None, angles, cir._data_indices(len(angles)))
+        amps = cir._fock_basis_amps(angles, in_state, basis)
+        t_a, _ = time_ms(lambda: cir(data=angles, is_prob=True), reps=5, warmup=1)
+        out['boson_sampling'] = dict(
+            modes=BS_MODES, photons=BS_PHOTONS, outcomes=len(basis), call_ms_median=t_a,
+            sync_split_ms=split([
+                ('unitary (gate matrices and their product)', lambda: cir._unitary_of(full)),
+                ('amplitudes (unitary, sub-matrix gather, K7, norms)',
+                 lambda: cir._fock_basis_amps(angles, in_state, basis)),
+                ('dict of FockState keys, sorted',
+                 lambda: cir._state_dict(basis, amps.abs() ** 2, True))]),
+            **_device_profile(lambda: cir(data=angles, is_prob=True), 3))
+
+        gbs = dqt.photonic.GaussianBosonSampling(
+            GBS_MODES, rng.uniform(0.2, 0.6, GBS_MODES), _haar(GBS_MODES, rng),
+            detector='threshold')
+        cov, mean = gbs()
+        t_b, _ = time_ms(lambda: gbs(is_prob=True), reps=3, warmup=1)
+        out['gaussian_boson_sampling'] = dict(
+            modes=GBS_MODES, patterns=1 << GBS_MODES, call_ms_median=t_b,
+            sync_split_ms=split([
+                ('Gaussian state (symplectic folds over the gates)', lambda: gbs()),
+                ('Q-function matrices', lambda: gaussian_prob._q_mats(cov[0], mean[0])),
+                ('all patterns (Q matrices, then gather + torontonian each)',
+                 lambda: gaussian_prob.fock_probs_gaussian(cov, mean, gbs.cutoff,
+                                                           'threshold'))]),
+            **_device_profile(lambda: gbs(is_prob=True), 1))
+    for v in (out['boson_sampling'], out['gaussian_boson_sampling']):
+        v['device_busy_share'] = v['device_ms_per_step'] / v['call_ms_median']
+    return out
 
 
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--profile', action='store_true',
-                    help='instead of the checks, print where one n=18 grad step spends its time')
+                    help='instead of the checks, print where one n=18 grad step and one call '
+                         'of each photonic path spend their time')
     ap.add_argument('--out', default=None, help='with --profile: also write the JSON here')
     args = ap.parse_args()
     t_start = time.perf_counter()
     smi = setup()
     build()
     if args.profile:
-        text = json.dumps(profile_training(smi))
+        text = json.dumps(dict(training=profile_training(smi), photonic=profile_photonic(smi)))
         print(text)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -758,9 +1196,15 @@ def main() -> int:
     rng, rng_g = np.random.default_rng(SEED), np.random.default_rng(SEED + 1)
     # no_grad, not inference_mode: a tensor made in inference mode and cached
     # would break the autograd-tracked phases below
+    # the photonic phases draw from a generator of their own, so that K1-K6
+    # see the inputs they always saw
+    rng_p = np.random.default_rng(SEED + 2)
     with torch.no_grad():
         check_gate_kernels(results, rng, rng_g)
         check_window_kernels(results, rng, rng_g)
+        with complex128():
+            check_permanent_kernel(results, rng_p)
+            check_tor_kernels(results, rng_p)
 
     def n18(c):
         if c['window_chain_fwd'] != 2:
@@ -785,6 +1229,8 @@ def main() -> int:
     add(check_training()[0])
     for counts in check_step_backward():
         add(counts)
+    add(check_boson_sampling(smi, rng_p))
+    add(check_gbs(smi, rng_p))
     for name, c in main_path.items():
         if c <= 0:
             raise AssertionError(f'{name} was not launched on the main paths')
@@ -793,15 +1239,17 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         # library_ms: window_apply has one (a real block matmul, timed in
-        # phase 3). The others have no single PyTorch call: a gate on
-        # arbitrary wires needs a permute beside its matmul, the reduced
-        # planes need two products combined, the chains are loops of steps
+        # phase 3) and tor_dets_cuda has one (a batched det per size group).
+        # The others have no single PyTorch call: a gate on arbitrary wires
+        # needs a permute beside its matmul, the reduced planes need two
+        # products combined, the chains are loops of steps, nothing computes
+        # a permanent, and the quadratic form is a det, a solve and a dot
         kernels.append(dict(name=name, route='cuda', source=source, replaces=replaces,
                             launches=main_path[name], max_abs_err=r['max_abs_err'],
                             rel_err=r['rel_err'], plane_rel_err=r['plane_rel_err'], ms=r['ms'],
                             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                             bound_by=r['bound_by'], library_ms=r.get('library_ms'),
-                            shape=r['shape']))
+                            shape=r['shape'], other_shapes=r.get('other_shapes')))
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -15,12 +15,22 @@ The default device is the CUDA card; ``set_device('cpu')`` or
         cir.expectation()
     p = cir.params.requires_grad_()             # training
     cir.expectation(params=p)[0].backward()     # fills p.grad
+
+    bs = dqt.photonic.Clements(12, init_state=[1] * 6 + [0] * 6, cutoff=7)
+    probs = bs(data=angles, is_prob=True)       # boson sampling: one permanent per outcome
+    gbs = dqt.photonic.GaussianBosonSampling(10, squeezing, unitary, detector='threshold')
+    probs = gbs(is_prob=True)                   # click patterns: one torontonian each
 """
 
+from . import photonic
 from .circuit import Observable, QubitCircuit
-from .config import cdtype, default_device, rdtype, set_device, set_dtype
-from .interop import from_jax, params_from_numpy
+from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
+                     set_kappa)
+from .interop import from_jax, params_from_numpy, qumode_from_jax
+from .photonic import FockState, GaussianState, QumodeCircuit, permanent, torontonian
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'set_dtype', 'set_device', 'cdtype',
-           'rdtype', 'default_device', 'from_jax', 'params_from_numpy']
+           'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
+           'QumodeCircuit', 'FockState', 'GaussianState', 'permanent', 'torontonian',
+           'qumode_from_jax', 'set_hbar', 'set_kappa']

@@ -18,11 +18,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ['set_dtype', 'cdtype', 'rdtype', 'set_device', 'default_device', 'resolve_device']
+__all__ = ['set_dtype', 'cdtype', 'rdtype', 'set_device', 'default_device', 'resolve_device',
+           'set_hbar', 'set_kappa']
 
 _COMPLEX = torch.complex64
 _REAL = torch.float32
 _DEVICE = None           # None: the CUDA card, resolved at first use (not at import)
+
+# photonic conventions: x = kappa sqrt(hbar) (a + a^dagger)
+HBAR = 2.0
+KAPPA = 2 ** (-0.5)
 
 _DTYPES = {
     'complex64': (torch.complex64, torch.float32),
@@ -73,3 +78,15 @@ def set_device(device) -> None:
     the default (the CUDA card)."""
     global _DEVICE
     _DEVICE = None if device is None else resolve_device(device)
+
+
+def set_hbar(hbar: float) -> None:
+    """Set the reduced Planck constant of the photonic quadratures."""
+    global HBAR
+    HBAR = hbar
+
+
+def set_kappa(kappa: float) -> None:
+    """Set the kappa convention of the photonic quadratures."""
+    global KAPPA
+    KAPPA = kappa

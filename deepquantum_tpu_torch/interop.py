@@ -1,7 +1,7 @@
 """Carry circuits, weights and states across from the JAX package.
 
-``from_jax`` reads only Python and numpy attributes of a
-``deepquantum_tpu.QubitCircuit`` (it never imports JAX), so the same
+``from_jax`` and ``qumode_from_jax`` read only Python and numpy attributes
+of a ``deepquantum_tpu`` circuit (they never import JAX), so the same
 circuit, with the same parameter values, runs through both packages.
 """
 
@@ -13,7 +13,7 @@ import torch
 from .config import rdtype, resolve_device
 from .gate import GATE_REGISTRY, GateOp
 
-__all__ = ['from_jax', 'params_from_numpy']
+__all__ = ['from_jax', 'params_from_numpy', 'qumode_from_jax']
 
 
 def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -> torch.Tensor:
@@ -64,4 +64,73 @@ def from_jax(cir, device=None):
     for obs in cir.observables:
         out.observables.append(Observable(cir.nqubit, [list(w) for w in obs.wires], obs.basis))
     out._touch()
+    return out
+
+
+_SINGLE_BS = {'BeamSplitterSingle_rx': 'bs_rx', 'BeamSplitterSingle_ry': 'bs_ry',
+              'BeamSplitterSingle_h': 'bs_h'}
+_BY_NAME = {'PhaseShift': 'ps', 'BeamSplitter': 'bs', 'BeamSplitterTheta': 'bs_theta',
+            'BeamSplitterPhi': 'bs_phi', 'DisplacementPosition': 'x', 'DisplacementMomentum': 'z',
+            **_SINGLE_BS}
+_R_THETA = {'Squeezing': 's', 'Squeezing2': 's2', 'Displacement': 'd'}
+
+
+def qumode_from_jax(cir, device=None):
+    """Build the port's QumodeCircuit from a deepquantum_tpu QumodeCircuit.
+
+    Reads ``nmode``, ``backend``, ``basis``, ``cutoff``, ``detector``, the
+    init state (``state`` or ``cov`` / ``mean``), ``operators``, ``_pvals``,
+    ``_train_mask``, ``_enc_pidx``, ``encoders`` and ``_custom_out_basis``.
+    The JAX gates hold closures, so they are told apart by name (an MZI's
+    ``phi_first`` sits in the defaults of its ``unitary_fn``; a fixed
+    unitary carries ``static_unitary``). What the port cannot map (delay,
+    loss, homodyne, Fock-only gates, tensor mode, the bosonic backend,
+    per-forward noise) raises NotImplementedError."""
+    from .photonic import QumodeCircuit
+
+    if cir.measurements or getattr(cir, '_with_delay', False):
+        raise NotImplementedError('qumode_from_jax: homodyne measurements and delay loops are '
+                                  'not ported yet')
+    if getattr(cir, '_noise_pidx', None) or getattr(cir, '_bosonic_states', None):
+        raise NotImplementedError('qumode_from_jax: per-forward noise and cat / GKP states are '
+                                  'not ported yet')
+    init = cir.init_state
+    if cir.backend == 'fock':
+        state = np.asarray(init.state)
+    elif cir.backend == 'gaussian':
+        state = [np.asarray(init.cov, np.float64), np.asarray(init.mean, np.float64)]
+    else:
+        raise NotImplementedError(f"qumode_from_jax: backend={cir.backend!r} is not ported yet")
+    out = QumodeCircuit(cir.nmode, init_state=state, cutoff=cir.cutoff, backend=cir.backend,
+                        basis=cir.basis if cir.backend == 'fock' else True,
+                        detector=cir.detector, name=cir.name, den_mat=cir.den_mat, mps=cir.mps,
+                        device=device)
+    for op in cir.operators:
+        if op.kind != 'gate':
+            raise NotImplementedError(f'qumode_from_jax: cannot map {op.kind} op {op.name}')
+        wires = list(op.wires)
+        # parameter values are placeholders here: the slots are overwritten below
+        if op.static_unitary is not None:
+            out.any(np.asarray(op.static_unitary), wires, name=op.name)
+        elif op.name == 'MZI':
+            out.mzi(wires, [0.0, 0.0], phi_first=bool(op.unitary_fn.__defaults__[0]))
+        elif op.name in _BY_NAME:
+            getattr(out, _BY_NAME[op.name])(wires, [0.0] * op.npara)
+        elif op.name in _R_THETA:
+            getattr(out, _R_THETA[op.name])(wires, 0.0, 0.0)
+        else:
+            raise NotImplementedError(f'qumode_from_jax: cannot map gate {op.name}')
+        new = out.operators[-1]
+        if new.npara != op.npara:
+            raise NotImplementedError(f'qumode_from_jax: {op.name} has {op.npara} parameters '
+                                      f'here, {new.npara} in the port')
+        new.pidx = tuple(op.pidx)
+    enc = {id(op) for op in cir.encoders}
+    out.encoders = [new for new, op in zip(out.operators, cir.operators) if id(op) in enc]
+    out._pvals = [float(v) for v in cir._pvals]
+    out._train_mask = [bool(t) for t in cir._train_mask]
+    out._enc_pidx = [int(i) for i in cir._enc_pidx]
+    out.npara, out.ndata = cir.npara, cir.ndata
+    if cir._custom_out_basis is not None:
+        out._custom_out_basis = [tuple(int(v) for v in b) for b in cir._custom_out_basis]
     return out

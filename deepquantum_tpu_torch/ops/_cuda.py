@@ -46,6 +46,9 @@ _SIGNATURES = {
     'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
     # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, n
     'dq_window_chain_bwd_f32': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I),
+    'dq_permanent_ryser': (_P, _I, _P, _I, _I, _I),            # mats, is_c64, parts, b, n, level
+    # o_mat, gamma (or null), is_c64, idx, valid, det, quad (or null), nsub, 2m
+    'dq_tor_lu': (_P, _P, _I, _P, _P, _P, _P, _I, _I),
 }
 
 _lock = threading.Lock()
@@ -127,12 +130,17 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f'{name}: CUDA error {rc} ({lib.dq_error_string(rc).decode()})')
 
 
-def _no_grad(name: str, *tensors) -> None:
+_GRAD_HINT = ('gradients come from planar_chain and planar_pauli_expectation '
+              '(QubitCircuit.forward / expectation with params=)')
+NO_BACKWARD_HINT = ('this kernel has no backward, as the TPU kernel it replaces has none; its '
+                    'plain twin on a CPU tensor is differentiable')
+
+
+def _no_grad(name: str, *tensors, hint: str = _GRAD_HINT) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f'{name}: a kernel wrapper is not differentiable when called directly; gradients '
-            'come from planar_chain and planar_pauli_expectation (QubitCircuit.forward / '
-            'expectation with params=). Detach the tensor or call under torch.no_grad().')
+            f'{name}: a kernel wrapper is not differentiable when called directly; {hint}. '
+            'Detach the tensor or call under torch.no_grad().')
 
 
 def check_state(x: torch.Tensor, n: int, name: str) -> None:

@@ -201,7 +201,7 @@ def test_window_grad_matches_jax():
 
 # ------------------------------------------------------------------ Functions
 def _hand_seq(n, rng, dtype):
-    wseq = ((3,), (2, 7), (0, 5, 9))
+    wseq = ((3,), (2, 7), (0, 5, n - 1))
     mres, mims = [], []
     for ws in wseq:
         u = _haar(1 << len(ws), rng)
@@ -214,7 +214,7 @@ def _hand_seq(n, rng, dtype):
 def test_planar_chain_gradcheck(fused):
     """At a unitary point the adjoint recurrence gives the full Jacobian,
     for the state and for every plane."""
-    n = 10
+    n = 8
     rng = np.random.default_rng(7)
     mres, mims, wseq = _hand_seq(n, rng, torch.float64)
     x = torch.tensor(rng.standard_normal((2, 1 << n)), dtype=torch.float64, requires_grad=True)
@@ -227,7 +227,7 @@ def test_planar_chain_gradcheck(fused):
 
 
 def test_pauli_expectation_gradcheck():
-    n = 10
+    n = 8
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.standard_normal((2, 1 << n)), dtype=torch.float64, requires_grad=True)
     pauli = {'x': [[0, 1], [1, 0]], 'y': [[0, -1j], [1j, 0]], 'z': [[1, 0], [0, -1]]}
@@ -236,7 +236,7 @@ def test_pauli_expectation_gradcheck():
     mims = [torch.tensor(np.imag(m), dtype=torch.float64) for m in mats]
 
     def fn(x):
-        return tpg.planar_pauli_expectation(x, mres, mims, n, ((1, 6), (9,)))
+        return tpg.planar_pauli_expectation(x, mres, mims, n, ((1, 6), (7,)))
 
     assert torch.autograd.gradcheck(fn, (x,), eps=1e-6, atol=1e-7)
 
@@ -285,7 +285,7 @@ def test_window_routes_match_plain_autograd(n, dtype, tol, c64):
 
 # ------------------------------------------------------------ the whole slice
 def _jax_loss_and_grad(jcir):
-    fn = jax.value_and_grad(lambda p: jcir.expectation(params=p)[0])
+    fn = jax.jit(jax.value_and_grad(lambda p: jcir.expectation(params=p)[0]))
     loss, grad = fn(jcir.params)
     return float(loss), np.asarray(grad, dtype=np.float64)
 
@@ -298,7 +298,7 @@ def _port_loss_and_grad(tcir, params):
     return loss.item(), p.grad.numpy().astype(np.float64)
 
 
-@pytest.mark.parametrize('n,layers', [(10, 2), (12, 2), (14, 1), (16, 1)])
+@pytest.mark.parametrize('n,layers', [(10, 2), (12, 2), (14, 1), (15, 1)])
 def test_bench_ansatz_loss_and_gradient_match_jax(n, layers, jax128):
     jcir = bench(n, layers)
     want_loss, want_grad = _jax_loss_and_grad(jcir)

@@ -316,3 +316,140 @@ def test_cuda_entry_refuses_batched_state(card):
     m = torch.eye(2, device=card)
     with pytest.raises(NotImplementedError):
         tpg.planar_apply(x, m, m, 12, (0,))
+
+
+# ------------------------------------------------------------------ photonic
+# K7-K9 compute in float64 against float64 twins: 1e-10 on the permanent at
+# these sizes, 1e-9 on per-subset determinants and quadratic forms.
+@pytest.fixture()
+def card128(card):
+    dqt.set_dtype('complex128')
+    yield card
+
+
+def _tor_inputs(m, rng, device, dtype=torch.complex128):
+    mm = rng.standard_normal((2 * m, 2 * m)) * 0.1
+    o = np.eye(2 * m) - np.linalg.inv(np.eye(2 * m) + mm @ mm.T) \
+        + 0.01 * (rng.standard_normal((2 * m, 2 * m)) + 1j * rng.standard_normal((2 * m, 2 * m)))
+    g = rng.standard_normal(2 * m) * 0.1 + 0.05j * rng.standard_normal(2 * m)
+    return (torch.as_tensor(o, device=device).to(dtype),
+            torch.as_tensor(g, device=device).to(dtype))
+
+
+@pytest.mark.parametrize('b,n,dtype', [(3, 4, torch.complex128), (2, 5, torch.complex64),
+                                       (500, 6, torch.complex128), (7, 9, torch.complex64),
+                                       (1, 13, torch.complex128), (2, 17, torch.complex128)])
+def test_permanent_kernel_matches_twin(card128, b, n, dtype):
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
+    rng = np.random.default_rng(b * 31 + n)
+    mats = torch.as_tensor(np.stack([_haar(n, rng) for _ in range(b)]), device=card128).to(dtype)
+    before = pk.permanent_cuda_batch.launches
+    got = pk.permanent_cuda_batch(mats)
+    torch.cuda.synchronize()
+    assert pk.permanent_cuda_batch.launches == before + 1
+    assert got.dtype == torch.complex128 and got.shape == (b,)
+    ref = pk.permanent_plain_batch(mats)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-10
+    # run to run the same bits: no float atomics
+    assert torch.equal(got, pk.permanent_cuda_batch(mats))
+
+
+@pytest.mark.parametrize('m', [3, 5, 9])
+@pytest.mark.parametrize('dtype', [torch.complex128, torch.complex64])
+def test_tor_kernels_match_twins(card, m, dtype):
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    from deepquantum_tpu_torch.photonic import torontonian_ as tt
+    o, g = _tor_inputs(m, np.random.default_rng(m), card, dtype)
+    idx, valid, sign = tt._padded_tor_indices(m, card)
+    c8, c9 = tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches
+    det, s8 = tk.tor_dets_cuda(o, idx, valid, sign)
+    det9, quad, _ = tk.tor_dets_quads_cuda(o, g, idx, valid, sign)
+    torch.cuda.synchronize()
+    assert (tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches) == (c8 + 1, c9 + 1)
+    assert s8 is sign and det.dtype == torch.complex128 and det.shape == ((1 << m) - 1,)
+    ref, _ = tk.tor_dets_plain(o, idx, valid, sign)
+    ref9, refq, _ = tk.tor_dets_quads_plain(o, g, idx, valid, sign)
+    for a, b in ((det, ref), (det9, ref9), (quad, refq)):
+        assert ((a - b).abs() / b.abs()).max().item() <= 1e-9
+    assert torch.equal(det, det9)
+
+
+def test_torontonian_routes_on_the_card(card128):
+    """Size >= 6 launches K8 (no gamma) or K9; below, the plain formula."""
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    o, g = _tor_inputs(4, np.random.default_rng(1), card128)
+    c8, c9 = tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches
+    t0, t1 = dqt.torontonian(o), dqt.torontonian(o, g)
+    assert (tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches) == (c8 + 1, c9 + 1)
+    r0, r1 = dqt.torontonian(o.cpu()), dqt.torontonian(o.cpu(), g.cpu())
+    assert abs(complex(t0) - complex(r0)) <= 1e-9 * abs(complex(r0))
+    assert abs(complex(t1) - complex(r1)) <= 1e-9 * abs(complex(r1))
+    dqt.torontonian(o[:4, :4])
+    assert tk.tor_dets_cuda.launches == c8 + 1
+
+
+def test_photonic_wrappers_refuse_wrong_inputs(card128):
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    from deepquantum_tpu_torch.photonic import torontonian_ as tt
+    with pytest.raises(ValueError, match='n <= 26|4 <= n'):
+        pk.permanent_cuda_batch(torch.zeros((1, 27, 27), dtype=torch.complex128, device=card128))
+    with pytest.raises(ValueError, match=r'\(B, n, n\)'):
+        pk.permanent_cuda_batch(torch.zeros((4, 5), dtype=torch.complex128, device=card128))
+    with pytest.raises(TypeError, match='complex'):
+        pk.permanent_cuda_batch(torch.zeros((1, 4, 4), dtype=torch.float64, device=card128))
+    o, g = _tor_inputs(3, np.random.default_rng(2), card128)
+    idx, valid, sign = tt._padded_tor_indices(3, card128)
+    cpu_scaffold = tt._padded_tor_indices(3, torch.device('cpu'))
+    with pytest.raises(ValueError, match='scaffold on cpu'):
+        tk.tor_dets_cuda(o, *cpu_scaffold)
+    with pytest.raises(ValueError, match='gamma'):
+        tk.tor_dets_quads_cuda(o, g[:4], idx, valid, sign)
+    with pytest.raises(TypeError, match='int64'):
+        tk.tor_dets_cuda(o, idx.int(), valid, sign)
+
+
+def test_photonic_wrappers_refuse_gradients(card128):
+    """The kernels have no backward (the TPU kernels have none): a CUDA
+    tensor that requires grad raises, and under no_grad it runs."""
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    from deepquantum_tpu_torch.photonic import torontonian_ as tt
+    mats = torch.as_tensor(_haar(4, np.random.default_rng(3))[None], device=card128)
+    mats.requires_grad_()
+    with pytest.raises(NotImplementedError, match='no backward'):
+        pk.permanent_cuda_batch(mats)
+    with torch.no_grad():
+        pk.permanent_cuda_batch(mats)
+    o, g = _tor_inputs(3, np.random.default_rng(4), card128)
+    o.requires_grad_()
+    scaffold = tt._padded_tor_indices(3, card128)
+    with pytest.raises(NotImplementedError, match='no backward'):
+        tk.tor_dets_cuda(o, *scaffold)
+    with pytest.raises(NotImplementedError, match='no backward'):
+        tk.tor_dets_quads_cuda(o.detach(), g.requires_grad_(), *scaffold)
+
+
+def test_photonic_paths_on_the_card(card128):
+    """Both user calls land on the card by default and agree with the CPU."""
+    rng = np.random.default_rng(5)
+    cir = dqt.photonic.Clements(6, init_state=[1, 1, 1, 1, 0, 0], cutoff=5)
+    assert cir.device.type == 'cuda'
+    data = rng.uniform(0, 2 * np.pi, cir.ndata)
+    probs = cir(data=data, is_prob=True)
+    ref = dqt.photonic.Clements(6, init_state=[1, 1, 1, 1, 0, 0], cutoff=5, device='cpu')(
+        data=data, is_prob=True)
+    got = {tuple(k.state.tolist()): v.item() for k, v in probs.items()}
+    for k, v in ref.items():
+        assert abs(got[tuple(k.state.tolist())] - v.item()) <= 1e-10
+    sq, u = rng.uniform(0.2, 0.6, 5), _haar(5, rng)
+    gbs = dqt.photonic.GaussianBosonSampling(5, sq, u, detector='threshold')
+    gbs.d(1, 0.3, 0.2)
+    out = gbs(is_prob=True)
+    ref = dqt.photonic.GaussianBosonSampling(5, sq, u, detector='threshold', device='cpu')
+    ref.d(1, 0.3, 0.2)
+    want = {tuple(k.state.tolist()): v.item() for k, v in ref(is_prob=True).items()}
+    assert next(iter(out.values())).device.type == 'cuda'
+    for k, v in out.items():
+        assert abs(v.item() - want[tuple(k.state.tolist())]) <= 1e-10
+    assert abs(sum(v.item() for v in out.values()) - 1) <= 1e-10
