@@ -20,10 +20,18 @@ Phases (each raises on failure, so the run exits non-zero):
    planar_apply, planar_grad, planar_bwd_fused at n=22 on eight wire sets
    (states <= 1e-6 / 1e-5, planes <= 1e-5), window_apply at n=24 with a
    random unitary (<= 1e-6; also timed against the one library call that
-   computes the same function, a real 256 x 256 block matmul), window_chain_fwd
-   and window_chain_bwd at n=18 on the bench ansatz's scheduled sequence
-   (states <= 1e-5, dW <= 1e-5). K7-K9 compute in float64 and are bounded
-   against the FP64 rate: permanent_cuda_batch on Haar unitaries at (B, n) =
+   computes the same function, a real 256 x 256 block matmul) and at
+   n = 12, 13, 16, 20, 24 with a random non-unitary W (<= 1e-6),
+   window_chain_fwd and window_chain_bwd at n=18 on the bench ansatz's
+   scheduled sequence (states <= 1e-5, dW <= 1e-5; window_chain_bwd also at
+   n = 14 and 19, and at n=19 on a grid of 114 SMs where a block walks two
+   column tiles; its dW bitwise equal over two launches, its device time
+   alone from torch.profiler beside the time through the wrapper).
+   window_apply and window_chain_bwd run 3xTF32 on the tensor cores: their
+   bound_ms is that route's (495 TFLOP/s); the FP32 bound and K4's barrier
+   count from its step table go on a line of their own, as derived
+   numbers. K7-K9 compute in float64 and are bounded against the FP64
+   rate: permanent_cuda_batch on Haar unitaries at (B, n) =
    (12376, 6), (3, 4), (2, 5), (1000, 14) (<= 1e-10 of the twin, and of a
    numpy Ryser of its own), (1, 20), (4, 20), (1, 22) (<= 1e-8: the terms
    cancel by 1e4 to 1e5; at n=20 also against a long-double numpy Ryser),
@@ -53,6 +61,7 @@ Phases (each raises on failure, so the run exits non-zero):
    default route launches planar_grad >= 2, planar_apply and window_apply;
    with fused_bwd it launches planar_bwd_fused >= 2 and planar_grad 0; both
    gradients against complex128 (<= 1e-4) and against each other (<= 1e-5);
+   the median grad step on the kernel route and on the twin route;
 8. boson sampling at complex128: Clements(12 modes, 6 photons) with seeded
    angles gives 12376 probabilities from ONE permanent_cuda_batch launch
    (sum 1 within 1e-6, twin route within 1e-8), then get_amplitude of the
@@ -96,6 +105,7 @@ PLANE_BAR = 1e-5
 PEAK_BYTES_S = 3.35e12       # device memory
 PEAK_FP32_S = 67e12          # float32 outside the tensor cores
 PEAK_FP64_S = 34e12          # float64 outside the tensor cores
+PEAK_TF32_S = 495e12         # TF32 on the tensor cores (dense)
 
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
     'planar_apply': ('deepquantum_tpu_torch/csrc/planar_apply.cu',
@@ -282,6 +292,22 @@ def _randn_state(n: int, rng, device):
     return torch.as_tensor(rng.standard_normal((2, 1 << n), dtype=np.float32), device=device)
 
 
+def tf32x3_bounds(nbytes: float, flops: float) -> dict:
+    """K2 and K4 run their float32 products as three TF32 products on the
+    tensor cores: bound_ms is that route's bound (3 x the operations at the
+    TF32 peak, or the bytes), bound_fp32_ms the bound on the FP32 CUDA cores
+    that the first designs were held to."""
+    fp32 = bound(nbytes, flops)
+    tc = bound(nbytes, 3 * flops, PEAK_TF32_S)
+    return dict(tc, bound_fp32_ms=fp32['bound_ms'], bound_fp32_by=fp32['bound_by'])
+
+
+def _shares(r: dict) -> str:
+    return (f'bound {r["bound_ms"]:.4f} ms 3xTF32 ({r["bound_by"]}, {r["bound_ms"] / r["ms"]:.0%}), '
+            f'{r["bound_fp32_ms"]:.4f} ms FP32 ({r["bound_fp32_by"]}, '
+            f'{r["bound_fp32_ms"] / r["ms"]:.0%})')
+
+
 def _hold(name: str, err: float, bar: float):
     if not err <= bar:
         raise AssertionError(f'{name}: rel err {err} > {bar}')
@@ -425,14 +451,15 @@ def check_window_kernels(results: dict, rng, rng_g):
     _hold('window_apply library call', e_lib, 1e-5)
     tl, _ = time_ms(lambda: torch.matmul(block, x.view(256, cols)))
     win_flops = 8 * 128 * 128               # a complex 128 x 128 product per column
-    bnd = bound(2 * 2 * (1 << n) * 4 + 2 * 128 * 128 * 4, cols * win_flops)
-    print(f'window_apply n={n}: rel err {e:.2e}, kernel {tk:.4f} ms, twin {tp:.4f} ms, '
-          f'one block matmul {tl:.4f} ms (rel err {e_lib:.2e}), '
-          f'bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
-    _hold('window_apply', e, 1e-6)
+    bnd = tf32x3_bounds(2 * 2 * (1 << n) * 4 + 2 * 128 * 128 * 4, cols * win_flops)
     results['window_apply'] = dict(max_abs_err=d, rel_err=e, plane_rel_err=None, ms=tk,
                                    plain_ms=tp, library_ms=tl, shape=f'n={n}', **bnd)
+    print(f'window_apply n={n}: rel err {e:.2e}, kernel {tk:.4f} ms, twin {tp:.4f} ms, '
+          f'one block matmul {tl:.4f} ms (rel err {e_lib:.2e}, kernel/matmul {tk / tl:.2f}), '
+          f'{_shares(results["window_apply"])}')
+    _hold('window_apply', e, 1e-6)
     del x, y, ref, work, block
+    check_window_apply_sizes(results['window_apply'])
 
     n = 18
     cir = bench_circuit(n)
@@ -479,12 +506,106 @@ def check_window_kernels(results: dict, rng, rng_g):
     tp, _ = time_ms(lambda: ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq))
     # per window: W^H y and W^H g, and four real (128 x cols)(cols x 128) products
     dw_flops = 4 * 2 * 128 * 128 * cols
-    bnd = bound(4 * state_bytes + 2 * stack_bytes, n_win * (2 * cols * win_flops + dw_flops))
-    print(f'window_chain_bwd n={n} ({steps}): state rel err {e:.2e}, dW rel err {pe:.2e}, '
-          f'kernel {tk:.4f} ms, twin {tp:.4f} ms, bound {bnd["bound_ms"]:.4f} ms '
-          f'({bnd["bound_by"]})')
+    bnd = tf32x3_bounds(4 * state_bytes + 2 * stack_bytes,
+                        n_win * (2 * cols * win_flops + dw_flops))
+    again = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for dk, dr in zip(got[2:], again[2:]) for a, b in zip(dk, dr)
+               if a is not None):
+        raise AssertionError('window_chain_bwd: two launches give different dW')
+    rows = ck._bwd_rows(ck._step_table(wseq, n, backward=True)[0], n)
+    barriers = len(rows) - (rows[-1][0] == 0)
+    t_dev = _device_ms(lambda: ck.window_chain_bwd(y, g, mres, mims, n, wseq), 'window_chain_bwd')
     results['window_chain_bwd'] = dict(max_abs_err=max(d, pd), rel_err=e, plane_rel_err=pe, ms=tk,
-                                       plain_ms=tp, shape=f'n={n}, {len(wseq)} steps', **bnd)
+                                       plain_ms=tp, device_ms=t_dev, table_barriers=barriers,
+                                       shape=f'n={n}, {len(wseq)} steps', **bnd)
+    print(f'window_chain_bwd n={n} ({steps}; {len(rows)} table rows, so {barriers} grid barriers): '
+          f'state rel err {e:.2e}, dW rel err {pe:.2e}, dW bitwise equal over two launches, '
+          f'kernel {tk:.4f} ms through the wrapper ({t_dev:.4f} ms device time alone, profiler), '
+          f'twin {tp:.4f} ms, {_shares(results["window_chain_bwd"])}')
+    for n_other, sms in ((14, None), (19, None), (19, 114)):
+        check_chain_bwd_size(n_other, sms)
+
+
+def check_window_apply_sizes(row: dict):
+    """Phase 3, K2 at n = 12, 13, 16, 20, 24 with a random non-unitary W
+    (its own generator, so that the other kernels' inputs stay as they
+    were): in place, returns x, one launch each, <= 1e-6 of the twin."""
+    import torch
+    wg = _pkg()[2]
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(SEED + 3)
+    errs = {}
+    for n in (12, 13, 16, 20, 24):
+        w = (rng.standard_normal((128, 128)) + 1j * rng.standard_normal((128, 128))) / 16
+        mre, mim = _planes(w, dev)
+        x = _randn_state(n, rng, dev)
+        ref = wg.window_apply_plain(x, mre, mim, n, 7)
+        before = wg.window_apply.launches
+        out = wg.window_apply(x, mre, mim, n, 7)
+        torch.cuda.synchronize()
+        if out is not x or wg.window_apply.launches != before + 1:
+            raise AssertionError(f'window_apply n={n}: not in place, or not one launch')
+        errs[n] = rel_err(x, ref)[0]
+        print(f'window_apply n={n}, non-unitary W: rel err {errs[n]:.2e}')
+    row['non_unitary_rel_err'] = errs
+    for n, e in errs.items():
+        _hold(f'window_apply n={n}, non-unitary W', e, 1e-6)
+
+
+def check_chain_bwd_size(n: int, sms=None):
+    """Phase 3, K4 at another n on the bench sequence (2 layers; its windows
+    and relabels): states and dW <= 1e-5 of the twin. With ``sms`` the grid
+    fills that many SMs only (114, an H100 PCIe's count, gives n=19's 128
+    column tiles to 114 blocks, so some blocks walk two tiles), and two
+    launches must give bitwise-equal results."""
+    import torch
+    ck = _pkg()[3]
+    dev = torch.device('cuda')
+    cir = bench_circuit(n, layers=2)
+    mres, mims, wseq = cir._planar_seq(cir._full_params())
+    keep = [i for i, st in enumerate(wseq) if st[0] in ('win', 'rot')]
+    mres, mims, wseq = [mres[i] for i in keep], [mims[i] for i in keep], tuple(wseq[i] for i in keep)
+    if not ck.chain_fused_ok(wseq, n, mres):
+        raise AssertionError(f'window_chain_bwd n={n}: the sequence does not qualify')
+    rng = np.random.default_rng(SEED + 4 + n)
+    y = ck.window_chain_plain(_randn_state(n, rng, dev), mres, mims, n, wseq)
+    g = _randn_state(n, rng, dev)
+    ref = ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
+    if sms is None:
+        got = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
+    else:
+        if ck._bwd_slots(n, sms) <= sms:
+            raise AssertionError(f'window_chain_bwd n={n} on {sms} SMs: no block walks two tiles')
+        got = ck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
+        again = ck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
+        if not all(torch.equal(a, b) for a, b in zip(got[:2] + tuple(got[2] + got[3]),
+                                                      again[:2] + tuple(again[2] + again[3]))
+                   if a is not None):
+            raise AssertionError(f'window_chain_bwd n={n} on {sms} SMs: two launches differ')
+    torch.cuda.synchronize()
+    e = max(rel_err(got[0], ref[0])[0], rel_err(got[1], ref[1])[0])
+    pe = max(rel_err(a, b)[0] for dk, dr in zip(got[2:], ref[2:]) for a, b in zip(dk, dr)
+             if b is not None)
+    where = '' if sms is None else (f' on {sms} SMs, {ck._bwd_slots(n, sms)} column tiles, '
+                                    'bitwise equal over two launches')
+    _hold(f'window_chain_bwd n={n}{where} states', e, 1e-5)
+    _hold(f'window_chain_bwd n={n}{where} dW', pe, PLANE_BAR)
+    print(f'window_chain_bwd n={n} ({len(wseq)} steps{where}): state rel err {e:.2e}, '
+          f'dW rel err {pe:.2e}')
+
+
+def _device_ms(fn, name: str, calls: int = 5) -> float:
+    """Device time per call of the kernels whose name holds ``name``, from
+    one torch.profiler window of ``calls`` calls after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ms = sum(k['ms_per_step'] for k in _device_profile(fn, calls)['top_kernels']
+             if name in k['name'])
+    if ms <= 0:
+        raise AssertionError(f'the profiler saw no device time of {name}')
+    return ms
 
 
 def check_slice(n: int, extra_cnot, expect):
@@ -673,6 +794,15 @@ def check_step_backward(n: int = 22, extra_cnot=(0, 11), layers: int = 2, reps: 
     print(f'backward {label}: default vs fused max|d grad| {d:.2e}')
     if not d <= 1e-5:
         raise AssertionError(f'{label}: default and fused gradients differ by {d}')
+    cir = bench_circuit(n, None, extra_cnot, layers)
+    p = cir.params.requires_grad_()
+    reset_counts()
+    with twin_route():
+        t_twin, _ = time_ms(lambda: grad_step(cir, p), reps=reps, warmup=1)
+    if sum(read_counts().values()) != 0:
+        raise AssertionError('the twin route launched a kernel')
+    print(f'backward {label}: grad step median over {reps}: kernel route {out[False][2]:.3f} ms, '
+          f'twin route {t_twin:.3f} ms')
     return c_def, c_fus
 
 
@@ -1249,7 +1379,14 @@ def main() -> int:
                             rel_err=r['rel_err'], plane_rel_err=r['plane_rel_err'], ms=r['ms'],
                             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                             bound_by=r['bound_by'], library_ms=r.get('library_ms'),
-                            shape=r['shape'], other_shapes=r.get('other_shapes')))
+                            shape=r['shape'], other_shapes=r.get('other_shapes'),
+                            **{k: r[k] for k in ('device_ms', 'non_unitary_rel_err') if k in r}))
+    # computed, not measured: the FP32 bounds from the inputs as bound_ms is,
+    # and K4's barriers from its step table (one per row, less a final relabel)
+    derived = {name: {k: results[name][k] for k in ('bound_fp32_ms', 'bound_fp32_by',
+                                                    'table_barriers') if k in results[name]}
+               for name in ('window_apply', 'window_chain_bwd')}
+    print(f'derived from the inputs and the step table, not measured: {json.dumps(derived)}')
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -1,5 +1,5 @@
-// The tile bodies shared by K2 (window_apply.cu) and the chain kernels K3
-// (window_chain.cu) and K4 (window_chain_bwd.cu).
+// The tile bodies of K3 (window_chain.cu). K2 and K4 run their window
+// products on the tensor cores (window_mma.cuh).
 //
 // window_tile: y = W x for one tile of TC columns of the state viewed as two
 // (128, R) float32 planes, R = 2^(n - 7), written back in place or into

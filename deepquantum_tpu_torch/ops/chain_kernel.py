@@ -13,7 +13,10 @@ The backward, ``window_chain_bwd``, is the adjoint recurrence of
 ``csrc/window_chain_bwd.cu``: it carries the final state y and its
 cotangent g (each with a ping-pong partner) through the steps in reverse,
 at a window x = W^H y, dW = g x^H, g = W^H g, at a relabel both are
-relabelled back. Its twin ``window_chain_bwd_plain`` is the Python loop.
+relabelled back. Its table merges each run of consecutive relabels into one
+row (``_bwd_rows``), and each block's share of a dW goes to a partial slot
+that the kernel reduces in a fixed order. Its twin
+``window_chain_bwd_plain`` is the Python loop.
 
 The JAX kernel's per-step zero window blocks at rot steps and its hand-split
 bf16 matmuls are TPU artefacts and are not carried over.
@@ -59,6 +62,22 @@ def _step_table(wires_seq, n: int, backward: bool = False):
         else:
             rows.append((0, (n - st[1]) % n if backward else st[1] % n, 0))
     return (rows[::-1] if backward else rows), win_steps
+
+
+def _bwd_rows(rows, n: int):
+    """The backward walk's table with each run of consecutive relabels merged
+    into one row: rotations of the qubit positions compose by adding their
+    deltas mod n, and a run that adds up to 0 leaves no row."""
+    out = []
+    for row in rows:
+        if row[0] == 0 and out and out[-1][0] == 0:
+            d = (out[-1][1] + row[1]) % n
+            out.pop()
+            if d:
+                out.append((0, d, 0))
+        else:
+            out.append(row)
+    return out
 
 
 def _check_chain(name: str, x: torch.Tensor, mres, n: int, wires_seq, backward: bool):
@@ -137,6 +156,14 @@ def window_chain_bwd_plain(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int,
     return y, g, dres, dims
 
 
+def _bwd_slots(n: int, sms: int) -> int:
+    """The partial slots of one K4 buffer: the column tiles of 2^(n-7)
+    columns, 16 wide while they do not outnumber ``sms``, else 32 wide (the
+    kernel's own rule). The kernel writes min(tiles, grid) of them."""
+    cols = 1 << (n - 7)
+    return cols // (16 if cols // 16 <= sms else 32)
+
+
 def window_chain_bwd(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq):
     """One-launch backward over a qualifying scheduled sequence: from the
     final state y and its cotangent g, both (2, 2^n) planes, give
@@ -148,6 +175,14 @@ def window_chain_bwd(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires
     raise if the build or the launch fails; CPU tensors take the twin."""
     if y.device.type == 'cpu':
         return window_chain_bwd_plain(y, g, mres, mims, n, wires_seq)
+    return _window_chain_bwd_cuda(y, g, mres, mims, n, wires_seq)
+
+
+def _window_chain_bwd_cuda(y, g, mres, mims, n: int, wires_seq, sms: int | None = None):
+    """The launch behind ``window_chain_bwd``. ``sms`` caps the
+    multiprocessors the grid fills (default: all of the card's); fewer
+    stand in for a smaller card, on which a block walks several column
+    tiles."""
     from . import _cuda
     if g.device != y.device or tuple(g.shape) != tuple(y.shape):
         raise ValueError(f'window_chain_bwd: g {tuple(g.shape)} on {g.device}, '
@@ -159,6 +194,7 @@ def window_chain_bwd(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires
     wim_t = -torch.stack([mims[i] for i in win_steps]).transpose(1, 2)
     wre_t, wim_t = _cuda.check_planes('window_chain_bwd', y, (len(win_steps), 128, 128),
                                       wre_t, wim_t)
+    rows = _bwd_rows(rows, n)
     table = torch.tensor(rows, dtype=torch.int32).to(y.device)
     # work buffers: y is the saved forward output and g is autograd's (it may
     # arrive non-contiguous); each gets a ping-pong partner
@@ -168,17 +204,22 @@ def window_chain_bwd(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires
     yb = torch.empty_like(ya)
     gb = torch.empty_like(ga)
     dw = torch.empty((2, len(win_steps), 128, 128), dtype=torch.float32, device=y.device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    # two buffers (by window parity) of per-block dW partials
+    slots = _bwd_slots(n, sms)
+    part = torch.empty((2, slots, 2, 128, 128), dtype=torch.float32, device=y.device)
     _cuda.launch('dq_window_chain_bwd_f32', y.device, table, len(rows), wre_t, wim_t,
-                 ya, yb, ga, gb, dw[0], dw[1], n)
+                 ya, yb, ga, gb, dw[0], dw[1], part, slots, sms, n)
     window_chain_bwd.launches += 1
-    # y swaps buffers at every relabel, g at every step
+    # y and g swap buffers at every relabel row
     n_rot = len(rows) - len(win_steps)
     dres = [None] * len(wires_seq)
     dims = [None] * len(wires_seq)
     for k, i in enumerate(win_steps):
         dres[i] = dw[0, k]
         dims[i] = dw[1, k]
-    return (yb if n_rot % 2 else ya), (gb if len(rows) % 2 else ga), dres, dims
+    return (yb if n_rot % 2 else ya), (gb if n_rot % 2 else ga), dres, dims
 
 
 window_chain_bwd.launches = 0

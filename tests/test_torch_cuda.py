@@ -126,6 +126,22 @@ def test_window_kernel_matches_twin(card):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize('n', [12, 13, 16, 20])
+def test_window_kernel_non_unitary_in_place(n, card):
+    rng = np.random.default_rng(100 + n)
+    w = (rng.standard_normal((128, 128)) + 1j * rng.standard_normal((128, 128))) / 16
+    mre, mim = _planes(w, card)
+    x = _state(n, rng, card)
+    want = twg.window_apply_plain(x, mre, mim, n, 7)
+    before = twg.window_apply.launches
+    got = twg.window_apply(x, mre, mim, n, 7)
+    assert got is x
+    assert twg.window_apply.launches == before + 1
+    # the bar of chip_smoke.py at n=24: 3xTF32 on the tensor cores against float32 matmuls
+    err = (x - want).abs().max().item() / want.abs().max().item()
+    assert err <= 1e-6, err
+
+
 @pytest.mark.parametrize('n', [16, 19])
 def test_chain_kernel_matches_twin(n, card):
     cir = _bench(n, 2, card)
@@ -227,6 +243,56 @@ def test_chain_bwd_kernel_matches_twin(n, card):
         else:
             _plane_close(dr, wr)
             _plane_close(di, wi)
+
+
+@pytest.mark.parametrize('n', [14, 19])
+def test_chain_bwd_kernel_is_bitwise_reproducible(n, card):
+    cir = _bench(n, 2, card)
+    with torch.no_grad():
+        mres, mims, wseq = cir._planar_seq(cir._full_params())
+        keep = [i for i, s in enumerate(wseq) if s[0] in ('win', 'rot')]
+        mres, mims = [mres[i] for i in keep], [mims[i] for i in keep]
+        wseq = tuple(wseq[i] for i in keep)
+        rng = np.random.default_rng(n + 1)
+        y, g = _state(n, rng, card), _state(n, rng, card)
+        first = tck.window_chain_bwd(y, g, mres, mims, n, wseq)
+        second = tck.window_chain_bwd(y, g, mres, mims, n, wseq)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for a, b in zip(first[2] + first[3], second[2] + second[3]):
+        assert (a is None and b is None) or torch.equal(a, b)   # partials summed in a fixed order
+
+
+@pytest.mark.parametrize('n,sms', [(19, 114), (18, 16)])
+def test_chain_bwd_kernel_on_fewer_sms(n, sms, card):
+    """A grid capped below the column tiles (n=19 on the 114 SMs of an H100
+    PCIe: 128 tiles; n=18 on 16: 4 tiles a block): a block walks several
+    tiles and adds their dW onto its slot. Twin within the same bars, and
+    bitwise equal over two launches."""
+    cir = _bench(n, 2, card)
+    with torch.no_grad():
+        mres, mims, wseq = cir._planar_seq(cir._full_params())
+        keep = [i for i, s in enumerate(wseq) if s[0] in ('win', 'rot')]
+        mres, mims = [mres[i] for i in keep], [mims[i] for i in keep]
+        wseq = tuple(wseq[i] for i in keep)
+        assert tck._bwd_slots(n, sms) > sms          # more tiles than blocks
+        rng = np.random.default_rng(n + 2)
+        y, g = _state(n, rng, card), _state(n, rng, card)
+        want = tck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
+        before = tck.window_chain_bwd.launches
+        first = tck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
+        second = tck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
+        assert tck.window_chain_bwd.launches == before + 2
+        too_many = torch.cuda.get_device_properties(card).multi_processor_count + 1
+        with pytest.raises(RuntimeError):
+            tck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=too_many)
+    torch.testing.assert_close(first[0], want[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(first[1], want[1], atol=1e-5, rtol=0)
+    for dr, di, wr, wi in zip(first[2], first[3], want[2], want[3]):
+        if wr is not None:
+            _plane_close(dr, wr)
+            _plane_close(di, wi)
+    for a, b in zip(first[:2] + tuple(first[2] + first[3]), second[:2] + tuple(second[2] + second[3])):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize('n,layers,extra,fused', [(16, 2, None, False), (12, 2, None, False),
