@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile [--out FILE]   # where a grad step's and a
-                                                   # photonic call's time goes
+    python3 chip_smoke.py --profile [--out FILE]   # where a grad step's, a batched
+                                                   # QML step's and a photonic
+                                                   # call's time goes
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -40,7 +41,14 @@ Phases (each raises on failure, so the run exits non-zero):
    perturbation (per-subset det and quad <= 1e-9 of the twin, the
    torontonian <= 1e-6, or 1e-15 times its cancellation where that is
    more), tor_dets_cuda also timed against torch.linalg.det
-   on the pre-gathered stacks;
+   on the pre-gathered stacks. The batched forms of K1, K5, K6 (rows
+   planar_apply_batched, planar_grad_batched, planar_bwd_fused_batched) on
+   (B, 2, 2^n) stacks with per-sample planes at (n, B) = (14, 100) and
+   (20, 8), k = 1, 2, 3 (states <= 1e-6, K6 1e-5, planes <= 1e-5), K1 also
+   with one set of planes for every sample. K4 under depth: n=18 with 10
+   and 20 layers against the twin (bars 1e-5) and both against the twin in
+   float64; the verdict is printed and recorded, not a stop (the main paths
+   walk 5 layers, held at the bar above);
 4. the serving slice at n=18, 5 layers: the bench ansatz (rx/rz/rx per
    wire plus a CNOT ring, X string on all wires) through the public
    QubitCircuit API on the default device (the card) at complex64 with
@@ -62,6 +70,17 @@ Phases (each raises on failure, so the run exits non-zero):
    with fused_bwd it launches planar_bwd_fused >= 2 and planar_grad 0; both
    gradients against complex128 (<= 1e-4) and against each other (<= 1e-5);
    the median grad step on the kernel route and on the twin route;
+7b. the batched QML step (benchmarks/bench_suite.py::bench_batched_qml):
+   QubitCircuit(14, reupload=True), 2 layers of ry(encode), rz, ry per
+   wire and a CNOT ring, Z on wire 0; data (100, 14) from default_rng(0);
+   a step = expectation(data=feats, params=p) (100, 1), its mean, backward,
+   SGD. Plain (feats = data) and hybrid (feats = data @ W + b): loss and
+   gradients (p; W, b) against the complex128 route (<= 1e-5, <= 1e-4);
+   per step batched planar_apply and planar_grad launched, no window or
+   chain kernel; with fused_bwd batched planar_bwd_fused instead of
+   planar_grad, gradients <= 1e-5 from the default; three SGD steps on the
+   kernel and twin routes (<= 1e-5 apart); medians on both routes and the
+   device's busy share from a profiler window;
 8. boson sampling at complex128: Clements(12 modes, 6 photons) with seeded
    angles gives 12376 probabilities from ONE permanent_cuda_batch launch
    (sum 1 within 1e-6, twin route within 1e-8), then get_amplitude of the
@@ -73,8 +92,15 @@ Phases (each raises on failure, so the run exits non-zero):
    modes tor_dets_quads_cuda takes them instead; then get_prob of the
    all-click pattern at 14 modes (2m = 28, 16383 subsets that cancel by
    1e11: the routes agree to 1e-3), both ways;
-10. print the kernels' JSON line, the card line, and last
-   {"ok": true, "device": {...}}.
+9b. photonic gradients at complex128 (K7-K9 as autograd Functions whose
+   backward is the twin's derivative): d P / d squeezing of GBS(10 modes,
+   threshold) for three click patterns through tor_dets_cuda (three
+   launches), displaced through tor_dets_quads_cuda, and d P / d angles of
+   three Clements(12, 6 photons) probabilities through one
+   permanent_cuda_batch launch, each <= 1e-8 of the twin route's autograd;
+10. print the kernels' JSON line (twelve rows: the nine kernels and the
+   three batched forms, each with its launches on the main paths), the
+   card line, and last {"ok": true, "device": {...}}.
 
 Nothing of JAX is imported.
 """
@@ -84,6 +110,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -126,7 +153,17 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
                       'deepquantum_tpu/photonic/tor_kernel.py:188'),
     'tor_dets_quads_cuda': ('deepquantum_tpu_torch/csrc/tor_lu.cu',
                             'deepquantum_tpu/photonic/tor_kernel.py:230'),
+    # the batched forms of K1, K5, K6 ((B, 2, 2^n) stacks, the JAX kernels'
+    # leading batch grid axis): the same sources, counted apart
+    'planar_apply_batched': ('deepquantum_tpu_torch/csrc/planar_apply.cu',
+                             'deepquantum_tpu/ops/planar_gate.py:412'),
+    'planar_grad_batched': ('deepquantum_tpu_torch/csrc/planar_grad.cu',
+                            'deepquantum_tpu/ops/planar_gate.py:560'),
+    'planar_bwd_fused_batched': ('deepquantum_tpu_torch/csrc/planar_bwd_fused.cu',
+                                 'deepquantum_tpu/ops/planar_gate.py:687'),
 }
+BATCHED = {'planar_apply_batched': 'planar_apply', 'planar_grad_batched': 'planar_grad',
+           'planar_bwd_fused_batched': 'planar_bwd_fused'}
 GATE_WIRE_SETS = [(0,), (21,), (10,), (0, 1), (3, 17), (20, 21), (0, 10, 21), (5, 6, 7)]
 
 
@@ -146,22 +183,27 @@ def _photonic():
 
 
 def _wrappers():
+    """Row name -> (wrapper, the attribute its launches count in): a
+    batched row reads the same wrapper's ``batched_launches``."""
     _, pg, wg, ck = _pkg()
     pk, _, tk, _ = _photonic()
-    return {'planar_apply': pg.planar_apply, 'window_apply': wg.window_apply,
-            'window_chain_fwd': ck.window_chain_fwd, 'window_chain_bwd': ck.window_chain_bwd,
-            'planar_grad': pg.planar_grad, 'planar_bwd_fused': pg.planar_bwd_fused,
-            'permanent_cuda_batch': pk.permanent_cuda_batch, 'tor_dets_cuda': tk.tor_dets_cuda,
-            'tor_dets_quads_cuda': tk.tor_dets_quads_cuda}
+    fns = {'planar_apply': pg.planar_apply, 'window_apply': wg.window_apply,
+           'window_chain_fwd': ck.window_chain_fwd, 'window_chain_bwd': ck.window_chain_bwd,
+           'planar_grad': pg.planar_grad, 'planar_bwd_fused': pg.planar_bwd_fused,
+           'permanent_cuda_batch': pk.permanent_cuda_batch, 'tor_dets_cuda': tk.tor_dets_cuda,
+           'tor_dets_quads_cuda': tk.tor_dets_quads_cuda}
+    out = {name: (fn, 'launches') for name, fn in fns.items()}
+    out.update({name: (fns[single], 'batched_launches') for name, single in BATCHED.items()})
+    return out
 
 
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _wrappers().items()}
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 2):
@@ -332,13 +374,32 @@ def setup():
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """'_ZN..._15_planar_apply_cu_f1d3476e19planar_apply_kernelILi3ELb1EEEv...'
+    -> 'planar_apply_kernel<3,1>': the length-prefixed identifier that ends
+    in 'kernel', and the integer template arguments."""
+    for m in re.finditer(r'(?=(\d+)([A-Za-z_]\w*))', mangled):
+        ident = m.group(2)[:int(m.group(1))]
+        if len(ident) == int(m.group(1)) and ident.endswith('kernel'):
+            args = re.findall(r'L[ib](\d+)E', mangled)
+            return ident + (f'<{",".join(args)}>' if args else '')
+    return mangled
+
+
 def build():
     from deepquantum_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     path = _cuda.build()
     print(f'build: {time.perf_counter() - t0:.1f} s -> {path.relative_to(ROOT)}')
+    name, spill = '?', ''
     for line in _cuda.build_log.splitlines():
-        if 'registers' in line or 'spill' in line or 'error' in line.lower():
+        if 'Compiling entry function' in line:
+            name = _kernel_name(line.split("'")[1])
+        elif 'spill' in line:
+            spill = line.strip()
+        elif 'Used' in line and 'registers' in line:
+            print(f'  nvcc: {name}: {line.split(":", 1)[1].strip()}; {spill}')
+        elif 'error' in line.lower():
             print(f'  nvcc: {line.strip()}')
 
 
@@ -424,6 +485,117 @@ def check_gate_kernels(results: dict, rng, rng_g):
                              ms=float(np.mean(a['t_k'])), plain_ms=float(np.mean(a['t_p'])),
                              shape=f'n={n}, mean over {len(GATE_WIRE_SETS)} wire sets',
                              **mean_bound(a['bounds']))
+
+
+BATCH_SHAPES = [(14, 100), (20, 8)]       # (n, B): the QML step's stack, and a wide one
+BATCH_WIRES = {14: [(5,), (0, 13), (1, 7, 12)], 20: [(0,), (3, 17), (0, 10, 19)]}
+
+
+def check_batched_kernels(results: dict, rng):
+    """Phase 3, the batched forms of K1, K5, K6 on (B, 2, 2^n) stacks with
+    per-sample Haar planes at (n, B) = (14, 100) and (20, 8), k = 1, 2, 3,
+    and K1 with one set of planes for every sample (stride 0): states
+    <= 1e-6 of max|ref| (K6 1e-5, as the single form), planes <= 1e-5. Their
+    own generator, so that the other kernels' inputs stay as they were."""
+    import torch
+    pg = _pkg()[1]
+    dev = torch.device('cuda')
+    rows = {name: [] for name in BATCHED}
+    for n, b in BATCH_SHAPES:
+        stack_bytes = b * 2 * (1 << n) * 4           # one (B, 2, 2^n) float32 stack
+        acc = {name: dict(errs=[], abs_errs=[], plane_errs=[], t_k=[], t_p=[], bounds=[])
+               for name in BATCHED}
+        x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
+        g = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
+
+        def note(name, wires, e, d, pe, tk, tp, bnd):
+            a = acc[name]
+            for key, v in (('errs', e), ('abs_errs', d), ('plane_errs', pe), ('t_k', tk),
+                           ('t_p', tp), ('bounds', bnd)):
+                a[key].append(v)
+            errs = ', '.join(f'{what} rel err {v:.2e}' for what, v in (('state', e), ('plane', pe))
+                             if v is not None)
+            print(f'{name} n={n} B={b} wires={wires}: {errs}, kernel {tk:.4f} ms, twin '
+                  f'{tp:.4f} ms, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
+
+        for wires in BATCH_WIRES[n]:
+            k = len(wires)
+            flops = b * (1 << (n - k)) * 8 * 4 ** k
+            us = np.stack([_haar(1 << k, rng) for _ in range(b)])
+            mre = torch.as_tensor(us.real, dtype=torch.float32, device=dev)
+            mim = torch.as_tensor(us.imag, dtype=torch.float32, device=dev)
+            mre_t, mim_t = mre.transpose(1, 2).contiguous(), (-mim.transpose(1, 2)).contiguous()
+            plane_bytes = 2 * b * 4 ** k * 4
+
+            ref = pg.planar_evolve_xla(x, mre, mim, n, wires)
+            y = pg.planar_apply(x.clone(), mre, mim, n, wires)
+            torch.cuda.synchronize()
+            e, d = rel_err(y, ref)
+            _hold(f'planar_apply_batched n={n} B={b} wires={wires}', e, 1e-6)
+            work = x.clone()
+            tk, _ = time_ms(lambda: pg.planar_apply(work, mre, mim, n, wires))
+            tp, _ = time_ms(lambda: pg.planar_evolve_xla(x, mre, mim, n, wires))
+            note('planar_apply_batched', wires, e, d, None, tk, tp,
+                 bound(2 * stack_bytes + plane_bytes, flops))
+
+            ref = pg.planar_grad_xla(g, x, n, wires)
+            got = pg.planar_grad(g, x, n, wires)
+            torch.cuda.synchronize()
+            pe, pd = max(rel_err(a, r) for a, r in zip(got, ref))
+            _hold(f'planar_grad_batched n={n} B={b} wires={wires}', pe, PLANE_BAR)
+            tk, _ = time_ms(lambda: pg.planar_grad(g, x, n, wires))
+            tp, _ = time_ms(lambda: pg.planar_grad_xla(g, x, n, wires))
+            note('planar_grad_batched', wires, None, pd, pe, tk, tp,
+                 bound(2 * stack_bytes + plane_bytes, flops))
+
+            ref = pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
+            wy, wg_ = y.clone(), g.clone()
+            got = pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires)
+            torch.cuda.synchronize()
+            if got[0] is not wy or got[1] is not wg_:
+                raise AssertionError('planar_bwd_fused must update y and g in place')
+            (e, d), (e2, d2) = rel_err(got[0], ref[0]), rel_err(got[1], ref[1])
+            e, d = max(e, e2), max(d, d2)
+            _hold(f'planar_bwd_fused_batched states n={n} B={b} wires={wires}', e, 1e-5)
+            _hold(f'planar_bwd_fused_batched recovers x n={n} B={b} wires={wires}',
+                  rel_err(got[0], x)[0], 1e-5)
+            pe, pd = max(rel_err(a, r) for a, r in zip(got[2:], ref[2:]))
+            _hold(f'planar_bwd_fused_batched planes n={n} B={b} wires={wires}', pe, PLANE_BAR)
+            tk, _ = time_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
+            tp, _ = time_ms(lambda: pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires))
+            note('planar_bwd_fused_batched', wires, e, max(d, pd), pe, tk, tp,
+                 bound(4 * stack_bytes + 2 * plane_bytes, 3 * flops))
+
+        # K1 with one set of planes read by every sample (an observable's)
+        wires = BATCH_WIRES[n][1]
+        u = _haar(4, rng)
+        mre, mim = _planes(u, dev)
+        shared = (mre.expand(b, 4, 4), mim.expand(b, 4, 4))
+        ref = pg.planar_evolve_xla(x, mre, mim, n, wires)
+        y = pg.planar_apply(x.clone(), *shared, n, wires)
+        torch.cuda.synchronize()
+        e_sh, d_sh = rel_err(y, ref)
+        _hold(f'planar_apply_batched shared planes n={n} B={b}', e_sh, 1e-6)
+        work = x.clone()
+        t_sh, _ = time_ms(lambda: pg.planar_apply(work, *shared, n, wires))
+        print(f'planar_apply_batched n={n} B={b} wires={wires}, one set of planes for every '
+              f'sample: rel err {e_sh:.2e}, kernel {t_sh:.4f} ms')
+
+        for name, a in acc.items():
+            states = [v for v in a['errs'] if v is not None]
+            planes = [v for v in a['plane_errs'] if v is not None]
+            row = dict(max_abs_err=max(a['abs_errs']), rel_err=max(states) if states else None,
+                       plane_rel_err=max(planes) if planes else None,
+                       ms=float(np.mean(a['t_k'])), plain_ms=float(np.mean(a['t_p'])),
+                       shape=f'n={n}, B={b}, mean over k = 1, 2, 3',
+                       **mean_bound(a['bounds']))
+            if name == 'planar_apply_batched':
+                row.update(shared_planes_ms=t_sh, shared_planes_rel_err=e_sh)
+                row['max_abs_err'] = max(row['max_abs_err'], d_sh)
+            rows[name].append(row)
+        del x, g, y, work
+    for name, r in rows.items():
+        results[name] = dict(r[0], other_shapes=r[1:])
 
 
 def check_window_kernels(results: dict, rng, rng_g):
@@ -525,6 +697,7 @@ def check_window_kernels(results: dict, rng, rng_g):
           f'twin {tp:.4f} ms, {_shares(results["window_chain_bwd"])}')
     for n_other, sms in ((14, None), (19, None), (19, 114)):
         check_chain_bwd_size(n_other, sms)
+    results['window_chain_bwd']['depth'] = check_chain_bwd_depth()
 
 
 def check_window_apply_sizes(row: dict):
@@ -593,6 +766,57 @@ def check_chain_bwd_size(n: int, sms=None):
     _hold(f'window_chain_bwd n={n}{where} dW', pe, PLANE_BAR)
     print(f'window_chain_bwd n={n} ({len(wseq)} steps{where}): state rel err {e:.2e}, '
           f'dW rel err {pe:.2e}')
+
+
+def check_chain_bwd_depth(n: int = 18, layer_counts=(10, 20)):
+    """Phase 3, K4 under depth: the bench ansatz's window sequence at n=18
+    with 10 and 20 layers, its states and dW against the twin (bars 1e-5),
+    and both against the twin in float64, which tells the kernel's share of
+    the difference from the twin's. The verdict against the bar is printed
+    and recorded in the kernels' JSON line; it does not stop the run, since
+    the main paths never walk this deep (5 layers, held above at the bar).
+    Non-finite output stops it."""
+    import torch
+    ck = _pkg()[3]
+    dev = torch.device('cuda')
+    rows = []
+    for layers in layer_counts:
+        cir = bench_circuit(n, layers=layers)
+        mres, mims, wseq = cir._planar_seq(cir._full_params())
+        keep = [i for i, st in enumerate(wseq) if st[0] in ('win', 'rot')]
+        mres, mims = [mres[i] for i in keep], [mims[i] for i in keep]
+        wseq = tuple(wseq[i] for i in keep)
+        if not ck.chain_fused_ok(wseq, n, mres):
+            raise AssertionError(f'window_chain_bwd n={n}, {layers} layers: does not qualify')
+        n_win = sum(1 for st in wseq if st[0] == 'win')
+        rng = np.random.default_rng(SEED + 40 + layers)
+        y = ck.window_chain_plain(_randn_state(n, rng, dev), mres, mims, n, wseq)
+        g = _randn_state(n, rng, dev)
+        got = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
+        ref = ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
+        d64 = [[None if m is None else m.double() for m in ms] for ms in (mres, mims)]
+        exact = ck.window_chain_bwd_plain(y.double(), g.double(), *d64, n, wseq)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got[:2]):
+            raise AssertionError(f'window_chain_bwd n={n}, {layers} layers: non-finite output')
+
+        def errs(a, b):
+            st = max(rel_err(a[0].double(), b[0].double())[0],
+                     rel_err(a[1].double(), b[1].double())[0])
+            dw = max(rel_err(p.double(), q.double())[0] for dk, dr in zip(a[2:], b[2:])
+                     for p, q in zip(dk, dr) if q is not None)
+            return st, dw
+
+        (e, pe), (ke, kpe), (te, tpe) = errs(got, ref), errs(got, exact), errs(ref, exact)
+        holds = e <= 1e-5 and pe <= PLANE_BAR
+        print(f'window_chain_bwd n={n}, {layers} layers ({len(wseq)} steps, {n_win} windows): '
+              f'against the twin states {e:.2e}, dW {pe:.2e} (bars 1e-5, {PLANE_BAR:.0e}: '
+              f'{"holds" if holds else "FAILS"}); against the float64 twin: kernel {ke:.2e} / '
+              f'{kpe:.2e}, float32 twin {te:.2e} / {tpe:.2e}')
+        rows.append(dict(layers=layers, windows=n_win, state_rel_err=e, dw_rel_err=pe,
+                         holds_bar=holds, kernel_vs_float64=[ke, kpe],
+                         twin_vs_float64=[te, tpe]))
+    return rows
 
 
 def _device_ms(fn, name: str, calls: int = 5) -> float:
@@ -804,6 +1028,276 @@ def check_step_backward(n: int = 22, extra_cnot=(0, 11), layers: int = 2, reps: 
     print(f'backward {label}: grad step median over {reps}: kernel route {out[False][2]:.3f} ms, '
           f'twin route {t_twin:.3f} ms')
     return c_def, c_fus
+
+
+# ------------------------------------------------------------ batched QML
+QML_N, QML_LAYERS, QML_B = 14, 2, 100     # bench_suite.py::bench_batched_qml
+
+
+def qml_circuit(device=None):
+    """bench_batched_qml's circuit (benchmarks/bench_suite.py:693-755):
+    QML_LAYERS x (ry(encode) on every wire; rz, ry on every wire; CNOT
+    ring), observable Z on wire 0, reupload: the 14 features of a sample
+    wrap around the 28 encoders. With no device it lands on the card."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(QML_N, device=device, reupload=True)
+    for _ in range(QML_LAYERS):
+        for i in range(QML_N):
+            cir.ry(i, encode=True)
+        for i in range(QML_N):
+            cir.rz(i)
+            cir.ry(i)
+        cir.cnot_ring()
+    cir.observable(0)
+    cir.init_para(SEED)
+    return cir
+
+
+def qml_inputs(device):
+    """The benchmark's data, (100, 14) float32 from default_rng(0), and the
+    hybrid variant's linear layer W (14 x 14) and b from default_rng(SEED)."""
+    import torch
+    data = np.random.default_rng(0).random((QML_B, QML_N)).astype(np.float32)
+    rng = np.random.default_rng(SEED)
+    w = rng.normal(0, 0.5, (QML_N, QML_N)).astype(np.float32)
+    b = rng.normal(0, 0.1, QML_N).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in (data, w, b)]
+
+
+def qml_step(cir, leaves, hybrid: bool, update: bool = True):
+    """One data-encoded training step: expectation(data=feats, params=p) of
+    shape (B, 1), the mean as the loss, backward, and with ``update`` the SGD
+    update of every leaf in place. leaves = [p, data, W, b]; the hybrid
+    variant feeds feats = data @ W + b, so the gradient also reaches W and b.
+    Returns (loss, gradients of the leaves that train)."""
+    import torch
+    p, data, w, b = leaves
+    feats = data @ w + b if hybrid else data
+    out = cir.expectation(data=feats, params=p)
+    if tuple(out.shape) != (data.shape[0], 1):
+        raise AssertionError(f'batched expectation of shape {tuple(out.shape)}')
+    loss = out.mean()
+    loss.backward()
+    train = [p, w, b] if hybrid else [p]
+    grads = []
+    for t in train:
+        grads.append(t.grad)
+        t.grad = None
+    if update:
+        with torch.no_grad():
+            for t, gr in zip(train, grads):
+                t -= LR * gr
+    return loss.detach(), grads
+
+
+def _qml_leaves(cir, device, hybrid: bool):
+    dqt = _pkg()[0]
+    data, w, b = qml_inputs(device)
+    p = cir.params.to(dqt.rdtype()).requires_grad_()
+    if hybrid:
+        w, b = w.to(dqt.rdtype()).requires_grad_(), b.to(dqt.rdtype()).requires_grad_()
+    return [p, data.to(dqt.rdtype()), w.to(dqt.rdtype()), b.to(dqt.rdtype())]
+
+
+def _qml_reference(hybrid: bool, sgd_steps: int = 3):
+    """Loss and gradients on the port's complex128 einsum route on the
+    card, then the losses of ``sgd_steps`` SGD steps."""
+    import torch
+    dqt = _pkg()[0]
+    dqt.set_dtype('complex128')
+    try:
+        cir = qml_circuit('cuda')
+        if cir._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        leaves = _qml_leaves(cir, 'cuda', hybrid)
+        loss, grads = qml_step(cir, leaves, hybrid, update=False)
+        losses = [qml_step(cir, leaves, hybrid)[0].item() for _ in range(sgd_steps)]
+        with torch.no_grad():
+            losses.append(qml_step_loss(cir, leaves, hybrid))
+        torch.cuda.synchronize()
+        return loss.item(), grads, losses
+    finally:
+        dqt.set_dtype('complex64')
+
+
+def qml_step_loss(cir, leaves, hybrid: bool) -> float:
+    p, data, w, b = leaves
+    return cir.expectation(data=data @ w + b if hybrid else data, params=p).mean().item()
+
+
+def check_batched_qml(card: str, reps: int = 10):
+    """The batched QML slice: bench_batched_qml's circuit at n=14, 2 layers,
+    B=100 through the public API on the card, plain and hybrid. Per step
+    batched planar_apply and planar_grad launched (planar_bwd_fused with
+    fused_bwd, and then no planar_grad), no window or chain kernel; loss and
+    gradients against the complex128 route (<= 1e-5, <= 1e-4), fused against
+    default (<= 1e-5), three SGD steps on the kernel and twin routes (losses
+    <= 1e-5 apart after each); the median step on both routes and the
+    device's busy share in a profiler window."""
+    import torch
+    dqt = _pkg()[0]
+    dqt.set_dtype('complex64')
+    no_window = ('window_apply', 'window_chain_fwd', 'window_chain_bwd')
+    main_counts, out = {name: 0 for name in KERNELS}, {}
+    for hybrid in (False, True):
+        label = f'batched QML n={QML_N}, {QML_LAYERS} layers, B={QML_B}' + \
+            (', hybrid' if hybrid else '')
+        ref_loss, ref_grads, ref_losses = _qml_reference(hybrid)
+        grads_by_route = {}
+        for fused in (False, True):
+            cir = qml_circuit()
+            cir.fused_bwd = fused
+            if cir.device.type != 'cuda' or not cir._planar_ok():
+                raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
+            leaves = _qml_leaves(cir, cir.device, hybrid)
+            reset_counts()
+            loss, grads = qml_step(cir, leaves, hybrid, update=False)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            d_loss = abs(loss.item() - ref_loss)
+            d_grad = max((a.double() - r).abs().max().item() for a, r in zip(grads, ref_grads))
+            print(f'{label}, fused_bwd={fused}: launches {counts}, loss {loss.item():.8f} '
+                  f'(complex128 {ref_loss:.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e} '
+                  f'over {"p, W, b" if hybrid else "p"}')
+            if any(counts[k] for k in no_window):
+                raise AssertionError(f'{label}: a window or chain kernel was launched')
+            if counts['planar_apply_batched'] < 1:
+                raise AssertionError(f'{label}: batched planar_apply was not launched')
+            if fused and (counts['planar_bwd_fused_batched'] < 1
+                          or counts['planar_grad_batched'] != 0):
+                raise AssertionError(f'{label}, fused_bwd: launches {counts}')
+            if not fused and (counts['planar_grad_batched'] < 1
+                              or counts['planar_bwd_fused_batched'] != 0):
+                raise AssertionError(f'{label}: launches {counts}')
+            if not (d_loss <= 1e-5 and d_grad <= 1e-4):
+                raise AssertionError(f'{label}, fused_bwd={fused}: differs from complex128')
+            grads_by_route[fused] = grads
+            for name, c in counts.items():
+                main_counts[name] += c
+        d = max((a - b).abs().max().item() for a, b in zip(*grads_by_route.values()))
+        print(f'{label}: default vs fused_bwd max|d grad| {d:.2e}')
+        if not d <= 1e-5:
+            raise AssertionError(f'{label}: default and fused gradients differ by {d}')
+
+        cir = qml_circuit()
+        leaves = _qml_leaves(cir, cir.device, hybrid)
+        losses = [qml_step(cir, leaves, hybrid)[0].item() for _ in range(3)]
+        with torch.no_grad():
+            losses.append(qml_step_loss(cir, leaves, hybrid))
+        reset_counts()
+        with twin_route():
+            twin_leaves = _qml_leaves(cir, cir.device, hybrid)
+            twin = [qml_step(cir, twin_leaves, hybrid)[0].item() for _ in range(3)]
+            with torch.no_grad():
+                twin.append(qml_step_loss(cir, twin_leaves, hybrid))
+        if sum(read_counts().values()) != 0:
+            raise AssertionError('the twin route launched a kernel')
+        d_twin = max(abs(a - b) for a, b in zip(losses, twin))
+        d_ref = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        print(f'{label}: 3 SGD steps, losses {[round(v, 8) for v in losses]}, max |d| to the twin '
+              f'route {d_twin:.2e}, to complex128 {d_ref:.2e}')
+        if not (d_twin <= 1e-5 and d_ref <= 1e-5):
+            raise AssertionError(f'{label}: the SGD losses drift between routes')
+
+        leaves = _qml_leaves(cir, cir.device, hybrid)
+        t_kernel, _ = time_ms(lambda: qml_step(cir, leaves, hybrid), reps=reps, warmup=2)
+        dev = _device_profile(lambda: qml_step(cir, leaves, hybrid), 3)
+        with twin_route():
+            leaves = _qml_leaves(cir, cir.device, hybrid)
+            t_twin, _ = time_ms(lambda: qml_step(cir, leaves, hybrid), reps=reps, warmup=2)
+        busy = dev['device_ms_per_step'] / t_kernel
+        print(f'{label}: step median over {reps}: kernel route {t_kernel:.3f} ms, twin route '
+              f'{t_twin:.3f} ms; device {dev["device_ms_per_step"]:.3f} ms per step '
+              f'({dev["device_ops_per_step"]:.0f} device ops, busy {busy:.1%}), top '
+              f'{[(k["name"][:40], round(k["ms_per_step"], 4)) for k in dev["top_kernels"][:4]]} '
+              f'[{card}]')
+        out['hybrid' if hybrid else 'plain'] = dict(step_ms=t_kernel, twin_step_ms=t_twin,
+                                                   device_busy_share=busy)
+    return main_counts, out
+
+
+# ------------------------------------------------------ photonic gradients
+def _rel_close(name: str, got, ref, bar: float) -> float:
+    e = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not e <= bar:
+        raise AssertionError(f'{name}: kernel and twin route gradients differ by {e} > {bar}')
+    return e
+
+
+def check_photonic_gradients(card: str, rng):
+    """d P / d squeezing of GBS(10 modes, threshold) for a few click
+    patterns through K8 (K9 with a displacement), and d P / d angles of
+    Clements(12 modes, 6 photons) probabilities through K7, each against the
+    twin route's autograd (relative error <= 1e-8), at complex128."""
+    import torch
+    dqt = _pkg()[0]
+    counts = {name: 0 for name in KERNELS}
+    patterns = [[1, 1, 0, 1, 0, 0, 1, 0, 0, 0], [1, 1, 1, 1, 1, 0, 0, 0, 0, 0],
+                [0, 1, 0, 1, 0, 1, 0, 1, 0, 1]]
+    with complex128():
+        sq, u = rng.uniform(0.2, 0.6, GBS_MODES), _haar(GBS_MODES, rng)
+        for displaced, hot in ((False, 'tor_dets_cuda'), (True, 'tor_dets_quads_cuda')):
+            cir = dqt.photonic.GaussianBosonSampling(GBS_MODES, sq, u, detector='threshold')
+            if displaced:
+                cir.d(0, 0.3, 0.4)
+                cir.d(GBS_MODES // 2, 0.2, 1.0)
+            # the squeezing magnitudes as the trainable parameters
+            cir._train_mask = [False] * len(cir._pvals)
+            for op in cir.operators[:GBS_MODES]:
+                cir._train_mask[op.pidx[0]] = True
+
+            def grad():
+                p = cir.params.requires_grad_()
+                cir(params=p)
+                loss = sum(cir.get_prob(pat) for pat in patterns)
+                loss.backward()
+                return loss.item(), p.grad
+
+            reset_counts()
+            loss, g = grad()
+            torch.cuda.synchronize()
+            c = read_counts()
+            with twin_route():
+                ref_loss, ref = grad()
+            e = _rel_close(f'GBS d P / d squeezing{", displaced" if displaced else ""}', g, ref,
+                           1e-8)
+            print(f'GBS {GBS_MODES} modes, threshold{", displaced" if displaced else ""}: '
+                  f'd P / d squeezing of {len(patterns)} patterns (P {loss:.6e}), launches '
+                  f'{ {k: v for k, v in c.items() if v} }, rel err to the twin route {e:.2e}')
+            if c[hot] != len(patterns) or abs(loss - ref_loss) > 1e-8 * abs(ref_loss):
+                raise AssertionError(f'GBS gradient: expected {len(patterns)} launches of {hot}')
+            for name, v in c.items():
+                counts[name] += v
+
+        nmode, nphoton = BS_MODES, BS_PHOTONS
+        cir = dqt.photonic.Clements(nmode, init_state=[1] * nphoton + [0] * (nmode - nphoton),
+                                    cutoff=nphoton + 1)
+        angles = rng.uniform(0, 2 * np.pi, cir.ndata)
+        keys = [dqt.photonic.FockState([1] * nphoton + [0] * (nmode - nphoton)),
+                dqt.photonic.FockState([0, 1] * nphoton),
+                dqt.photonic.FockState([2, 0, 0, 1, 1, 0, 0, 1, 0, 1, 0, 0])]
+
+        def grad():
+            d = torch.tensor(angles, device='cuda', requires_grad=True)
+            probs = cir(data=d, is_prob=True)
+            sum(probs[k] for k in keys).backward()
+            return d.grad
+
+        reset_counts()
+        g = grad()
+        torch.cuda.synchronize()
+        c = read_counts()
+        with twin_route():
+            ref = grad()
+        e = _rel_close('Clements d P / d angles', g, ref, 1e-8)
+        print(f'boson sampling {nmode} modes, {nphoton} photons: d P / d angles ({cir.ndata} '
+              f'angles, {len(keys)} outcomes), launches {c["permanent_cuda_batch"]} of '
+              f'permanent_cuda_batch, rel err to the twin route {e:.2e} [{card}]')
+        if c['permanent_cuda_batch'] != 1:
+            raise AssertionError('Clements gradient: expected one permanent launch')
+        for name, v in c.items():
+            counts[name] += v
+    return counts
 
 
 # ---------------------------------------------------------------- photonic
@@ -1123,9 +1617,11 @@ def check_gbs(card: str, rng):
 # ----------------------------------------------------------------- profile
 PARTS = {   # label -> where the real step spends host time
     'sequence': 'QubitCircuit._planar_seq (gate matrices, window plan and products)',
-    'chain_forward': 'planar_chain (K3 at n=18)',
-    'pauli_expectation': 'planar_pauli_expectation (K3 at n=18)',
-    'chain_backward': '_chain_backward, the adjoint walk inside loss.backward() (K4 at n=18)',
+    'sequence_batched': 'QubitCircuit._planar_seq_batched (every group\'s (B, K, K) matrices)',
+    'chain_forward': 'planar_chain (K3 at n=18; batched K1 per gate step in the QML step)',
+    'pauli_expectation': 'planar_pauli_expectation (K3 at n=18; batched K1 in the QML step)',
+    'chain_backward': '_chain_backward, the adjoint walk inside loss.backward() (K4 at n=18; '
+                      'batched K1 + K5 + K1 per gate step in the QML step)',
 }
 
 
@@ -1146,7 +1642,9 @@ def labelled_parts(host_ms: dict):
             return out
         return inner
 
-    patches = [(dqt.QubitCircuit, '_planar_seq', 'sequence'), (pg, 'planar_chain', 'chain_forward'),
+    patches = [(dqt.QubitCircuit, '_planar_seq', 'sequence'),
+               (dqt.QubitCircuit, '_planar_seq_batched', 'sequence_batched'),
+               (pg, 'planar_chain', 'chain_forward'),
                (pg, 'planar_pauli_expectation', 'pauli_expectation'),
                (pg, '_chain_backward', 'chain_backward')]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -1212,6 +1710,47 @@ def profile_training(card: str, n: int = 18, reps: int = 10, steps: int = 5) -> 
         card=card, device=torch.cuda.get_device_name(0), n=n, layers=LAYERS, parts=PARTS,
         step_ms_median=t_step, step_ms_all=all_steps, step_ms_with_labels=t_labelled,
         host_ms_per_step=host_ms,
+        sync_split_ms=dict(forward_and_expectation=t_fwd, backward=t_bwd, update=t_upd,
+                           total=t_fwd + t_bwd + t_upd),
+        profiled_steps=steps, device_busy_share=dev['device_ms_per_step'] / t_step, **dev)
+
+
+def profile_batched_qml(card: str, reps: int = 10, steps: int = 3) -> dict:
+    """Where one batched QML step (``qml_step`` on ``qml_circuit``, plain
+    variant, B=100) spends its time, as ``profile_training`` splits the VQE
+    step: the free-running median, the host time of PARTS inside it, a
+    synchronised split, and the profiler's device time and top kernels."""
+    import torch
+    dqt = _pkg()[0]
+    dqt.set_dtype('complex64')
+    cir = qml_circuit()
+    leaves = _qml_leaves(cir, cir.device, False)
+    t_step, all_steps = time_ms(lambda: qml_step(cir, leaves, False), reps=reps, warmup=3)
+    host_ms: dict = {}
+    with labelled_parts(host_ms):
+        for _ in range(reps):
+            qml_step(cir, leaves, False)
+        torch.cuda.synchronize()
+    host_ms = {k: v / reps for k, v in host_ms.items()}
+    p, data = leaves[0], leaves[1]
+
+    def update():
+        with torch.no_grad():
+            p.sub_(LR * p.grad)
+        p.grad = None
+
+    split = []
+    for _ in range(reps):
+        loss, t_fwd = _synced(lambda: cir.expectation(data=data, params=p).mean())
+        _, t_bwd = _synced(loss.backward)
+        _, t_upd = _synced(update)
+        split.append((t_fwd, t_bwd, t_upd))
+    t_fwd, t_bwd, t_upd = (float(v) for v in np.median(np.array(split), axis=0))
+    with labelled_parts({}):
+        dev = _device_profile(lambda: qml_step(cir, leaves, False), steps)
+    return dict(
+        card=card, device=torch.cuda.get_device_name(0), n=QML_N, layers=QML_LAYERS, batch=QML_B,
+        parts=PARTS, step_ms_median=t_step, step_ms_all=all_steps, host_ms_per_step=host_ms,
         sync_split_ms=dict(forward_and_expectation=t_fwd, backward=t_bwd, update=t_upd,
                            total=t_fwd + t_bwd + t_upd),
         profiled_steps=steps, device_busy_share=dev['device_ms_per_step'] / t_step, **dev)
@@ -1308,15 +1847,16 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--profile', action='store_true',
-                    help='instead of the checks, print where one n=18 grad step and one call '
-                         'of each photonic path spend their time')
+                    help='instead of the checks, print where one n=18 grad step, one batched '
+                         'QML step and one call of each photonic path spend their time')
     ap.add_argument('--out', default=None, help='with --profile: also write the JSON here')
     args = ap.parse_args()
     t_start = time.perf_counter()
     smi = setup()
     build()
     if args.profile:
-        text = json.dumps(dict(training=profile_training(smi), photonic=profile_photonic(smi)))
+        text = json.dumps(dict(training=profile_training(smi), batched_qml=profile_batched_qml(smi),
+                               photonic=profile_photonic(smi)))
         print(text)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1331,6 +1871,7 @@ def main() -> int:
     rng_p = np.random.default_rng(SEED + 2)
     with torch.no_grad():
         check_gate_kernels(results, rng, rng_g)
+        check_batched_kernels(results, np.random.default_rng(SEED + 5))
         check_window_kernels(results, rng, rng_g)
         with complex128():
             check_permanent_kernel(results, rng_p)
@@ -1359,8 +1900,10 @@ def main() -> int:
     add(check_training()[0])
     for counts in check_step_backward():
         add(counts)
+    add(check_batched_qml(smi)[0])
     add(check_boson_sampling(smi, rng_p))
     add(check_gbs(smi, rng_p))
+    add(check_photonic_gradients(smi, np.random.default_rng(SEED + 6)))
     for name, c in main_path.items():
         if c <= 0:
             raise AssertionError(f'{name} was not launched on the main paths')
@@ -1371,16 +1914,19 @@ def main() -> int:
         # library_ms: window_apply has one (a real block matmul, timed in
         # phase 3) and tor_dets_cuda has one (a batched det per size group).
         # The others have no single PyTorch call: a gate on arbitrary wires
-        # needs a permute beside its matmul, the reduced planes need two
-        # products combined, the chains are loops of steps, nothing computes
-        # a permanent, and the quadratic form is a det, a solve and a dot
+        # needs a permute beside its matmul (per sample: a permute and a
+        # batched matmul), the reduced planes need two products combined,
+        # the chains are loops of steps, nothing computes a permanent, and
+        # the quadratic form is a det, a solve and a dot
         kernels.append(dict(name=name, route='cuda', source=source, replaces=replaces,
                             launches=main_path[name], max_abs_err=r['max_abs_err'],
                             rel_err=r['rel_err'], plane_rel_err=r['plane_rel_err'], ms=r['ms'],
                             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                             bound_by=r['bound_by'], library_ms=r.get('library_ms'),
                             shape=r['shape'], other_shapes=r.get('other_shapes'),
-                            **{k: r[k] for k in ('device_ms', 'non_unitary_rel_err') if k in r}))
+                            **{k: r[k] for k in ('device_ms', 'non_unitary_rel_err', 'depth',
+                                                 'shared_planes_ms', 'shared_planes_rel_err')
+                               if k in r}))
     # computed, not measured: the FP32 bounds from the inputs as bound_ms is,
     # and K4's barriers from its step table (one per row, less a final relabel)
     derived = {name: {k: results[name][k] for k in ('bound_fp32_ms', 'bound_fp32_by',

@@ -16,6 +16,11 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     p = cir.params.requires_grad_()             # training
     cir.expectation(params=p)[0].backward()     # fills p.grad
 
+    qml = dqt.QubitCircuit(14, reupload=True)   # data-encoded QML, a batch at once
+    qml.rylayer(encode=True)
+    ...
+    out = qml.expectation(data=feats, params=p) # feats (B, ndata): out (B, n_obs)
+
     bs = dqt.photonic.Clements(12, init_state=[1] * 6 + [0] * 6, cutoff=7)
     probs = bs(data=angles, is_prob=True)       # boson sampling: one permanent per outcome
     gbs = dqt.photonic.GaussianBosonSampling(10, squeezing, unitary, detector='threshold')
@@ -27,10 +32,12 @@ from .circuit import Observable, QubitCircuit
 from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
                      set_kappa)
 from .interop import from_jax, params_from_numpy, qumode_from_jax
+from .ops.qmath import amplitude_encoding, expectation_pauli
 from .photonic import FockState, GaussianState, QumodeCircuit, permanent, torontonian
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'set_dtype', 'set_device', 'cdtype',
            'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
            'QumodeCircuit', 'FockState', 'GaussianState', 'permanent', 'torontonian',
-           'qumode_from_jax', 'set_hbar', 'set_kappa']
+           'qumode_from_jax', 'set_hbar', 'set_kappa', 'amplitude_encoding',
+           'expectation_pauli']

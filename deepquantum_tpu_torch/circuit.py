@@ -7,13 +7,24 @@ the parameters (``expectation(params=p)[0].backward()`` with ``p`` a leaf
 that requires grad). The circuit records an op list (the IR) plus one flat
 parameter vector; simulation runs eagerly on the circuit's device.
 
+Data-encoded circuits (QML): gates added with ``encode=True`` take their
+angles from ``data`` instead of the parameters. ``forward(data=d)`` with d
+of shape (ndata,) runs one state; with d of shape (B, ndata) it runs a batch
+of B states, each with its own encoder angles, and returns (B, 2^n, 1);
+``expectation`` then gives (B, n_observables). Gradients reach both the
+parameters and the data (so a classical layer in front of the circuit
+trains too). With ``reupload`` the data wraps around the encoders.
+
 Routing is a pure function of the dtype, n, the plan and the device: at
 complex64 with n >= 10 and every fused group a unitary on <= 3 wires, the
 state runs as float32 planes through the planar engine (ops/planar_gate.py,
 its window scheduler and its CUDA kernels on a CUDA device); everything
-else runs the complex einsum engine (ops/apply.py). Gradients follow the
-route: the planar engine's chain has an adjoint backward over its own
-kernels, the einsum engine is plain autograd.
+else runs the complex einsum engine (ops/apply.py). A batch takes the same
+routes with the batch as a leading axis: the planar engine's per-gate
+kernels run it as a grid axis (windows and the one-launch chain refuse
+batched planes, as in the JAX package), the einsum engine as an einsum
+axis. Gradients follow the route: the planar engine's chain has an adjoint
+backward over its own kernels, the einsum engine is plain autograd.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ class Observable:
         self.basis = basis
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Apply the Pauli string to a state tensor (2,)*n."""
+        """Apply the Pauli string to a state tensor (2,)*n, or to each state
+        of a batch (B, 2, ..., 2)."""
         for wire, b in zip(self.wires, self.basis):
             x = evolve_state(x, _PAULI_FNS[b](x.device), self.nqubit, [wire[0]])
         return x
@@ -101,6 +113,8 @@ class QubitCircuit:
         device: where states, parameters and matrices live (default: the
             config's default device, which is the CUDA card unless
             ``set_device`` chose another). 'cuda' without CUDA raises.
+        reupload: data re-uploading for encoders (data shorter than ndata
+            wraps around).
     """
 
     #: max combined wire support of one fused gate group (the JAX package's
@@ -112,14 +126,19 @@ class QubitCircuit:
     fused_bwd: bool = False
 
     def __init__(self, nqubit: int, init_state: Any = 'zeros', name: str | None = None,
-                 device=None) -> None:
+                 device=None, reupload: bool = False) -> None:
         self.nqubit = nqubit
         self.name = name
         self.device = resolve_device(device)
+        self.reupload = reupload
         self.operators: list[GateOp] = []
         self.observables: list[Observable] = []
+        self.encoders: list[GateOp] = []
         self._pvals: list[float] = []       # all parameter values (host-side master copy)
+        self._enc_pidx: list[int] = []      # parameter indices fed by data, in encoder order
         self._train_mask: list[bool] = []   # per-parameter trainability
+        self.npara = 0
+        self.ndata = 0
         self.state = None
         self._version = 0
         self._cache: dict = {}
@@ -154,16 +173,56 @@ class QubitCircuit:
         for i, v in zip(idx, values):
             self._pvals[i] = float(v)
 
-    def _full_params(self, params=None) -> torch.Tensor:
+    def _index(self, name: str, idx) -> torch.Tensor:
+        """A parameter-index list as a long tensor on the device, made once
+        per circuit version (each upload would synchronise the stream)."""
+        key = ('index', name, self._version, self.device)
+        t = self._cache.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = torch.as_tensor(list(idx), dtype=torch.long, device=self.device)
+            self._cache[key] = t
+        return t
+
+    def _full_params(self, params=None, data=None, data_idx=None) -> torch.Tensor:
         """Full parameter vector on the circuit's device, with the trainable
-        entries replaced by ``params`` when given (differentiable in them)."""
+        entries replaced by ``params`` and the encoder entries by
+        ``data[..., data_idx]`` when given, differentiable in both. Data of
+        shape (B, ndata) gives one vector per sample, (B, P)."""
         full = torch.as_tensor(np.asarray(self._pvals, dtype=np.float64), device=self.device)
         full = full.to(rdtype())
         if params is not None:
             params = torch.as_tensor(params, device=self.device).to(rdtype()).reshape(-1)
-            idx = torch.as_tensor(self._train_idx, dtype=torch.long, device=self.device)
-            full = full.index_put((idx,), params)
+            full = full.index_put((self._index('train', self._train_idx),), params)
+        if data is not None and self._enc_pidx:
+            data = torch.as_tensor(data, device=self.device).to(rdtype())
+            vals = data[..., self._index(('data', tuple(data_idx)), data_idx)]
+            if vals.dim() == 2:
+                full = full.expand(vals.shape[0], full.shape[0])
+            full = full.index_copy(-1, self._index('enc', self._enc_pidx), vals)
         return full
+
+    def _data_indices(self, data_len: int) -> list[int]:
+        """Encoder position -> index into the data vector (wrapping around
+        with ``reupload``)."""
+        if self.reupload:
+            return [i % data_len for i in range(self.ndata)]
+        if data_len < self.ndata:
+            raise ValueError('The circuit needs more data, or consider data re-uploading')
+        return list(range(self.ndata))
+
+    def encode(self, data) -> None:
+        """Write data into the stored encoder parameter values (the
+        functional path passes data to forward() instead). Supports
+        re-uploading."""
+        if data is None:
+            return
+        data = _float64(data)
+        if not self.reupload and len(data) < self.ndata:
+            raise ValueError('The circuit needs more data, or consider data re-uploading')
+        for k, pidx in enumerate(self._enc_pidx):
+            self._pvals[pidx] = float(data[k % len(data)])
+        self._touch()
 
     def init_para(self, seed: int | None = None) -> None:
         """Re-randomize all trainable parameters from ``seed`` (numpy's
@@ -173,17 +232,24 @@ class QubitCircuit:
             if t:
                 self._pvals[i] = float(rng.random() * 2 * np.pi)
 
+    def init_encoder(self) -> None:
+        """Re-randomize the encoder parameters."""
+        for pidx in self._enc_pidx:
+            self._pvals[pidx] = float(np.random.rand() * 2 * np.pi)
+        self._touch()
+
     # ------------------------------------------------------------------- add
-    def _new_params(self, values, requires_grad: bool) -> tuple:
+    def _new_params(self, values, encode: bool, requires_grad: bool) -> tuple:
         start = len(self._pvals)
         idx = tuple(range(start, start + len(values)))
         self._pvals.extend(float(v) for v in values)
-        self._train_mask.extend([requires_grad] * len(values))
+        self._train_mask.extend([requires_grad and not encode] * len(values))
         return idx
 
-    def add_gate(self, name: str, wires, controls=None, inputs=None) -> GateOp:
+    def add_gate(self, name: str, wires, controls=None, inputs=None,
+                 encode: bool = False) -> GateOp:
         """Append a GATE_REGISTRY gate to the IR, registering its parameters
-        (trainable unless given as ``inputs``)."""
+        (trainable unless given as ``inputs`` or fed by data: ``encode``)."""
         wires = tuple(_flat_wires(wires))
         controls = tuple(_flat_wires(controls)) if controls is not None else ()
         if len(set(wires)) != len(wires) or len(set(controls)) != len(controls) \
@@ -198,7 +264,7 @@ class QubitCircuit:
         npara = reg['npara']
         if len(wires) != reg['nwires']:
             raise ValueError(f'{name} acts on {reg["nwires"]} wire(s), got {wires}')
-        requires_grad = inputs is None and npara > 0
+        requires_grad = inputs is None and npara > 0 and not encode
         if npara > 0:
             if inputs is None:
                 values = [float(np.random.rand() * 2 * np.pi) for _ in range(npara)]
@@ -206,12 +272,18 @@ class QubitCircuit:
                 values = _float64(inputs)
                 if len(values) != npara:
                     raise ValueError(f'{name} expects {npara} parameters')
-            pidx = self._new_params(values, requires_grad)
+            pidx = self._new_params(values, encode, requires_grad)
         else:
             pidx = ()
         op = GateOp(name=name, wires=wires, controls=controls, matrix_fn=reg['fn'], pidx=pidx,
                     npara=npara, requires_grad=requires_grad)
         self.operators.append(op)
+        if encode:
+            self.encoders.append(op)
+            self._enc_pidx.extend(pidx)
+            self.ndata += npara
+        else:
+            self.npara += npara
         self._touch()
         return op
 
@@ -297,7 +369,7 @@ class QubitCircuit:
 
     def _fused_matrix(self, entry, full_params: torch.Tensor):
         """Compose one group's 2^k unitary (k = |group wires|), axes in the
-        group's sorted wire order."""
+        group's sorted wire order; (B, 2^k, 2^k) for (B, P) parameters."""
         _, ops, wires = entry
         k = len(wires)
         mat = None
@@ -306,6 +378,8 @@ class QubitCircuit:
             aw = list(op.controls) + list(op.wires)
             pad = k - len(aw)
             if pad:
+                # kron with a 2-D identity keeps a leading batch axis: torch
+                # pads the identity to (1, 2^pad, 2^pad)
                 m = torch.kron(m, torch.eye(1 << pad, dtype=cdtype(), device=m.device))
             order = aw + [w for w in wires if w not in aw]
             perm = [order.index(w) for w in wires]
@@ -364,10 +438,40 @@ class QubitCircuit:
                          fused_bwd=self.fused_bwd)
         return from_planar(p).reshape([2] * n)
 
+    def _planar_seq_batched(self, fulls: torch.Tensor):
+        """The scheduled planar sequence of a batch: fulls (B, P) per-sample
+        full parameters give every group's matrix as a (B, K, K) stack (a
+        fixed group's one matrix is expanded, not copied), so the window
+        scheduler stands aside (it refuses batched planes, as the JAX
+        package's does) and each step is one per-gate kernel."""
+        from .ops.planar_gate import _sorted_mat_planes, schedule_planar_seq
+        bsz = fulls.shape[0]
+        mres, mims, wseq = [], [], []
+        for entry in self._fused_plan():
+            mat, wires = self._op_matrix(entry, fulls)
+            if mat.dim() == 2:
+                mat = mat.expand(bsz, *mat.shape)
+            mre, mim = _sorted_mat_planes(mat, wires)
+            mres.append(mre)
+            mims.append(mim)
+            wseq.append(tuple(sorted(wires)))
+        return schedule_planar_seq(tuple(mres), tuple(mims), tuple(wseq), self.nqubit)
+
+    def _sim_planar_batched(self, fulls: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+        """The batched planar engine: states (B, 2^n) complex, fulls (B, P);
+        the batch is the grid axis of the per-gate kernels. Returns
+        (B, 2^n)."""
+        from .ops.planar_gate import from_planar, planar_chain, to_planar_batched
+        mres, mims, wseq = self._planar_seq_batched(fulls)
+        p = planar_chain(to_planar_batched(states), mres, mims, self.nqubit, wseq,
+                         fused_bwd=self.fused_bwd)
+        return from_planar(p)
+
     def _sim_tensor(self, full_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Simulation over a state tensor (2,)*n."""
+        """Simulation over a state tensor (2,)*n, or a batch (B, 2, ..., 2)
+        with (B, P) parameters on the einsum route."""
         n = self.nqubit
-        if self._planar_ok():
+        if self._planar_ok() and full_params.dim() == 1:
             return self._sim_planar(full_params, x)
         for entry in self._fused_plan():
             if entry[0] == 'op':
@@ -384,55 +488,84 @@ class QubitCircuit:
         return self.forward(data, state, params)
 
     def forward(self, data=None, state=None, params=None) -> torch.Tensor:
-        """Run the circuit on one state; returns and stores the final state,
-        shape (2^n, 1).
+        """Run the circuit; returns and stores the final state.
 
-        state: optional initial state (tensor, array or QubitState);
-        defaults to init_state. params: optional trainable-parameter vector.
+        data: optional (ndata,) or (B, ndata) encoder data (ignored when the
+        circuit has no encoders). One state gives shape (2^n, 1), a batch
+        (B, 2^n, 1).
+        state: optional initial state (tensor, array or QubitState), one
+        state shared by the batch or (B, 2^n) states; defaults to
+        init_state.
+        params: optional trainable-parameter vector.
         """
-        if data is not None:
-            raise NotImplementedError('data encoding is not ported yet (ROADMAP queue 1)')
         if state is None:
             state = self.init_state
         if isinstance(state, QubitState):
             state = state.state
         state = torch.as_tensor(state).to(device=self.device, dtype=cdtype())
         n = self.nqubit
-        full = self._full_params(params)
-        x = self._sim_tensor(full, state.reshape([2] * n))
-        self.state = x.reshape(2 ** n, 1)
+        dim = 2 ** n
+        if self.ndata == 0:
+            data = None
+        if data is not None:
+            data = torch.as_tensor(data, device=self.device).to(rdtype())
+        if data is None or data.dim() == 1:
+            didx = None if data is None else self._data_indices(data.shape[-1])
+            full = self._full_params(params, data, didx)
+            x = self._sim_tensor(full, state.reshape([2] * n))
+            self.state = x.reshape(dim, 1)
+            return self.state
+        bsz = data.shape[0]
+        fulls = self._full_params(params, data, self._data_indices(data.shape[-1]))
+        if state.numel() == dim:
+            states = state.reshape(1, dim).expand(bsz, dim)
+        else:
+            states = state.reshape(bsz, dim)
+        if self._planar_ok():
+            out = self._sim_planar_batched(fulls, states)
+        else:
+            out = self._sim_tensor(fulls, states.reshape([bsz] + [2] * n))
+        self.state = out.reshape(bsz, dim, 1)
         return self.state
 
     # ------------------------------------------------------------ observables
     def observable(self, wires=None, basis: str = 'z') -> None:
         self.observables.append(Observable(nqubit=self.nqubit, wires=wires, basis=basis))
 
-    def _obs_seq(self, obs: Observable):
+    def _obs_seq(self, obs: Observable, bsz: int | None = None):
         """Scheduled planar sequence of one observable's Pauli blocks (a
-        constant: cached per wires, basis and device, and built outside
-        inference mode so that a later autograd-tracked call may use it)."""
-        key = ('obs', tuple(map(tuple, obs.wires)), obs.basis, self.device)
+        constant: cached per wires, basis, device and batch, and built
+        outside inference mode so that a later autograd-tracked call may
+        use it). For a batch of ``bsz`` states the planes are expanded to
+        (bsz, K, K) views, as the JAX package broadcasts them: windows stand
+        aside and the kernels read one set of planes for every sample."""
+        key = ('obs', tuple(map(tuple, obs.wires)), obs.basis, self.device, bsz)
         seq = self._cache.get(key)
         if seq is None:
             with torch.inference_mode(False), torch.no_grad():
-                seq = self._build_obs_seq(obs)
+                seq = self._build_obs_seq(obs, bsz)
             self._cache[key] = seq
         return seq
 
-    def _build_obs_seq(self, obs: Observable):
+    def _build_obs_seq(self, obs: Observable, bsz: int | None):
         from .ops.planar_gate import schedule_planar_seq
         mres, mims, wseq = [], [], []
         for mat, wires in _pauli_obs_blocks(obs):
-            mres.append(torch.as_tensor(mat.real, dtype=torch.float32, device=self.device))
-            mims.append(torch.as_tensor(mat.imag, dtype=torch.float32, device=self.device))
+            mre = torch.as_tensor(mat.real, dtype=torch.float32, device=self.device)
+            mim = torch.as_tensor(mat.imag, dtype=torch.float32, device=self.device)
+            if bsz is not None:
+                mre, mim = mre.expand(bsz, *mre.shape), mim.expand(bsz, *mim.shape)
+            mres.append(mre)
+            mims.append(mim)
             wseq.append(wires)
         return schedule_planar_seq(tuple(mres), tuple(mims), tuple(wseq), self.nqubit)
 
     def expectation(self, data=None, state=None, params=None, shots: int | None = None):
-        """Expectation values of all observables, shape (n_observables,).
+        """Expectation values of all observables, shape (n_observables,), or
+        (B, n_observables) for a batch of states.
 
-        With no arguments, uses the stored final state; with state/params,
-        runs forward first."""
+        With no arguments, uses the stored final state; with
+        data/state/params, runs forward first."""
         if not self.observables:
             raise ValueError('There is no observable')
         if shots is not None:
@@ -442,25 +575,26 @@ class QubitCircuit:
         else:
             s = self.state
         n = self.nqubit
+        bsz = s.shape[0] if s.dim() == 3 else None
         vals = []
         if self._planar_ok():
-            from .ops.planar_gate import planar_pauli_expectation, to_planar
-            xp = to_planar(s)
+            from .ops.planar_gate import planar_pauli_expectation, to_planar, to_planar_batched
+            xp = to_planar(s) if bsz is None else to_planar_batched(s.reshape(bsz, -1))
             for obs in self.observables:
-                mres, mims, wseq = self._obs_seq(obs)
+                mres, mims, wseq = self._obs_seq(obs, bsz)
                 vals.append(planar_pauli_expectation(xp, mres, mims, n, wseq))
         else:
-            x = s.reshape([2] * n)
+            x = s.reshape(([] if bsz is None else [bsz]) + [2] * n)
             for obs in self.observables:
-                vals.append(expectation_pauli(x, obs.apply(x)))
+                vals.append(expectation_pauli(x, obs.apply(x), n))
         return torch.stack(vals, dim=-1)
 
     # ------------------------------------------------------------- gate sugar
-    def u3(self, wires, inputs=None, controls=None):
-        self.add_gate('U3Gate', wires, controls, inputs)
+    def u3(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('U3Gate', wires, controls, inputs, encode)
 
-    def p(self, wires, inputs=None, controls=None):
-        self.add_gate('PhaseShift', wires, controls, inputs)
+    def p(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('PhaseShift', wires, controls, inputs, encode)
 
     def x(self, wires, controls=None):
         self.add_gate('PauliX', wires, controls)
@@ -486,14 +620,14 @@ class QubitCircuit:
     def tdg(self, wires, controls=None):
         self.add_gate('TDaggerGate', wires, controls)
 
-    def rx(self, wires, inputs=None, controls=None):
-        self.add_gate('Rx', wires, controls, inputs)
+    def rx(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Rx', wires, controls, inputs, encode)
 
-    def ry(self, wires, inputs=None, controls=None):
-        self.add_gate('Ry', wires, controls, inputs)
+    def ry(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Ry', wires, controls, inputs, encode)
 
-    def rz(self, wires, inputs=None, controls=None):
-        self.add_gate('Rz', wires, controls, inputs)
+    def rz(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Rz', wires, controls, inputs, encode)
 
     def cnot(self, control, target):
         self.add_gate('CNOT', [control, target])
@@ -510,20 +644,20 @@ class QubitCircuit:
     def iswap(self, wires, controls=None):
         self.add_gate('ImaginarySwap', wires, controls)
 
-    def rxx(self, wires, inputs=None, controls=None):
-        self.add_gate('Rxx', wires, controls, inputs)
+    def rxx(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Rxx', wires, controls, inputs, encode)
 
-    def ryy(self, wires, inputs=None, controls=None):
-        self.add_gate('Ryy', wires, controls, inputs)
+    def ryy(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Ryy', wires, controls, inputs, encode)
 
-    def rzz(self, wires, inputs=None, controls=None):
-        self.add_gate('Rzz', wires, controls, inputs)
+    def rzz(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Rzz', wires, controls, inputs, encode)
 
-    def rxy(self, wires, inputs=None, controls=None):
-        self.add_gate('Rxy', wires, controls, inputs)
+    def rxy(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('Rxy', wires, controls, inputs, encode)
 
-    def rbs(self, wires, inputs=None, controls=None):
-        self.add_gate('ReconfigurableBeamSplitter', wires, controls, inputs)
+    def rbs(self, wires, inputs=None, controls=None, encode=False):
+        self.add_gate('ReconfigurableBeamSplitter', wires, controls, inputs, encode)
 
     def toffoli(self, control1, control2, target):
         self.add_gate('Toffoli', [control1, control2, target])
@@ -536,19 +670,19 @@ class QubitCircuit:
             return list(range(self.nqubit))
         return _flat_wires(wires)
 
-    def _rot_layer(self, kind, wires, inputs):
+    def _rot_layer(self, kind, wires, inputs, encode):
         for i, w in enumerate(self._layer_wires(wires)):
             ins = None if inputs is None else np.asarray(inputs).reshape(-1)[i:i + 1]
-            getattr(self, kind)(w, ins)
+            getattr(self, kind)(w, ins, encode=encode)
 
-    def rxlayer(self, wires=None, inputs=None):
-        self._rot_layer('rx', wires, inputs)
+    def rxlayer(self, wires=None, inputs=None, encode=False):
+        self._rot_layer('rx', wires, inputs, encode)
 
-    def rylayer(self, wires=None, inputs=None):
-        self._rot_layer('ry', wires, inputs)
+    def rylayer(self, wires=None, inputs=None, encode=False):
+        self._rot_layer('ry', wires, inputs, encode)
 
-    def rzlayer(self, wires=None, inputs=None):
-        self._rot_layer('rz', wires, inputs)
+    def rzlayer(self, wires=None, inputs=None, encode=False):
+        self._rot_layer('rz', wires, inputs, encode)
 
     def cnot_ring(self, minmax=None, step: int = 1, reverse: bool = False):
         """Ring of CNOTs."""

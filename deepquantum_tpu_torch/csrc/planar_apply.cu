@@ -15,6 +15,12 @@
 // so the update is in place with no synchronisation. None of the TPU
 // machinery (XOR lane/sublane rolls, head/mid/tail split, row blocks) is
 // carried over: the card gathers amplitudes by address.
+//
+// Batched form (the JAX kernel's leading batch grid axis): a (B, 2, 2^n)
+// stack with per-sample (B, 2^k, 2^k) planes, or one plane broadcast to
+// every sample. The sample is a grid axis: each sample owns bps consecutive
+// blocks, and each block stages its own sample's planes in shared memory.
+// A single state (B = 1) runs the unbatched instance.
 
 #include "planar_group.cuh"
 
@@ -22,23 +28,36 @@ namespace {
 
 constexpr int kThreads = dq::kGateThreads;
 
-template <int K>
+template <int K, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
-planar_apply_kernel(float* xr, float* xi, const float* __restrict__ mre,
-                    const float* __restrict__ mim, uint64_t ngroups, int bit0,
+planar_apply_kernel(float* x, const float* __restrict__ mre, const float* __restrict__ mim,
+                    uint64_t ngroups, uint64_t dim, unsigned bps, int pstride, int bit0,
                     int bit1, int bit2) {
   constexpr int D = 1 << K;
+  // a batched grid gives each sample bps consecutive blocks; the sample's
+  // planes sit pstride floats apart (0: one plane broadcast to every sample)
+  uint64_t sample = 0;
+  unsigned lb = blockIdx.x;
+  unsigned nb = gridDim.x;
+  if constexpr (BATCHED) {
+    sample = blockIdx.x / bps;
+    lb = blockIdx.x - unsigned(sample) * bps;
+    nb = bps;
+  }
+  float* xr = x + sample * 2 * dim;
+  float* xi = xr + dim;
+  const float* pr = mre + sample * pstride;
+  const float* pi = mim + sample * pstride;
   __shared__ float sre[D * D];
   __shared__ float sim[D * D];
   for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
-    sre[e] = mre[e];
-    sim[e] = mim[e];
+    sre[e] = pr[e];
+    sim[e] = pi[e];
   }
   __syncthreads();
   const int bits[3] = {bit0, bit1, bit2};
-  const uint64_t stride = uint64_t(gridDim.x) * blockDim.x;
-  for (uint64_t g = uint64_t(blockIdx.x) * blockDim.x + threadIdx.x; g < ngroups;
-       g += stride) {
+  const uint64_t stride = uint64_t(nb) * blockDim.x;
+  for (uint64_t g = uint64_t(lb) * blockDim.x + threadIdx.x; g < ngroups; g += stride) {
     const uint64_t base = dq::group_base<K>(g, bits);
     uint64_t off[D];
     float vr[D];
@@ -69,34 +88,54 @@ planar_apply_kernel(float* xr, float* xi, const float* __restrict__ mre,
   }
 }
 
+template <int K>
+void launch_apply(float* x, const float* mr, const float* mi, int batch, int pstride,
+                  uint64_t ngroups, uint64_t dim, int bit0, int bit1, int bit2,
+                  cudaStream_t s) {
+  // at most 2^20 blocks in all: each sample gets an equal share of them and
+  // its threads walk the rest of its groups
+  const uint64_t cap = uint64_t(1) << 20;
+  uint64_t bps = (ngroups + kThreads - 1) / kThreads;
+  const uint64_t share = cap / uint64_t(batch) > 0 ? cap / uint64_t(batch) : 1;
+  if (bps > share) bps = share;
+  const dim3 grid(static_cast<unsigned>(bps * uint64_t(batch)));
+  if (batch == 1) {
+    planar_apply_kernel<K, false><<<grid, kThreads, 0, s>>>(x, mr, mi, ngroups, dim, 0, 0, bit0,
+                                                            bit1, bit2);
+  } else {
+    planar_apply_kernel<K, true><<<grid, kThreads, 0, s>>>(
+        x, mr, mi, ngroups, dim, static_cast<unsigned>(bps), pstride, bit0, bit1, bit2);
+  }
+}
+
 }  // namespace
 
-// x: (2, 2^n) float32 planes, updated in place; mre/mim: (2^k, 2^k) float32
-// planes in sorted-wire order; bit0..bit2: amplitude bits of the sorted
-// wires (unused ones 0). Returns a cudaError_t.
-extern "C" int dq_planar_apply_f32(void* x, const void* mre, const void* mim, int n, int k,
-                                   int bit0, int bit1, int bit2, int device, void* stream) {
+// x: (batch, 2, 2^n) float32 planes, updated in place (batch 1: one
+// (2, 2^n) state); mre/mim: (2^k, 2^k) float32 planes in sorted-wire order,
+// one per sample pstride floats apart (pstride 0: the same planes for every
+// sample); bit0..bit2: amplitude bits of the sorted wires (unused ones 0).
+// Returns a cudaError_t.
+extern "C" int dq_planar_apply_f32(void* x, const void* mre, const void* mim, int batch,
+                                   int pstride, int n, int k, int bit0, int bit1, int bit2,
+                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (k < 1 || k > 3 || n < k || n > 40) return cudaErrorInvalidValue;
-  float* xr = static_cast<float*>(x);
-  float* xi = xr + (uint64_t(1) << n);
+  if (k < 1 || k > 3 || n < k || n > 40 || batch < 1 || pstride < 0) return cudaErrorInvalidValue;
+  float* xs = static_cast<float*>(x);
   const float* mr = static_cast<const float*>(mre);
   const float* mi = static_cast<const float*>(mim);
+  const uint64_t dim = uint64_t(1) << n;
   const uint64_t ngroups = uint64_t(1) << (n - k);
-  uint64_t blocks = (ngroups + kThreads - 1) / kThreads;
-  if (blocks > (uint64_t(1) << 20)) blocks = uint64_t(1) << 20;
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
   switch (k) {
     case 1:
-      planar_apply_kernel<1><<<grid, kThreads, 0, s>>>(xr, xi, mr, mi, ngroups, bit0, bit1, bit2);
+      launch_apply<1>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
       break;
     case 2:
-      planar_apply_kernel<2><<<grid, kThreads, 0, s>>>(xr, xi, mr, mi, ngroups, bit0, bit1, bit2);
+      launch_apply<2>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
       break;
     default:
-      planar_apply_kernel<3><<<grid, kThreads, 0, s>>>(xr, xi, mr, mi, ngroups, bit0, bit1, bit2);
+      launch_apply<3>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
       break;
   }
   return cudaGetLastError();

@@ -22,6 +22,12 @@
 // meet at __syncwarp() so that neither stores before the other has loaded,
 // both compute all of x (the reduction needs every column), and each stores
 // and reduces its own four rows.
+//
+// Batched form (the JAX kernel's leading batch grid axis): y and g are
+// (B, 2, 2^n) stacks, the planes (B, 2^k, 2^k) or one set broadcast to every
+// sample. The sample is a grid axis of nblocks consecutive blocks; each
+// block stages its own sample's planes and leaves its partial at its grid
+// index ((B, nblocks, 2, D, D), summed by the wrapper in a fixed order).
 
 #include "planar_group.cuh"
 
@@ -29,20 +35,32 @@ namespace {
 
 constexpr int kThreads = dq::kGateThreads;
 
-template <int K, int SPLIT>
+template <int K, int SPLIT, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
-planar_bwd_fused_kernel(float* yr, float* yi, float* gr, float* gi,
-                        const float* __restrict__ mre, const float* __restrict__ mim,
-                        float* __restrict__ parts, uint64_t ngroups, int bit0, int bit1,
-                        int bit2) {
+planar_bwd_fused_kernel(float* y, float* g, const float* __restrict__ mre,
+                        const float* __restrict__ mim, float* __restrict__ parts,
+                        uint64_t ngroups, uint64_t dim, unsigned nblocks, int pstride, int bit0,
+                        int bit1, int bit2) {
   constexpr int D = 1 << K;
   constexpr int ROWS = D / SPLIT;
+  uint64_t sample = 0;
+  unsigned lb = blockIdx.x;
+  if constexpr (BATCHED) {
+    sample = blockIdx.x / nblocks;
+    lb = blockIdx.x - unsigned(sample) * nblocks;
+  }
+  float* yr = y + sample * 2 * dim;
+  float* yi = yr + dim;
+  float* gr = g + sample * 2 * dim;
+  float* gi = gr + dim;
+  const float* pr = mre + sample * pstride;
+  const float* pi = mim + sample * pstride;
   __shared__ float sre[D * D];
   __shared__ float sim[D * D];
   __shared__ float red[kThreads / 32][2 * D * D];
   for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
-    sre[e] = mre[e];
-    sim[e] = mim[e];
+    sre[e] = pr[e];
+    sim[e] = pi[e];
   }
   __syncthreads();
   const int bits[3] = {bit0, bit1, bit2};
@@ -54,10 +72,10 @@ planar_bwd_fused_kernel(float* yr, float* yi, float* gr, float* gi,
     are[e] = 0.f;
     aim[e] = 0.f;
   }
-  const uint64_t stride = uint64_t(gridDim.x) * blockDim.x / SPLIT;
-  for (uint64_t g = (uint64_t(blockIdx.x) * blockDim.x + threadIdx.x) / SPLIT; g < ngroups;
-       g += stride) {
-    const uint64_t base = dq::group_base<K>(g, bits);
+  const uint64_t stride = uint64_t(nblocks) * blockDim.x / SPLIT;
+  for (uint64_t gg = (uint64_t(lb) * blockDim.x + threadIdx.x) / SPLIT; gg < ngroups;
+       gg += stride) {
+    const uint64_t base = dq::group_base<K>(gg, bits);
     float vyr[D];
     float vyi[D];
     float vgr[D];
@@ -123,45 +141,63 @@ planar_bwd_fused_kernel(float* yr, float* yi, float* gr, float* gi,
   dq::block_reduce_planes<D, SPLIT>(are, aim, parts + uint64_t(blockIdx.x) * 2 * D * D, red);
 }
 
+template <int K, int SPLIT>
+void launch_bwd_fused(float* y, float* g, const float* mr, const float* mi, float* p, int batch,
+                      int pstride, int nblocks, uint64_t ngroups, uint64_t dim, int bit0,
+                      int bit1, int bit2, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(uint64_t(nblocks) * uint64_t(batch)));
+  if (batch == 1) {
+    planar_bwd_fused_kernel<K, SPLIT, false><<<grid, kThreads, 0, s>>>(
+        y, g, mr, mi, p, ngroups, dim, static_cast<unsigned>(nblocks), 0, bit0, bit1, bit2);
+  } else {
+    planar_bwd_fused_kernel<K, SPLIT, true><<<grid, kThreads, 0, s>>>(
+        y, g, mr, mi, p, ngroups, dim, static_cast<unsigned>(nblocks), pstride, bit0, bit1,
+        bit2);
+  }
+}
+
 }  // namespace
 
-// y, g: (2, 2^n) float32 planes, both updated in place (two different
-// buffers); mre/mim: (2^k, 2^k) float32 planes of U^H in sorted-wire order;
-// parts: (nblocks, 2, 2^k, 2^k) float32, one partial per block, all written;
+// y, g: (batch, 2, 2^n) float32 planes, both updated in place (two
+// different buffers; batch 1: one (2, 2^n) state each); mre/mim:
+// (2^k, 2^k) float32 planes of U^H in sorted-wire order, one per sample
+// pstride floats apart (pstride 0: the same planes for every sample); parts:
+// (batch, nblocks, 2, 2^k, 2^k) float32, one partial per block, all written;
 // bit0..bit2: amplitude bits of the sorted wires (unused ones 0).
 // nblocks * 256 threads must divide one thread per group (two at k = 3), so
 // that the threads that share a group stay in step. Returns a cudaError_t.
 extern "C" int dq_planar_bwd_fused_f32(void* y, void* g, const void* mre, const void* mim,
-                                       void* parts, int nblocks, int n, int k, int bit0, int bit1,
-                                       int bit2, int device, void* stream) {
+                                       void* parts, int batch, int pstride, int nblocks, int n,
+                                       int k, int bit0, int bit1, int bit2, int device,
+                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (k < 1 || k > 3 || n < k || n > 40 || nblocks < 1 || y == g) return cudaErrorInvalidValue;
+  if (k < 1 || k > 3 || n < k || n > 40 || nblocks < 1 || batch < 1 || pstride < 0 || y == g)
+    return cudaErrorInvalidValue;
   const uint64_t ngroups = uint64_t(1) << (n - k);
   const uint64_t split = k == 3 ? 2 : 1;
   const uint64_t threads = uint64_t(nblocks) * kThreads;
   if (threads > ngroups * split || (ngroups * split) % threads != 0) return cudaErrorInvalidValue;
-  float* yr = static_cast<float*>(y);
-  float* yi = yr + (uint64_t(1) << n);
-  float* gr = static_cast<float*>(g);
-  float* gi = gr + (uint64_t(1) << n);
+  if (uint64_t(nblocks) * uint64_t(batch) >= (uint64_t(1) << 31)) return cudaErrorInvalidValue;
+  float* ys = static_cast<float*>(y);
+  float* gs = static_cast<float*>(g);
   const float* mr = static_cast<const float*>(mre);
   const float* mi = static_cast<const float*>(mim);
   float* p = static_cast<float*>(parts);
+  const uint64_t dim = uint64_t(1) << n;
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(nblocks));
   switch (k) {
     case 1:
-      planar_bwd_fused_kernel<1, 1><<<grid, kThreads, 0, s>>>(yr, yi, gr, gi, mr, mi, p, ngroups,
-                                                              bit0, bit1, bit2);
+      launch_bwd_fused<1, 1>(ys, gs, mr, mi, p, batch, pstride, nblocks, ngroups, dim, bit0, bit1,
+                             bit2, s);
       break;
     case 2:
-      planar_bwd_fused_kernel<2, 1><<<grid, kThreads, 0, s>>>(yr, yi, gr, gi, mr, mi, p, ngroups,
-                                                              bit0, bit1, bit2);
+      launch_bwd_fused<2, 1>(ys, gs, mr, mi, p, batch, pstride, nblocks, ngroups, dim, bit0, bit1,
+                             bit2, s);
       break;
     default:
-      planar_bwd_fused_kernel<3, 2><<<grid, kThreads, 0, s>>>(yr, yi, gr, gi, mr, mi, p, ngroups,
-                                                              bit0, bit1, bit2);
+      launch_bwd_fused<3, 2>(ys, gs, mr, mi, p, batch, pstride, nblocks, ngroups, dim, bit0, bit1,
+                             bit2, s);
       break;
   }
   return cudaGetLastError();

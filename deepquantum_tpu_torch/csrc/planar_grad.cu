@@ -23,6 +23,13 @@
 // sum, and so the last bits of a gradient, change from run to run. The TPU
 // kernel's version/roll machinery and its SMEM scalar stores are not
 // carried over.
+//
+// Batched form (the JAX kernel's leading batch grid axis): g and x are
+// (B, 2, 2^n) stacks and the planes (B, 2^k, 2^k). The sample is a grid
+// axis: each sample owns nblocks consecutive blocks, and every block leaves
+// its partial at its own grid index, so the partials form a
+// (B, nblocks, 2, D, D) stack that the wrapper sums over nblocks in a fixed
+// order. No atomics: dW is the same bits from run to run.
 
 #include "planar_group.cuh"
 
@@ -30,14 +37,24 @@ namespace {
 
 constexpr int kThreads = dq::kGateThreads;
 
-template <int K, int SPLIT>
+template <int K, int SPLIT, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
-planar_grad_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
-                   const float* __restrict__ xr, const float* __restrict__ xi,
-                   float* __restrict__ parts, uint64_t ngroups, int bit0, int bit1, int bit2) {
+planar_grad_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                   float* __restrict__ parts, uint64_t ngroups, uint64_t dim, unsigned nblocks,
+                   int bit0, int bit1, int bit2) {
   constexpr int D = 1 << K;
   constexpr int ROWS = D / SPLIT;
   __shared__ float red[kThreads / 32][2 * D * D];
+  uint64_t sample = 0;
+  unsigned lb = blockIdx.x;
+  if constexpr (BATCHED) {
+    sample = blockIdx.x / nblocks;
+    lb = blockIdx.x - unsigned(sample) * nblocks;
+  }
+  const float* gr = g + sample * 2 * dim;
+  const float* gi = gr + dim;
+  const float* xr = x + sample * 2 * dim;
+  const float* xi = xr + dim;
   const int bits[3] = {bit0, bit1, bit2};
   const int r0 = (threadIdx.x % SPLIT) * ROWS;
   float are[ROWS * D];
@@ -47,10 +64,10 @@ planar_grad_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
     are[e] = 0.f;
     aim[e] = 0.f;
   }
-  const uint64_t stride = uint64_t(gridDim.x) * blockDim.x / SPLIT;
-  for (uint64_t g = (uint64_t(blockIdx.x) * blockDim.x + threadIdx.x) / SPLIT; g < ngroups;
-       g += stride) {
-    const uint64_t base = dq::group_base<K>(g, bits);
+  const uint64_t stride = uint64_t(nblocks) * blockDim.x / SPLIT;
+  for (uint64_t gg = (uint64_t(lb) * blockDim.x + threadIdx.x) / SPLIT; gg < ngroups;
+       gg += stride) {
+    const uint64_t base = dq::group_base<K>(gg, bits);
     float vxr[D];
     float vxi[D];
 #pragma unroll
@@ -74,40 +91,50 @@ planar_grad_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
   dq::block_reduce_planes<D, SPLIT>(are, aim, parts + uint64_t(blockIdx.x) * 2 * D * D, red);
 }
 
+template <int K, int SPLIT>
+void launch_grad(const float* g, const float* x, float* p, int batch, int nblocks,
+                 uint64_t ngroups, uint64_t dim, int bit0, int bit1, int bit2, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(uint64_t(nblocks) * uint64_t(batch)));
+  if (batch == 1) {
+    planar_grad_kernel<K, SPLIT, false><<<grid, kThreads, 0, s>>>(
+        g, x, p, ngroups, dim, static_cast<unsigned>(nblocks), bit0, bit1, bit2);
+  } else {
+    planar_grad_kernel<K, SPLIT, true><<<grid, kThreads, 0, s>>>(
+        g, x, p, ngroups, dim, static_cast<unsigned>(nblocks), bit0, bit1, bit2);
+  }
+}
+
 }  // namespace
 
-// g, x: (2, 2^n) float32 planes, read only; parts: (nblocks, 2, 2^k, 2^k)
-// float32, one partial per block, all written; bit0..bit2: amplitude bits of
-// the sorted wires (unused ones 0). nblocks * 256 threads must not exceed
-// one thread per group (two at k = 3). Returns a cudaError_t.
-extern "C" int dq_planar_grad_f32(const void* g, const void* x, void* parts, int nblocks, int n,
-                                  int k, int bit0, int bit1, int bit2, int device,
-                                  void* stream) {
+// g, x: (batch, 2, 2^n) float32 planes, read only (batch 1: one (2, 2^n)
+// state each); parts: (batch, nblocks, 2, 2^k, 2^k) float32, one partial per
+// block, all written; bit0..bit2: amplitude bits of the sorted wires (unused
+// ones 0). nblocks * 256 threads must not exceed one thread per group (two
+// at k = 3). Returns a cudaError_t.
+extern "C" int dq_planar_grad_f32(const void* g, const void* x, void* parts, int batch,
+                                  int nblocks, int n, int k, int bit0, int bit1, int bit2,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (k < 1 || k > 3 || n < k || n > 40 || nblocks < 1) return cudaErrorInvalidValue;
+  if (k < 1 || k > 3 || n < k || n > 40 || nblocks < 1 || batch < 1) return cudaErrorInvalidValue;
   const uint64_t ngroups = uint64_t(1) << (n - k);
   const uint64_t split = k == 3 ? 2 : 1;
   if (uint64_t(nblocks) * kThreads > ngroups * split) return cudaErrorInvalidValue;
-  const float* gr = static_cast<const float*>(g);
-  const float* gi = gr + (uint64_t(1) << n);
-  const float* xr = static_cast<const float*>(x);
-  const float* xi = xr + (uint64_t(1) << n);
+  if (uint64_t(nblocks) * uint64_t(batch) >= (uint64_t(1) << 31)) return cudaErrorInvalidValue;
+  const float* gs = static_cast<const float*>(g);
+  const float* xs = static_cast<const float*>(x);
   float* p = static_cast<float*>(parts);
+  const uint64_t dim = uint64_t(1) << n;
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(nblocks));
   switch (k) {
     case 1:
-      planar_grad_kernel<1, 1><<<grid, kThreads, 0, s>>>(gr, gi, xr, xi, p, ngroups, bit0, bit1,
-                                                         bit2);
+      launch_grad<1, 1>(gs, xs, p, batch, nblocks, ngroups, dim, bit0, bit1, bit2, s);
       break;
     case 2:
-      planar_grad_kernel<2, 1><<<grid, kThreads, 0, s>>>(gr, gi, xr, xi, p, ngroups, bit0, bit1,
-                                                         bit2);
+      launch_grad<2, 1>(gs, xs, p, batch, nblocks, ngroups, dim, bit0, bit1, bit2, s);
       break;
     default:
-      planar_grad_kernel<3, 2><<<grid, kThreads, 0, s>>>(gr, gi, xr, xi, p, ngroups, bit0, bit1,
-                                                         bit2);
+      launch_grad<3, 2>(gs, xs, p, batch, nblocks, ngroups, dim, bit0, bit1, bit2, s);
       break;
   }
   return cudaGetLastError();

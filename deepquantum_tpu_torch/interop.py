@@ -28,8 +28,9 @@ def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -
 def from_jax(cir, device=None):
     """Build the port's QubitCircuit from a deepquantum_tpu QubitCircuit.
 
-    Reads ``nqubit``, the init state, ``operators`` (name, wires, controls,
-    pidx, npara, static_matrix, inv), ``_pvals``, ``_train_mask`` and
+    Reads ``nqubit``, ``reupload``, the init state, ``operators`` (name,
+    wires, controls, pidx, npara, static_matrix, inv), ``encoders``,
+    ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``npara``, ``ndata`` and
     ``observables``. Gates are mapped by name through the port's
     GATE_REGISTRY; a gate it cannot map (a latent, hamiltonian or projection
     gate, a channel, a measurement) raises NotImplementedError."""
@@ -41,7 +42,7 @@ def from_jax(cir, device=None):
     kind = getattr(init, 'kind', None)
     state = kind if kind is not None else np.asarray(init.state)
     out = QubitCircuit(cir.nqubit, init_state=state, name=getattr(cir, 'name', None),
-                       device=device)
+                       device=device, reupload=bool(getattr(cir, 'reupload', False)))
     for op in cir.operators:
         if op.kind == 'barrier':
             out.barrier(list(op.wires))
@@ -61,6 +62,10 @@ def from_jax(cir, device=None):
             requires_grad=op.requires_grad, inv=op.inv))
     out._pvals = [float(v) for v in cir._pvals]
     out._train_mask = [bool(t) for t in cir._train_mask]
+    enc = {id(op) for op in cir.encoders}
+    out.encoders = [new for new, op in zip(out.operators, cir.operators) if id(op) in enc]
+    out._enc_pidx = [int(i) for i in cir._enc_pidx]
+    out.npara, out.ndata = int(cir.npara), int(cir.ndata)
     for obs in cir.observables:
         out.observables.append(Observable(cir.nqubit, [list(w) for w in obs.wires], obs.basis))
     out._touch()

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['build', 'launch', 'check_state', 'check_planes', 'source_key']
+__all__ = ['build', 'launch', 'check_state', 'check_planes', 'sample_planes', 'source_key']
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / 'csrc'
@@ -37,13 +37,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types before the trailing (device, stream)
 _SIGNATURES = {
-    'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I),   # x, mre, mim, n, k, bits[3]
+    # x, mre, mim, batch, pstride, n, k, bits[3]
+    'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     'dq_window_apply_f32': (_P, _P, _P, _I),                   # x, mre, mim, n
     'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I),   # table, nstep, wre, wim, a, b, n
-    # g, x, parts, nblocks, n, k, bits[3]
-    'dq_planar_grad_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I),
-    # y, g, mre_t, mim_t, parts, nblocks, n, k, bits[3]
-    'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # g, x, parts, batch, nblocks, n, k, bits[3]
+    'dq_planar_grad_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+    # y, g, mre_t, mim_t, parts, batch, pstride, nblocks, n, k, bits[3]
+    'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I),
     # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, part, slots, sms, n
     'dq_window_chain_bwd_f32': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I),
     'dq_permanent_ryser': (_P, _I, _P, _I, _I, _I),            # mats, is_c64, parts, b, n, level
@@ -132,8 +133,8 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 _GRAD_HINT = ('gradients come from planar_chain and planar_pauli_expectation '
               '(QubitCircuit.forward / expectation with params=)')
-NO_BACKWARD_HINT = ('this kernel has no backward, as the TPU kernel it replaces has none; its '
-                    'plain twin on a CPU tensor is differentiable')
+TWIN_BACKWARD_HINT = ('gradients come from the wrapper (permanent_cuda_batch, tor_dets_cuda, '
+                      'tor_dets_quads_cuda), whose backward differentiates the plain twin')
 
 
 def _no_grad(name: str, *tensors, hint: str = _GRAD_HINT) -> None:
@@ -143,15 +144,23 @@ def _no_grad(name: str, *tensors, hint: str = _GRAD_HINT) -> None:
             'Detach the tensor or call under torch.no_grad().')
 
 
-def check_state(x: torch.Tensor, n: int, name: str) -> None:
-    """A kernel's planar state: CUDA float32, contiguous, (2, 2^n)."""
+def check_state(x: torch.Tensor, n: int, name: str, batched: bool = False) -> int:
+    """A kernel's planar state: CUDA float32, contiguous, (2, 2^n), or with
+    ``batched`` also a (B, 2, 2^n) stack. Returns the batch count (1 for one
+    state)."""
     _no_grad(name, x)
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: state must be a CUDA tensor, got {x.device}')
     if x.dtype != torch.float32:
         raise TypeError(f'{name}: the CUDA kernel takes float32 planes, got {x.dtype}')
-    if tuple(x.shape) != (2, 1 << n) or not x.is_contiguous():
-        raise ValueError(f'{name}: state must be contiguous (2, 2^{n}), got {tuple(x.shape)}')
+    shape = tuple(x.shape)
+    if shape == (2, 1 << n) and x.is_contiguous():
+        return 1
+    if batched and len(shape) == 3 and shape[1:] == (2, 1 << n) and shape[0] >= 1 \
+            and x.is_contiguous():
+        return shape[0]
+    want = f'(2, 2^{n})' + (f' or (B, 2, 2^{n})' if batched else '')
+    raise ValueError(f'{name}: state must be contiguous {want}, got {shape}')
 
 
 def check_planes(name: str, x: torch.Tensor, shape, *planes):
@@ -165,3 +174,30 @@ def check_planes(name: str, x: torch.Tensor, shape, *planes):
             raise ValueError(f'{name}: matrix planes must be {tuple(shape)}, got {tuple(m.shape)}')
         out.append(m.to(torch.float32).contiguous())
     return out
+
+
+def sample_planes(name: str, x: torch.Tensor, batch: int, shape, *planes):
+    """The matrix planes of a per-gate kernel on a stack of ``batch`` states:
+    each ``shape``, one set for every sample, or (batch, *shape), one per
+    sample; a (batch, *shape) view with stride 0 over the samples (an
+    ``expand``) counts as one set. Returns (float32 contiguous planes,
+    pstride), pstride the floats between two samples' planes (0: one set)."""
+    _no_grad(name, *planes)
+    shape = tuple(shape)
+    out, shared = [], True
+    for m in planes:
+        if m.device != x.device:
+            raise ValueError(f'{name}: matrix planes on {m.device}, state on {x.device}')
+        m = m.to(torch.float32)
+        if x.dim() == 3 and tuple(m.shape) == (batch, *shape):
+            if batch == 1 or m.stride(0) == 0:
+                m = m[0]
+            else:
+                shared = False
+        elif tuple(m.shape) != shape:
+            want = shape if x.dim() == 2 else f'{shape} or {(batch, *shape)}'
+            raise ValueError(f'{name}: matrix planes must be {want}, got {tuple(m.shape)}')
+        out.append(m)
+    if shared:
+        return [m.contiguous() for m in out], 0
+    return [m.expand(batch, *shape).contiguous() for m in out], shape[0] * shape[1]

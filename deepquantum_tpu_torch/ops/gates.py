@@ -4,8 +4,10 @@ PyTorch counterpart of ``deepquantum_tpu/ops/gates.py`` with identical
 matrix conventions (half-angle Rx/Ry/Rz, U3(theta, phi, lambda), the
 two-qubit rotations, the full-angle reconfigurable beam splitter). A
 parametrised gate takes real scalars (tensors or floats) and returns a
-(2^k, 2^k) complex tensor on the parameters' device; a fixed gate takes an
-optional ``device``.
+(2^k, 2^k) complex tensor on the parameters' device; angles of shape (B,)
+give a (B, 2^k, 2^k) stack, one matrix per sample (the port's counterpart
+of the JAX package's ``jax.vmap`` over a gate's matrix). A fixed gate takes
+an optional ``device``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ def _c(x):
     return x.to(cdtype())
 
 
+def _mat(entries, k: int = 2):
+    """(k, k) matrices from their row-major entries, each entry a tensor of
+    the angles' shape: the matrices stack behind the angles' axes."""
+    m = torch.stack(torch.broadcast_tensors(*entries), dim=-1)
+    return m.reshape(*m.shape[:-1], k, k)
+
+
 def _const(a, device=None):
     return torch.tensor(np.asarray(a), dtype=cdtype(), device=device)
 
@@ -43,14 +52,14 @@ def u3_matrix(theta, phi, lambd):
     sin = _c(torch.sin(theta / 2))
     e_ip = torch.exp(1j * _c(phi))
     e_il = torch.exp(1j * _c(lambd))
-    return torch.stack([cos, -e_il * sin, e_ip * sin, e_ip * e_il * cos]).reshape(2, 2)
+    return _mat([cos, -e_il * sin, e_ip * sin, e_ip * e_il * cos])
 
 
 def phaseshift_matrix(theta):
-    theta = _r(theta)
-    one = torch.ones((), dtype=cdtype(), device=theta.device)
-    zero = torch.zeros((), dtype=cdtype(), device=theta.device)
-    return torch.stack([one, zero, zero, torch.exp(1j * _c(theta))]).reshape(2, 2)
+    e_i = torch.exp(1j * _c(_r(theta)))
+    one = torch.ones_like(e_i)
+    zero = torch.zeros_like(e_i)
+    return _mat([one, zero, zero, e_i])
 
 
 def identity_matrix(device=None):
@@ -93,22 +102,22 @@ def rx_matrix(theta):
     theta = _r(theta)
     cos = _c(torch.cos(theta / 2))
     isin = 1j * _c(torch.sin(theta / 2))
-    return torch.stack([cos, -isin, -isin, cos]).reshape(2, 2)
+    return _mat([cos, -isin, -isin, cos])
 
 
 def ry_matrix(theta):
     theta = _r(theta)
     cos = _c(torch.cos(theta / 2))
     sin = _c(torch.sin(theta / 2))
-    return torch.stack([cos, -sin, sin, cos]).reshape(2, 2)
+    return _mat([cos, -sin, sin, cos])
 
 
 def rz_matrix(theta):
     theta = _r(theta)
     e_m = torch.exp(-1j * _c(theta) / 2)
     e_p = torch.exp(1j * _c(theta) / 2)
-    zero = torch.zeros((), dtype=cdtype(), device=theta.device)
-    return torch.stack([e_m, zero, zero, e_p]).reshape(2, 2)
+    zero = torch.zeros_like(e_m)
+    return _mat([e_m, zero, zero, e_p])
 
 
 def projection_j_matrix(theta, plane: str = 'xy'):
@@ -116,17 +125,17 @@ def projection_j_matrix(theta, plane: str = 'xy'):
     theta = _r(theta)
     plane = plane.lower()
     if plane in ('xy', 'yx'):
-        one = torch.ones((), dtype=cdtype(), device=theta.device)
         e_m = torch.exp(-1j * _c(theta))
-        return torch.stack([one, e_m, one, -e_m]).reshape(2, 2) / 2 ** 0.5
+        one = torch.ones_like(e_m)
+        return _mat([one, e_m, one, -e_m]) / 2 ** 0.5
     if plane in ('yz', 'zy'):
         c_p_s = _c(torch.cos(theta / 2) + torch.sin(theta / 2))
         c_m_s = _c(torch.cos(theta / 2) - torch.sin(theta / 2))
-        return torch.stack([c_p_s, -1j * c_m_s, c_m_s, 1j * c_p_s]).reshape(2, 2) / 2 ** 0.5
+        return _mat([c_p_s, -1j * c_m_s, c_m_s, 1j * c_p_s]) / 2 ** 0.5
     if plane in ('zx', 'xz'):
         cos = _c(torch.cos(theta / 2))
         sin = _c(torch.sin(theta / 2))
-        return torch.stack([cos, sin, sin, -cos]).reshape(2, 2)
+        return _mat([cos, sin, sin, -cos])
     raise ValueError(f'Unsupported measurement plane: {plane}')
 
 
@@ -147,7 +156,7 @@ def iswap_matrix(device=None):
 
 
 def _two_qubit(entries):
-    return torch.stack(entries).reshape(4, 4)
+    return _mat(entries, 4)
 
 
 def rxx_matrix(theta):
@@ -176,7 +185,7 @@ def rzz_matrix(theta):
     theta = _r(theta)
     e_m = torch.exp(-1j * _c(theta) / 2)
     e_p = torch.exp(1j * _c(theta) / 2)
-    return torch.diag(torch.stack([e_m, e_p, e_p, e_m]))
+    return torch.diag_embed(torch.stack([e_m, e_p, e_p, e_m], dim=-1))
 
 
 def rxy_matrix(theta):
@@ -220,7 +229,7 @@ def hamiltonian_matrix(ham, t):
     """exp(-i H t)."""
     t = _r(t)
     ham = torch.as_tensor(ham, dtype=cdtype(), device=t.device)
-    return torch.linalg.matrix_exp(-1j * ham * _c(t))
+    return torch.linalg.matrix_exp(-1j * ham * _c(t)[..., None, None])
 
 
 def latent_matrix(latent):

@@ -19,6 +19,11 @@ matrix; ``plan`` picks L so that both a stack of many small matrices and one
 large matrix fill the card. The threads' partial sums go to a scratch tensor
 that ``torch.sum`` adds in a fixed order: no float atomics, so the result
 does not change from run to run.
+
+Gradients: on a CUDA tensor the wrapper is a ``torch.autograd.Function``
+whose forward launches the kernel and whose backward is the derivative of
+the plain twin, recomputed on the saved stack (first order only). The raw
+launch refuses a tensor that requires grad.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..config import cdtype
+from .planar_gate import _first_order_only
 
 __all__ = ['permanent_cuda_batch', 'permanent_plain_batch', 'plan', 'MIN_N', 'MAX_N']
 
@@ -84,18 +90,10 @@ def permanent_plain_batch(mats: torch.Tensor) -> torch.Tensor:
     return ((-1) ** n * total).to(cdtype())
 
 
-def permanent_cuda_batch(mats: torch.Tensor) -> torch.Tensor:
-    """Ryser permanents of a (B, n, n) complex stack, 4 <= n <= 26, computed
-    in float64 and returned as ``cdtype()``, (B,).
-
-    A CUDA tensor launches the ``csrc/permanent_ryser.cu`` kernel once and
-    raises if the build or the launch fails; a CPU tensor takes the twin
-    ``permanent_plain_batch``. The kernel has no backward: a CUDA tensor that
-    requires grad raises."""
-    if mats.device.type != 'cuda':
-        return permanent_plain_batch(mats)
+def _launch(mats: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on a CUDA stack; (B,) ``cdtype()``."""
     from . import _cuda
-    _cuda._no_grad('permanent_cuda_batch', mats, hint=_cuda.NO_BACKWARD_HINT)
+    _cuda._no_grad('permanent_cuda_batch', mats, hint=_cuda.TWIN_BACKWARD_HINT)
     if mats.ndim != 3 or mats.shape[-1] != mats.shape[-2]:
         raise ValueError(f'permanent_cuda_batch: expected (B, n, n), got {tuple(mats.shape)}')
     if mats.dtype not in (torch.complex64, torch.complex128):
@@ -110,6 +108,36 @@ def permanent_cuda_batch(mats: torch.Tensor) -> torch.Tensor:
                  parts, b, n, level)
     permanent_cuda_batch.launches += 1
     return parts.sum(dim=1).to(cdtype())
+
+
+class _Permanents(torch.autograd.Function):
+    """K7 with the twin's derivative as its backward."""
+
+    @staticmethod
+    def forward(ctx, mats):
+        ctx.save_for_backward(mats)
+        return _launch(mats)
+
+    @staticmethod
+    @_first_order_only
+    def backward(ctx, g):
+        mats, = ctx.saved_tensors
+        with torch.enable_grad():
+            m = mats.detach().requires_grad_()
+            d, = torch.autograd.grad(permanent_plain_batch(m), m, g)
+        return d
+
+
+def permanent_cuda_batch(mats: torch.Tensor) -> torch.Tensor:
+    """Ryser permanents of a (B, n, n) complex stack, 4 <= n <= 26, computed
+    in float64 and returned as ``cdtype()``, (B,).
+
+    A CUDA tensor launches the ``csrc/permanent_ryser.cu`` kernel once and
+    raises if the build or the launch fails; its gradient is the twin's. A
+    CPU tensor takes the twin ``permanent_plain_batch``."""
+    if mats.device.type != 'cuda':
+        return permanent_plain_batch(mats)
+    return _Permanents.apply(mats)
 
 
 permanent_cuda_batch.launches = 0

@@ -8,6 +8,12 @@ plain twin ``planar_evolve_xla`` on a CPU tensor). Gate matrices arrive as
 real planes in sorted-wire order. Wire 0 is the most significant bit of the
 amplitude index (the ``evolve_state`` convention).
 
+A batch of states, as data-encoded QML runs it, is a (B, 2, 2^n) stack with
+per-sample (B, K, K) planes (or one (K, K) set shared by every sample, as an
+observable's): the three per-gate kernels take the batch as a grid axis,
+as the JAX package's kernels do, and the chain's Functions carry it through.
+Windows and the one-launch chain refuse batched planes, as there.
+
 Gradients come from two ``torch.autograd.Function``s, ``planar_chain`` and
 ``planar_pauli_expectation``. The chain's backward is the adjoint method:
 the forward keeps only the final state, and the backward walks the steps in
@@ -39,7 +45,7 @@ import torch
 __all__ = ['planar_apply', 'planar_evolve_xla', 'planar_grad', 'planar_grad_xla',
            'planar_bwd_fused', 'planar_bwd_fused_plain', 'planar_chain',
            'planar_pauli_expectation', 'schedule_planar_seq', 'schedule_rotations',
-           'to_planar', 'from_planar']
+           'to_planar', 'to_planar_batched', 'from_planar']
 
 _T_BITS = 7            # TPU lane block (scheduler geometry only)
 _RB_BITS_MAX = 7       # TPU row block (scheduler geometry only)
@@ -52,14 +58,21 @@ def to_planar(psi: torch.Tensor) -> torch.Tensor:
     return torch.stack([flat.real, flat.imag]).to(rdtype()).contiguous()
 
 
+def to_planar_batched(psi: torch.Tensor) -> torch.Tensor:
+    """complex (B, N) batch -> contiguous (B, 2, N) real planes."""
+    from ..config import rdtype
+    return torch.stack([psi.real, psi.imag], dim=1).to(rdtype()).contiguous()
+
+
 def from_planar(x: torch.Tensor) -> torch.Tensor:
     """(..., 2, N) real planes -> complex (..., N) statevector."""
     return torch.complex(x[..., 0, :], x[..., 1, :])
 
 
 def _sorted_mat_planes(matrix: torch.Tensor, wires):
-    """Permute a complex (2^k, 2^k) gate matrix from wires-list order to
-    sorted-wire order and split it into real planes (policy real dtype)."""
+    """Permute a complex (2^k, 2^k) gate matrix, or a (B, 2^k, 2^k) batch,
+    from wires-list order to sorted-wire order and split it into real planes
+    (policy real dtype)."""
     from ..config import rdtype
     from .apply import permute_matrix_wires
     ws = list(wires)
@@ -71,10 +84,12 @@ def _sorted_mat_planes(matrix: torch.Tensor, wires):
 
 # ----------------------------------------------------------------- kernel K1
 def _combo_view(x: torch.Tensor, n: int, ws):
-    """(2, 2^n) planes -> (2, 2^k, M) with the k sorted wires' bit
-    combinations as the middle axis, plus the map back to (2, 2^n)."""
+    """(..., 2, 2^n) planes -> (..., 2, 2^k, M) with the k sorted wires' bit
+    combinations as the second-last axis, plus the map back."""
     k = len(ws)
-    shape = [2]
+    lead = tuple(x.shape[:-2])
+    nl = len(lead) + 1                  # the batch axes and the re/im axis
+    shape = list(x.shape[:-1])
     axes = []
     prev = -1
     for w in ws:
@@ -83,8 +98,8 @@ def _combo_view(x: torch.Tensor, n: int, ws):
         axes.append(len(shape) - 1)
         prev = w
     shape.append(1 << (n - 1 - prev))
-    rest = [i for i in range(1, len(shape)) if i not in axes]
-    perm = [0] + axes + rest
+    rest = [i for i in range(nl, len(shape)) if i not in axes]
+    perm = list(range(nl)) + axes + rest
     xv = x.reshape(shape).permute(perm)
     pshape = xv.shape
     inv = sorted(range(len(perm)), key=lambda i: perm[i])
@@ -92,46 +107,50 @@ def _combo_view(x: torch.Tensor, n: int, ws):
     def restore(y):
         return y.reshape(pshape).permute(inv).reshape(x.shape)
 
-    return xv.reshape(2, 1 << k, -1), restore
+    return xv.reshape(*lead, 2, 1 << k, -1), restore
 
 
 def planar_evolve_xla(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
     """Plain torch twin of the ``planar_apply`` kernel (named after the JAX
     package's XLA twin): y = M x on the sorted wires, real matmuls, returns
-    a new tensor. Matrix planes are in sorted-wire order."""
+    a new tensor. Matrix planes are in sorted-wire order; a (B, 2, 2^n)
+    stack takes (B, K, K) planes or one (K, K) set for every sample."""
     xv, restore = _combo_view(x, n, sorted(wires))
     mre = mre.to(x.dtype)
     mim = mim.to(x.dtype)
-    yr = mre @ xv[0] - mim @ xv[1]
-    yi = mre @ xv[1] + mim @ xv[0]
-    return restore(torch.stack([yr, yi]))
+    xr, xi = xv[..., 0, :, :], xv[..., 1, :, :]
+    yr = mre @ xr - mim @ xi
+    yi = mre @ xi + mim @ xr
+    return restore(torch.stack([yr, yi], dim=-3))
 
 
 def planar_apply(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
     """Apply a k <= 3 wire gate (planes in sorted-wire order) to the planar
-    state x = (2, 2^n) in place, and return x.
+    state x = (2, 2^n) in place, and return x. A (B, 2, 2^n) stack takes
+    per-sample (B, K, K) planes, or one (K, K) set for every sample.
 
     A CUDA tensor launches the ``csrc/planar_apply.cu`` kernel (float32
-    only) and raises if the build or the launch fails; a CPU tensor takes
-    the twin ``planar_evolve_xla``."""
+    only; the batch is a grid axis) and raises if the build or the launch
+    fails; a CPU tensor takes the twin ``planar_evolve_xla``."""
     ws = tuple(sorted(wires))
     if x.device.type == 'cpu':
         x.copy_(planar_evolve_xla(x, mre, mim, n, ws))
         return x
     from . import _cuda
-    if x.dim() != 2:
-        raise NotImplementedError('planar_apply: the batched (B, 2, 2^n) form has no CUDA '
-                                  'kernel yet (ROADMAP queue 2, batched forward)')
     bits = _gate_bits('planar_apply', n, ws)
     k = len(ws)
-    _cuda.check_state(x, n, 'planar_apply')
-    mre, mim = _cuda.check_planes('planar_apply', x, (1 << k, 1 << k), mre, mim)
-    _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, n, k, *bits)
-    planar_apply.launches += 1
+    batch = _cuda.check_state(x, n, 'planar_apply', batched=True)
+    (mre, mim), pstride = _cuda.sample_planes('planar_apply', x, batch, (1 << k, 1 << k), mre, mim)
+    _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, batch, pstride, n, k, *bits)
+    if x.dim() == 3:
+        planar_apply.batched_launches += 1
+    else:
+        planar_apply.launches += 1
     return x
 
 
-planar_apply.launches = 0
+planar_apply.launches = 0            # launches on one (2, 2^n) state
+planar_apply.batched_launches = 0    # launches on a (B, 2, 2^n) stack
 
 
 def _gate_bits(name: str, n: int, ws):
@@ -149,9 +168,10 @@ _GRAD_MAX_BLOCKS = 1024
 
 
 def _grad_blocks(n: int, k: int) -> int:
-    """Blocks of the reduction kernels: one thread per 2^k-amplitude group
-    (two at k = 3, which splits the rows), a power of two capped so that
-    each thread walks several groups before the block reduces."""
+    """Blocks of the reduction kernels for one state (each sample of a
+    stack gets as many): one thread per 2^k-amplitude group (two at k = 3,
+    which splits the rows), a power of two capped so that each thread walks
+    several groups before the block reduces."""
     threads = (1 << (n - k)) * (2 if k == 3 else 1)
     if threads < _GRAD_THREADS:
         raise ValueError(f'the CUDA reduction kernels need n - k >= 8, got n={n}, k={k}')
@@ -164,42 +184,59 @@ def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     cotangent g and the gate's input x,
     dRe[i, j] = sum_m gr_i[m] xr_j[m] + gi_i[m] xi_j[m],
     dIm[i, j] = sum_m gi_i[m] xr_j[m] - gr_i[m] xi_j[m],
-    over the 2^(n-k) non-gate positions m, rows/columns in sorted-wire order."""
+    over the 2^(n-k) non-gate positions m, rows/columns in sorted-wire order;
+    (B, K, K) each for (B, 2, 2^n) stacks."""
     ws = sorted(wires)
     gv, _ = _combo_view(g, n, ws)
     xv, _ = _combo_view(x, n, ws)
-    dre = gv[0] @ xv[0].T + gv[1] @ xv[1].T
-    dim = gv[1] @ xv[0].T - gv[0] @ xv[1].T
+    gr, gi = gv[..., 0, :, :], gv[..., 1, :, :]
+    xr_t, xi_t = xv[..., 0, :, :].transpose(-1, -2), xv[..., 1, :, :].transpose(-1, -2)
+    dre = gr @ xr_t + gi @ xi_t
+    dim = gi @ xr_t - gr @ xi_t
     return dre, dim
+
+
+def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, n: int) -> int:
+    """Two planar states of one kernel call: the same device and batch."""
+    from . import _cuda
+    batch = _cuda.check_state(a, n, name, batched=True)
+    if _cuda.check_state(b, n, name, batched=True) != batch or a.dim() != b.dim() \
+            or a.device != b.device:
+        raise ValueError(f'{name}: two states of shapes {tuple(a.shape)}, {tuple(b.shape)} on '
+                         f'{a.device}, {b.device}')
+    return batch
 
 
 def planar_grad(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     """(dRe, dIm), each (2^k, 2^k), of a k <= 3 wire gate from the planar
-    cotangent g and the gate's input x, both (2, 2^n); pure reads.
+    cotangent g and the gate's input x, both (2, 2^n); pure reads. Stacks
+    (B, 2, 2^n) give (B, 2^k, 2^k) each.
 
     CUDA tensors launch ``csrc/planar_grad.cu`` (float32 only), which
-    leaves one partial per block that is summed here in a fixed order, and
-    raise if the build or the launch fails; CPU tensors take the twin
-    ``planar_grad_xla``."""
+    leaves one partial per (sample, block) that is summed here in a fixed
+    order, and raise if the build or the launch fails; CPU tensors take the
+    twin ``planar_grad_xla``."""
     ws = tuple(sorted(wires))
     if g.device.type == 'cpu':
         return planar_grad_xla(g, x, n, ws)
     from . import _cuda
     bits = _gate_bits('planar_grad', n, ws)
-    _cuda.check_state(g, n, 'planar_grad')
-    _cuda.check_state(x, n, 'planar_grad')
-    if x.device != g.device:
-        raise ValueError(f'planar_grad: g on {g.device}, x on {x.device}')
+    batch = _check_pair('planar_grad', g, x, n)
     k = len(ws)
     nblocks = _grad_blocks(n, k)
-    parts = torch.empty((nblocks, 2, 1 << k, 1 << k), dtype=torch.float32, device=g.device)
-    _cuda.launch('dq_planar_grad_f32', g.device, g, x, parts, nblocks, n, k, *bits)
+    parts = torch.empty((batch, nblocks, 2, 1 << k, 1 << k), dtype=torch.float32,
+                        device=g.device)
+    _cuda.launch('dq_planar_grad_f32', g.device, g, x, parts, batch, nblocks, n, k, *bits)
+    total = parts.sum(dim=1)
+    if g.dim() == 3:
+        planar_grad.batched_launches += 1
+        return total[:, 0], total[:, 1]
     planar_grad.launches += 1
-    total = parts.sum(dim=0)
-    return total[0], total[1]
+    return total[0, 0], total[0, 1]
 
 
 planar_grad.launches = 0
+planar_grad.batched_launches = 0
 
 
 # ----------------------------------------------------------------- kernel K6
@@ -219,7 +256,9 @@ def planar_bwd_fused(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
                      mim_t: torch.Tensor, n: int, wires):
     """One backward step of a k <= 3 wire gate in one pass: y becomes
     x = U^H y and g becomes U^H g, both in place, and (dRe, dIm) come from
-    the raw g and the recovered x. Returns (y, g, dRe, dIm).
+    the raw g and the recovered x. Returns (y, g, dRe, dIm). Stacks
+    (B, 2, 2^n) take (B, K, K) planes or one (K, K) set, and give
+    (B, K, K) cotangent planes.
 
     CUDA tensors launch ``csrc/planar_bwd_fused.cu`` (float32 only) and
     raise if the build or the launch fails; CPU tensors take the twin."""
@@ -231,22 +270,27 @@ def planar_bwd_fused(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
         return y, g, dre, dim
     from . import _cuda
     bits = _gate_bits('planar_bwd_fused', n, ws)
-    _cuda.check_state(y, n, 'planar_bwd_fused')
-    _cuda.check_state(g, n, 'planar_bwd_fused')
-    if y.device != g.device or y.data_ptr() == g.data_ptr():
+    batch = _check_pair('planar_bwd_fused', y, g, n)
+    if y.data_ptr() == g.data_ptr():
         raise ValueError('planar_bwd_fused: y and g must be two tensors on one device')
     k = len(ws)
-    mre_t, mim_t = _cuda.check_planes('planar_bwd_fused', y, (1 << k, 1 << k), mre_t, mim_t)
+    (mre_t, mim_t), pstride = _cuda.sample_planes('planar_bwd_fused', y, batch, (1 << k, 1 << k),
+                                                  mre_t, mim_t)
     nblocks = _grad_blocks(n, k)
-    parts = torch.empty((nblocks, 2, 1 << k, 1 << k), dtype=torch.float32, device=y.device)
-    _cuda.launch('dq_planar_bwd_fused_f32', y.device, y, g, mre_t, mim_t, parts, nblocks, n, k,
-                 *bits)
+    parts = torch.empty((batch, nblocks, 2, 1 << k, 1 << k), dtype=torch.float32,
+                        device=y.device)
+    _cuda.launch('dq_planar_bwd_fused_f32', y.device, y, g, mre_t, mim_t, parts, batch, pstride,
+                 nblocks, n, k, *bits)
+    total = parts.sum(dim=1)
+    if y.dim() == 3:
+        planar_bwd_fused.batched_launches += 1
+        return y, g, total[:, 0], total[:, 1]
     planar_bwd_fused.launches += 1
-    total = parts.sum(dim=0)
-    return y, g, total[0], total[1]
+    return y, g, total[0, 0], total[0, 1]
 
 
 planar_bwd_fused.launches = 0
+planar_bwd_fused.batched_launches = 0
 
 
 # ----------------------------------------------------- wire-relabel schedule
@@ -361,8 +405,9 @@ def schedule_rotations(wires_list, n: int):
 
 def schedule_planar_seq(mres, mims, wseq, n: int):
     """Insert relabel rotations or dense windows into an already-sorted
-    planar chain spec. mres/mims: per-gate (K, K) planes in sorted-LOGICAL
-    wire order; wseq: sorted logical wire tuples.
+    planar chain spec. mres/mims: per-gate (K, K) planes, or (B, K, K) per
+    sample, in sorted-LOGICAL wire order; wseq: sorted logical wire tuples.
+    Batched planes take no windows (schedule_window_seq refuses them).
 
     Returns (mres', mims', wseq'): wseq' entries are ('rot', delta) relabels
     (with None planes), ('win', w) dense windows (ops/window_gate.py) or
@@ -423,8 +468,9 @@ def _chain_forward(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tens
 
 
 def _conj_t(mre: torch.Tensor, mim: torch.Tensor):
-    """Planes of U^H from the planes of U: (U_re^T, -U_im^T)."""
-    return mre.t().contiguous(), -mim.t()
+    """Planes of U^H from the planes of U: (U_re^T, -U_im^T), per sample
+    for (B, K, K) planes."""
+    return mre.transpose(-1, -2).contiguous(), -mim.transpose(-1, -2)
 
 
 def _chain_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq,
@@ -483,13 +529,13 @@ def _flat_planes(mres, mims, wires_seq):
 def _first_order_only(backward):
     """Refuse a backward that is itself being recorded (create_graph=True).
     This stands in place of ``once_differentiable``, which only guards
-    cotangents that require grad: the adjoint backward also depends on the
-    saved state and planes, so a second derivative through it would
-    silently miss those terms."""
+    cotangents that require grad: the adjoint backward (and the photonic
+    kernels' backward through their twins) also depends on saved inputs, so
+    a second derivative through it would silently miss those terms."""
     @functools.wraps(backward)
     def guarded(ctx, *grads):
         if torch.is_grad_enabled():
-            raise RuntimeError('the planar engine is first order only: its adjoint backward '
+            raise RuntimeError('the kernel Functions are first order only: their backward '
                                'cannot be differentiated again (create_graph=True)')
         return backward(ctx, *grads)
     return guarded
@@ -513,7 +559,9 @@ class _PlanarChain(torch.autograd.Function):
         y, *planes = ctx.saved_tensors
         mres, mims = _split_planes(planes, wires_seq)
         g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd)
-        dplanes = [d.to(m.dtype) for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
+        # a (K, K) plane shared by a batch of states gets the batch's sum
+        dplanes = [(d if d.dim() == m.dim() else d.sum(0)).to(m.dtype)
+                   for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
         return (g_in, None, None, None, *dplanes)
 
 

@@ -16,8 +16,15 @@ everything is complex128, one entry per subset in the scaffold's order, and
 the sign comes back as it went in. ``idx``, ``valid`` and ``sign`` are the
 scaffold of ``torontonian_._padded_tor_indices`` as tensors on O's device:
 (S, 2m) int64 rows, (S, 2m, 1) float32 validity, (S,) float64 signs, grouped
-by subset size, smallest first. Neither kernel has a backward: a CUDA tensor
-that requires grad raises.
+by subset size, smallest first.
+
+Gradients: on a CUDA tensor each wrapper is a ``torch.autograd.Function``
+whose forward launches the kernel and whose backward is the derivative of
+the plain twin, recomputed on the saved inputs (the JAX package's method:
+its Pallas torontonian is a ``custom_jvp`` whose tangent comes from the
+plain formula). First order only. The raw launch refuses a tensor that
+requires grad: only the Function's forward, where grad mode is off, calls
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 from math import comb
 
 import torch
+
+from ..ops.planar_gate import _first_order_only
 
 __all__ = ['tor_dets_cuda', 'tor_dets_quads_cuda', 'tor_dets_plain', 'tor_dets_quads_plain',
            'MAX_MODES']
@@ -94,7 +103,7 @@ def _launch(name, o_mat, gamma, idx, valid, sign):
     from ..ops import _cuda
     m = _check(name, o_mat, idx, valid, sign)
     _cuda._no_grad(name, o_mat, *(() if gamma is None else (gamma,)),
-                   hint=_cuda.NO_BACKWARD_HINT)
+                   hint=_cuda.TWIN_BACKWARD_HINT)
     if m > MAX_MODES:
         raise ValueError(f'{name}: the kernel holds 2m <= {2 * MAX_MODES}, got m = {m}')
     if o_mat.dtype not in (torch.complex64, torch.complex128):
@@ -118,17 +127,68 @@ def _launch(name, o_mat, gamma, idx, valid, sign):
     return det, quad
 
 
+class _TorDets(torch.autograd.Function):
+    """K8 with the twin's derivative as its backward."""
+
+    @staticmethod
+    def forward(ctx, o_mat, idx, valid, sign):
+        det, _ = _launch('tor_dets_cuda', o_mat, None, idx, valid, sign)
+        tor_dets_cuda.launches += 1
+        ctx.save_for_backward(o_mat, idx, valid, sign)
+        return det
+
+    @staticmethod
+    @_first_order_only
+    def backward(ctx, g_det):
+        o_mat, idx, valid, sign = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        with torch.enable_grad():
+            o = o_mat.detach().requires_grad_()
+            det, _ = tor_dets_plain(o, idx, valid, sign)
+            d_o, = torch.autograd.grad(det, o, g_det)
+        return d_o, None, None, None
+
+
+class _TorDetsQuads(torch.autograd.Function):
+    """K9 with the twin's derivative as its backward."""
+
+    @staticmethod
+    def forward(ctx, o_mat, gamma, idx, valid, sign):
+        det, quad = _launch('tor_dets_quads_cuda', o_mat, gamma, idx, valid, sign)
+        tor_dets_quads_cuda.launches += 1
+        ctx.save_for_backward(o_mat, gamma, idx, valid, sign)
+        return det, quad
+
+    @staticmethod
+    @_first_order_only
+    def backward(ctx, g_det, g_quad):
+        o_mat, gamma, idx, valid, sign = ctx.saved_tensors
+        wants = [i for i in (0, 1) if ctx.needs_input_grad[i]]
+        if not wants:
+            return None, None, None, None, None
+        with torch.enable_grad():
+            ins = [o_mat.detach().requires_grad_(), gamma.detach().requires_grad_()]
+            det, quad, _ = tor_dets_quads_plain(ins[0], ins[1], idx, valid, sign)
+            outs = [(t, g) for t, g in ((det, g_det), (quad, g_quad)) if g is not None]
+            grads = torch.autograd.grad([t for t, _ in outs], [ins[i] for i in wants],
+                                        [g for _, g in outs], allow_unused=True)
+        out = [None] * 5
+        for i, d in zip(wants, grads):
+            out[i] = d
+        return tuple(out)
+
+
 def tor_dets_cuda(o_mat, idx, valid, sign):
     """det(I - O_Z) of every nonempty mode subset of a (2m, 2m) complex
     matrix, m <= 14, as ((S,) complex128, sign).
 
     A CUDA tensor launches ``csrc/tor_lu.cu`` once and raises if the build
-    or the launch fails; a CPU tensor takes the twin ``tor_dets_plain``."""
+    or the launch fails; its gradient in O is the twin's. A CPU tensor takes
+    the twin ``tor_dets_plain``."""
     if o_mat.device.type != 'cuda':
         return tor_dets_plain(o_mat, idx, valid, sign)
-    det, _ = _launch('tor_dets_cuda', o_mat, None, idx, valid, sign)
-    tor_dets_cuda.launches += 1
-    return det, sign
+    return _TorDets.apply(o_mat, idx, valid, sign), sign
 
 
 tor_dets_cuda.launches = 0
@@ -140,11 +200,11 @@ def tor_dets_quads_cuda(o_mat, gamma, idx, valid, sign):
 
     A CUDA tensor launches ``csrc/tor_lu.cu`` once, with conj(gamma_Z) as an
     extra column of each subset's elimination, and raises if the build or
-    the launch fails; a CPU tensor takes the twin ``tor_dets_quads_plain``."""
+    the launch fails; its gradients in O and gamma are the twin's. A CPU
+    tensor takes the twin ``tor_dets_quads_plain``."""
     if o_mat.device.type != 'cuda':
         return tor_dets_quads_plain(o_mat, gamma, idx, valid, sign)
-    det, quad = _launch('tor_dets_quads_cuda', o_mat, gamma, idx, valid, sign)
-    tor_dets_quads_cuda.launches += 1
+    det, quad = _TorDetsQuads.apply(o_mat, gamma, idx, valid, sign)
     return det, quad, sign
 
 

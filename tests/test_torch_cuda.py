@@ -378,10 +378,138 @@ def test_cuda_tensor_never_reaches_a_twin(card):
 
 
 def test_cuda_entry_refuses_batched_state(card):
+    """The per-gate kernels take a (B, 2, 2^n) stack; the window kernels do
+    not, and planes whose batch is not the state's are refused."""
     x = torch.zeros(3, 2, 1 << 12, device=card)
     m = torch.eye(2, device=card)
-    with pytest.raises(NotImplementedError):
-        tpg.planar_apply(x, m, m, 12, (0,))
+    with pytest.raises(ValueError, match='matrix planes'):
+        tpg.planar_apply(x, m.expand(4, 2, 2).contiguous(), m, 12, (0,))
+    with pytest.raises(ValueError, match='two states'):
+        tpg.planar_grad(x, x[0], 12, (0,))
+    with pytest.raises(ValueError, match=r'\(2, 2\^12\)'):
+        twg.window_apply(x, torch.eye(128, device=card), torch.zeros(128, 128, device=card), 12, 7)
+
+
+# -------------------------------------------------------------- batched forms
+# The batched K1 / K5 / K6: a (B, 2, 2^n) stack with per-sample (B, K, K)
+# planes, or one (K, K) set for every sample; bars as for the single forms.
+BATCH_CASES = [(12, 5, (0,), False), (12, 5, (11,), True), (14, 7, (3, 9), False),
+               (14, 7, (0, 13), True), (13, 3, (0, 6, 12), False), (13, 3, (4, 5, 6), True),
+               (10, 40, (2, 5, 9), False), (12, 1, (3, 7), False)]
+
+
+def _batch(n, b, k, rng, device, shared):
+    x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n)), dtype=torch.float32, device=device)
+    us = [_haar(1 << k, rng) for _ in range(1 if shared else b)]
+    mre = torch.as_tensor(np.stack([u.real for u in us]), dtype=torch.float32, device=device)
+    mim = torch.as_tensor(np.stack([u.imag for u in us]), dtype=torch.float32, device=device)
+    if shared:
+        return x, mre[0], mim[0]
+    return x, mre, mim
+
+
+@pytest.mark.parametrize('n,b,wires,shared', BATCH_CASES)
+def test_batched_kernels_match_twins(n, b, wires, shared, card):
+    rng = np.random.default_rng(n * b + sum(wires))
+    x, mre, mim = _batch(n, b, len(wires), rng, card, shared)
+    g = torch.as_tensor(rng.standard_normal(x.shape), dtype=torch.float32, device=card)
+    counts = [fn.batched_launches for fn in (tpg.planar_apply, tpg.planar_grad,
+                                             tpg.planar_bwd_fused)]
+    single = [fn.launches for fn in (tpg.planar_apply, tpg.planar_grad, tpg.planar_bwd_fused)]
+
+    y = tpg.planar_apply(x.clone(), mre, mim, n, wires)
+    torch.testing.assert_close(y, tpg.planar_evolve_xla(x, mre, mim, n, wires), atol=2e-6, rtol=0)
+    for a, w in zip(tpg.planar_grad(g, x, n, wires), tpg.planar_grad_xla(g, x, n, wires)):
+        assert a.shape == (b, 1 << len(wires), 1 << len(wires))
+        _plane_close(a, w)
+    mre_t, mim_t = mre.transpose(-1, -2).contiguous(), (-mim.transpose(-1, -2)).contiguous()
+    want = tpg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
+    wy, wg = y.clone(), g.clone()
+    got = tpg.planar_bwd_fused(wy, wg, mre_t, mim_t, n, wires)
+    torch.cuda.synchronize()
+    assert got[0] is wy and got[1] is wg
+    torch.testing.assert_close(wy, want[0], atol=2e-6, rtol=0)
+    torch.testing.assert_close(wg, want[1], atol=2e-6, rtol=0)
+    torch.testing.assert_close(wy, x, atol=2e-6, rtol=0)       # U^H U x = x
+    _plane_close(got[2], want[2])
+    _plane_close(got[3], want[3])
+    assert [fn.batched_launches for fn in (tpg.planar_apply, tpg.planar_grad,
+                                           tpg.planar_bwd_fused)] == [c + 1 for c in counts]
+    assert [fn.launches for fn in (tpg.planar_apply, tpg.planar_grad,
+                                   tpg.planar_bwd_fused)] == single
+
+
+def test_batched_apply_past_the_block_cap(card):
+    """160 states of 22 qubits at k = 1: 160 x 2^21 groups need 1.3M blocks
+    of 256 threads, past the kernel's 2^20 cap, so each sample's blocks walk
+    its groups; every sample still gets its own planes."""
+    n, b, wires = 22, 160, (7,)
+    rng = np.random.default_rng(22)
+    x, mre, mim = _batch(n, b, 1, rng, card, False)
+    assert b * (1 << (n - 1)) > (1 << 20) * 256
+    y = tpg.planar_apply(x.clone(), mre, mim, n, wires)
+    torch.testing.assert_close(y, tpg.planar_evolve_xla(x, mre, mim, n, wires), atol=2e-6, rtol=0)
+    g = torch.randn_like(x)
+    for a, w in zip(tpg.planar_grad(g, x, n, wires), tpg.planar_grad_xla(g, x, n, wires)):
+        _plane_close(a, w)
+
+
+@pytest.mark.parametrize('wires', [(5,), (0, 13), (1, 7, 12)])
+def test_batched_dw_is_bitwise_reproducible(wires, card):
+    n, b = 14, 100
+    rng = np.random.default_rng(len(wires))
+    x, mre, mim = _batch(n, b, len(wires), rng, card, False)
+    g = torch.randn_like(x)
+    first = tpg.planar_grad(g, x, n, wires)
+    assert all(torch.equal(a, c) for a, c in zip(first, tpg.planar_grad(g, x, n, wires)))
+    outs = [tpg.planar_bwd_fused(x.clone(), g.clone(), mre, mim, n, wires) for _ in range(2)]
+    assert all(torch.equal(a, c) for a, c in zip(*outs))
+
+
+def _qml(n, layers, device=None):
+    cir = dqt.QubitCircuit(n, device=device, reupload=True)
+    for _ in range(layers):
+        for i in range(n):
+            cir.ry(i, encode=True)
+        for i in range(n):
+            cir.rz(i)
+            cir.ry(i)
+        cir.cnot_ring()
+    cir.observable(0)
+    cir.init_para(n)
+    return cir
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_batched_qml_step_matches_complex128(fused, card):
+    """The data-encoded step on the default device: batched K1 and K5 (K6
+    with fused_bwd), no window or chain kernel; loss and the gradients in
+    the parameters and the data against the complex128 einsum route."""
+    n, b = 14, 12
+    feats = np.random.default_rng(3).uniform(0, np.pi, (b, n))
+    names = {'apply': tpg.planar_apply, 'grad': tpg.planar_grad, 'fused': tpg.planar_bwd_fused}
+    windows = (twg.window_apply, tck.window_chain_fwd, tck.window_chain_bwd)
+    before = {k: fn.batched_launches for k, fn in names.items()}
+    before_win = [fn.launches for fn in windows]
+    out = {}
+    for dtype in ('complex64', 'complex128'):
+        dqt.set_dtype(dtype)
+        cir = _qml(n, 2)
+        cir.fused_bwd = fused
+        p = cir.params.requires_grad_()
+        d = torch.tensor(feats, dtype=dqt.rdtype(), device=card, requires_grad=True)
+        loss = cir.expectation(data=d, params=p).sum()
+        loss.backward()
+        out[dtype] = (loss.item(), p.grad.double(), d.grad.double())
+        if dtype == 'complex64':
+            used = {k: fn.batched_launches - before[k] for k, fn in names.items()}
+    assert used['apply'] > 0 and [fn.launches for fn in windows] == before_win
+    assert (used['fused'] > 0 and used['grad'] == 0) if fused else \
+        (used['grad'] > 0 and used['fused'] == 0)
+    (l64, p64, d64), (l128, p128, d128) = out['complex64'], out['complex128']
+    assert abs(l64 - l128) <= 1e-5 * b
+    assert (p64 - p128).abs().max().item() <= 1e-4
+    assert (d64 - d128).abs().max().item() <= 1e-4
 
 
 # ------------------------------------------------------------------ photonic
@@ -476,24 +604,44 @@ def test_photonic_wrappers_refuse_wrong_inputs(card128):
 
 
 def test_photonic_wrappers_refuse_gradients(card128):
-    """The kernels have no backward (the TPU kernels have none): a CUDA
-    tensor that requires grad raises, and under no_grad it runs."""
+    """The raw launches refuse a tensor that requires grad; the wrappers
+    are Functions whose backward is the twin's derivative, recomputed on
+    the saved inputs (the forward values stay the kernel's)."""
     from deepquantum_tpu_torch.ops import permanent_kernel as pk
     from deepquantum_tpu_torch.photonic import tor_kernel as tk
     from deepquantum_tpu_torch.photonic import torontonian_ as tt
-    mats = torch.as_tensor(_haar(4, np.random.default_rng(3))[None], device=card128)
+    rng = np.random.default_rng(3)
+    mats = torch.as_tensor(np.stack([_haar(5, rng) for _ in range(3)]), device=card128)
     mats.requires_grad_()
-    with pytest.raises(NotImplementedError, match='no backward'):
-        pk.permanent_cuda_batch(mats)
-    with torch.no_grad():
-        pk.permanent_cuda_batch(mats)
-    o, g = _tor_inputs(3, np.random.default_rng(4), card128)
+    with pytest.raises(NotImplementedError, match='twin'):
+        pk._launch(mats)
+    got = pk.permanent_cuda_batch(mats)
+    assert got.requires_grad and torch.equal(got.detach(), pk.permanent_cuda_batch(mats.detach()))
+    w = torch.as_tensor(rng.standard_normal(3) + 1j * rng.standard_normal(3), device=card128)
+    d_got, = torch.autograd.grad((got * w).sum().real, mats)
+    d_want, = torch.autograd.grad((pk.permanent_plain_batch(mats) * w).sum().real, mats)
+    torch.testing.assert_close(d_got, d_want, atol=1e-12, rtol=0)
+
+    o, g = _tor_inputs(4, np.random.default_rng(4), card128)
     o.requires_grad_()
-    scaffold = tt._padded_tor_indices(3, card128)
-    with pytest.raises(NotImplementedError, match='no backward'):
-        tk.tor_dets_cuda(o, *scaffold)
-    with pytest.raises(NotImplementedError, match='no backward'):
-        tk.tor_dets_quads_cuda(o.detach(), g.requires_grad_(), *scaffold)
+    g.requires_grad_()
+    scaffold = tt._padded_tor_indices(4, card128)
+    with pytest.raises(NotImplementedError, match='twin'):
+        tk._launch('tor_dets_cuda', o, None, *scaffold)
+    for route, plain in ((lambda: tk.tor_dets_cuda(o, *scaffold)[:1],
+                          lambda: tk.tor_dets_plain(o, *scaffold)[:1]),
+                         (lambda: tk.tor_dets_quads_cuda(o, g, *scaffold)[:2],
+                          lambda: tk.tor_dets_quads_plain(o, g, *scaffold)[:2])):
+        outs, refs = route(), plain()
+        loss = sum((t * (1 + 0.5j)).sum().real for t in outs)
+        ref = sum((t * (1 + 0.5j)).sum().real for t in refs)
+        for a, c in zip(torch.autograd.grad(loss, (o, g), allow_unused=True),
+                        torch.autograd.grad(ref, (o, g), allow_unused=True)):
+            assert (a is None) == (c is None)
+            if a is not None:
+                torch.testing.assert_close(a, c, atol=1e-10 * c.abs().max().item(), rtol=0)
+    with pytest.raises(RuntimeError, match='first order only'):
+        torch.autograd.grad(tk.tor_dets_cuda(o, *scaffold)[0].sum().real, o, create_graph=True)
 
 
 def test_photonic_paths_on_the_card(card128):

@@ -345,7 +345,8 @@ def test_boson_sampling_batched_data_states_and_basis():
 
 
 def test_boson_sampling_gradient_on_the_cpu_matches_jax():
-    """The kernels have no backward; on the CPU the twins are plain torch."""
+    """On the CPU the kernel wrappers take their twins, which are plain
+    torch (on the card the wrappers' backward is the twins' derivative)."""
     import jax
     import jax.numpy as jnp
     jcir = jph.Clements(4, init_state=[1, 1, 1, 1], cutoff=5)
