@@ -24,13 +24,14 @@ Phases (each raises on failure, so the run exits non-zero):
    computes the same function, a real 256 x 256 block matmul) and at
    n = 12, 13, 16, 20, 24 with a random non-unitary W (<= 1e-6),
    window_chain_fwd and window_chain_bwd at n=18 on the bench ansatz's
-   scheduled sequence (states <= 1e-5, dW <= 1e-5; window_chain_bwd also at
-   n = 14 and 19, and at n=19 on a grid of 114 SMs where a block walks two
-   column tiles; its dW bitwise equal over two launches, its device time
-   alone from torch.profiler beside the time through the wrapper).
-   window_apply and window_chain_bwd run 3xTF32 on the tensor cores: their
-   bound_ms is that route's (495 TFLOP/s); the FP32 bound and K4's barrier
-   count from its step table go on a line of their own, as derived
+   scheduled sequence (states <= 1e-5, dW <= 1e-5; both also at n = 14 and
+   19, and at n=19 on a grid of 114 SMs where a block walks two column
+   tiles; window_chain_bwd's dW bitwise equal over two launches; both with
+   their device time alone from torch.profiler beside the time through the
+   wrapper). window_apply, window_chain_fwd and window_chain_bwd run their
+   products on the FP64 tensor cores (csrc/window_mma.cuh): their bound_ms
+   is that route's (67 TFLOP/s); the 3xTF32 bound and the chains' barrier
+   counts from their step tables go on a line of their own, as derived
    numbers. K7-K9 compute in float64 and are bounded against the FP64
    rate: permanent_cuda_batch on Haar unitaries at (B, n) =
    (12376, 6), (3, 4), (2, 5), (1000, 14) (<= 1e-10 of the twin, and of a
@@ -45,10 +46,14 @@ Phases (each raises on failure, so the run exits non-zero):
    planar_apply_batched, planar_grad_batched, planar_bwd_fused_batched) on
    (B, 2, 2^n) stacks with per-sample planes at (n, B) = (14, 100) and
    (20, 8), k = 1, 2, 3 (states <= 1e-6, K6 1e-5, planes <= 1e-5), K1 also
-   with one set of planes for every sample. K4 under depth: n=18 with 10
-   and 20 layers against the twin (bars 1e-5) and both against the twin in
-   float64; the verdict is printed and recorded, not a stop (the main paths
-   walk 5 layers, held at the bar above);
+   with one set of planes for every sample. The window kernels under
+   depth (check_window_depth): the bench sequence at n=18 with 10 and 20
+   layers, walked by window_chain_fwd, by window_apply window by window
+   with the twin's relabels, and backward by window_chain_bwd; states
+   <= 1e-5 of the float32 twin, dW <= 1e-5, and against the twin run in
+   float64 <= 5e-6 at 20 layers with a 20-layer / 10-layer ratio <= 1.6 (a
+   bias grows linearly with the windows, 2.0; rounding to nearest about
+   1.4). A miss stops the run;
 4. the serving slice at n=18, 5 layers: the bench ansatz (rx/rz/rx per
    wire plus a CNOT ring, X string on all wires) through the public
    QubitCircuit API on the default device (the card) at complex64 with
@@ -133,6 +138,11 @@ PEAK_BYTES_S = 3.35e12       # device memory
 PEAK_FP32_S = 67e12          # float32 outside the tensor cores
 PEAK_FP64_S = 34e12          # float64 outside the tensor cores
 PEAK_TF32_S = 495e12         # TF32 on the tensor cores (dense)
+PEAK_FP64_TC_S = 67e12       # FP64 on the tensor cores (DMMA, dense)
+# the window kernels under depth: the kernel against the twin run in float64
+# at the deepest walk, and the growth of that error from the shallower walk
+DEPTH_BAR = 5e-6
+DEPTH_RATIO = 1.6
 
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
     'planar_apply': ('deepquantum_tpu_torch/csrc/planar_apply.cu',
@@ -162,6 +172,9 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
     'planar_bwd_fused_batched': ('deepquantum_tpu_torch/csrc/planar_bwd_fused.cu',
                                  'deepquantum_tpu/ops/planar_gate.py:687'),
 }
+# the kernel functions of csrc/, as the profiler names them
+PORT_KERNEL = (r'\(anonymous namespace\)::(planar_apply|planar_grad|planar_bwd_fused|window_apply|'
+               r'window_chain_fwd|window_chain_bwd|ryser|tor_lu)_kernel\b')
 BATCHED = {'planar_apply_batched': 'planar_apply', 'planar_grad_batched': 'planar_grad',
            'planar_bwd_fused_batched': 'planar_bwd_fused'}
 GATE_WIRE_SETS = [(0,), (21,), (10,), (0, 1), (3, 17), (20, 21), (0, 10, 21), (5, 6, 7)]
@@ -334,20 +347,20 @@ def _randn_state(n: int, rng, device):
     return torch.as_tensor(rng.standard_normal((2, 1 << n), dtype=np.float32), device=device)
 
 
-def tf32x3_bounds(nbytes: float, flops: float) -> dict:
-    """K2 and K4 run their float32 products as three TF32 products on the
-    tensor cores: bound_ms is that route's bound (3 x the operations at the
-    TF32 peak, or the bytes), bound_fp32_ms the bound on the FP32 CUDA cores
-    that the first designs were held to."""
-    fp32 = bound(nbytes, flops)
-    tc = bound(nbytes, 3 * flops, PEAK_TF32_S)
-    return dict(tc, bound_fp32_ms=fp32['bound_ms'], bound_fp32_by=fp32['bound_by'])
+def window_bounds(nbytes: float, flops: float) -> dict:
+    """K2, K3 and K4 run their float32 products on the FP64 tensor cores
+    (csrc/window_mma.cuh): bound_ms is the operations at the DMMA peak or
+    the bytes; bound_tf32x3_ms is what the 3xTF32 body (3 x the operations
+    at the TF32 peak) would be held to."""
+    tf32 = bound(nbytes, 3 * flops, PEAK_TF32_S)
+    return dict(bound(nbytes, flops, PEAK_FP64_TC_S), bound_tf32x3_ms=tf32['bound_ms'],
+                bound_tf32x3_by=tf32['bound_by'])
 
 
 def _shares(r: dict) -> str:
-    return (f'bound {r["bound_ms"]:.4f} ms 3xTF32 ({r["bound_by"]}, {r["bound_ms"] / r["ms"]:.0%}), '
-            f'{r["bound_fp32_ms"]:.4f} ms FP32 ({r["bound_fp32_by"]}, '
-            f'{r["bound_fp32_ms"] / r["ms"]:.0%})')
+    return (f'bound {r["bound_ms"]:.4f} ms on the FP64 tensor cores ({r["bound_by"]}, '
+            f'{r["bound_ms"] / r["ms"]:.0%}), {r["bound_tf32x3_ms"]:.4f} ms in 3xTF32 '
+            f'({r["bound_tf32x3_by"]}, {r["bound_tf32x3_ms"] / r["ms"]:.0%})')
 
 
 def _hold(name: str, err: float, bar: float):
@@ -387,6 +400,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def build():
+    """Build the kernels and print the build time and each kernel's
+    registers and spills."""
     from deepquantum_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     path = _cuda.build()
@@ -623,7 +638,7 @@ def check_window_kernels(results: dict, rng, rng_g):
     _hold('window_apply library call', e_lib, 1e-5)
     tl, _ = time_ms(lambda: torch.matmul(block, x.view(256, cols)))
     win_flops = 8 * 128 * 128               # a complex 128 x 128 product per column
-    bnd = tf32x3_bounds(2 * 2 * (1 << n) * 4 + 2 * 128 * 128 * 4, cols * win_flops)
+    bnd = window_bounds(2 * 2 * (1 << n) * 4 + 2 * 128 * 128 * 4, cols * win_flops)
     results['window_apply'] = dict(max_abs_err=d, rel_err=e, plane_rel_err=None, ms=tk,
                                    plain_ms=tp, library_ms=tl, shape=f'n={n}', **bnd)
     print(f'window_apply n={n}: rel err {e:.2e}, kernel {tk:.4f} ms, twin {tp:.4f} ms, '
@@ -650,12 +665,19 @@ def check_window_kernels(results: dict, rng, rng_g):
     e, d = rel_err(y, ref)
     tk, _ = time_ms(lambda: ck.window_chain_fwd(x, mres, mims, n, wseq))
     tp, _ = time_ms(lambda: ck.window_chain_plain(x, mres, mims, n, wseq))
-    bnd = bound(2 * state_bytes + stack_bytes, n_win * cols * win_flops)
-    print(f'window_chain_fwd n={n} ({steps}): rel err {e:.2e}, kernel {tk:.4f} ms, '
-          f'twin {tp:.4f} ms, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
-    _hold('window_chain_fwd', e, 1e-5)
+    bnd = window_bounds(2 * state_bytes + stack_bytes, n_win * cols * win_flops)
+    rows = ck._merged_rows(ck._step_table(wseq, n)[0], n)
+    # a barrier between two rows unless both are windows, none after the last
+    barriers = sum(1 for a, b in zip(rows, rows[1:]) if not a[0] == b[0] == 1)
+    t_dev = _device_ms(lambda: ck.window_chain_fwd(x, mres, mims, n, wseq), 'window_chain_fwd')
     results['window_chain_fwd'] = dict(max_abs_err=d, rel_err=e, plane_rel_err=None, ms=tk,
-                                       plain_ms=tp, shape=f'n={n}, {len(wseq)} steps', **bnd)
+                                       plain_ms=tp, device_ms=t_dev, table_barriers=barriers,
+                                       shape=f'n={n}, {len(wseq)} steps', **bnd)
+    print(f'window_chain_fwd n={n} ({steps}; {len(rows)} table rows, so {barriers} grid '
+          f'barriers): rel err {e:.2e}, kernel {tk:.4f} ms through the wrapper ({t_dev:.4f} ms '
+          f'device time alone, profiler), twin {tp:.4f} ms, '
+          f'{_shares(results["window_chain_fwd"])}')
+    _hold('window_chain_fwd', e, 1e-5)
 
     # K4: y is the forward's output, g a random cotangent
     g = _randn_state(n, rng_g, dev)
@@ -678,14 +700,14 @@ def check_window_kernels(results: dict, rng, rng_g):
     tp, _ = time_ms(lambda: ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq))
     # per window: W^H y and W^H g, and four real (128 x cols)(cols x 128) products
     dw_flops = 4 * 2 * 128 * 128 * cols
-    bnd = tf32x3_bounds(4 * state_bytes + 2 * stack_bytes,
+    bnd = window_bounds(4 * state_bytes + 2 * stack_bytes,
                         n_win * (2 * cols * win_flops + dw_flops))
     again = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for dk, dr in zip(got[2:], again[2:]) for a, b in zip(dk, dr)
                if a is not None):
         raise AssertionError('window_chain_bwd: two launches give different dW')
-    rows = ck._bwd_rows(ck._step_table(wseq, n, backward=True)[0], n)
+    rows = ck._merged_rows(ck._step_table(wseq, n, backward=True)[0], n)
     barriers = len(rows) - (rows[-1][0] == 0)
     t_dev = _device_ms(lambda: ck.window_chain_bwd(y, g, mres, mims, n, wseq), 'window_chain_bwd')
     results['window_chain_bwd'] = dict(max_abs_err=max(d, pd), rel_err=e, plane_rel_err=pe, ms=tk,
@@ -696,8 +718,9 @@ def check_window_kernels(results: dict, rng, rng_g):
           f'kernel {tk:.4f} ms through the wrapper ({t_dev:.4f} ms device time alone, profiler), '
           f'twin {tp:.4f} ms, {_shares(results["window_chain_bwd"])}')
     for n_other, sms in ((14, None), (19, None), (19, 114)):
-        check_chain_bwd_size(n_other, sms)
-    results['window_chain_bwd']['depth'] = check_chain_bwd_depth()
+        check_chain_size(n_other, sms)
+    for name, rows in check_window_depth().items():
+        results[name]['depth'] = rows
 
 
 def check_window_apply_sizes(row: dict):
@@ -726,30 +749,41 @@ def check_window_apply_sizes(row: dict):
         _hold(f'window_apply n={n}, non-unitary W', e, 1e-6)
 
 
-def check_chain_bwd_size(n: int, sms=None):
-    """Phase 3, K4 at another n on the bench sequence (2 layers; its windows
-    and relabels): states and dW <= 1e-5 of the twin. With ``sms`` the grid
-    fills that many SMs only (114, an H100 PCIe's count, gives n=19's 128
-    column tiles to 114 blocks, so some blocks walk two tiles), and two
-    launches must give bitwise-equal results."""
-    import torch
+def _chain_sequence(n: int, layers: int):
+    """The bench ansatz's window sequence at n (its windows and relabels;
+    n=14's plan also has per-gate steps), as (mres, mims, wseq)."""
     ck = _pkg()[3]
-    dev = torch.device('cuda')
-    cir = bench_circuit(n, layers=2)
+    cir = bench_circuit(n, layers=layers)
     mres, mims, wseq = cir._planar_seq(cir._full_params())
     keep = [i for i, st in enumerate(wseq) if st[0] in ('win', 'rot')]
     mres, mims, wseq = [mres[i] for i in keep], [mims[i] for i in keep], tuple(wseq[i] for i in keep)
     if not ck.chain_fused_ok(wseq, n, mres):
-        raise AssertionError(f'window_chain_bwd n={n}: the sequence does not qualify')
+        raise AssertionError(f'the n={n} bench sequence, {layers} layers, does not qualify')
+    return mres, mims, wseq
+
+
+def check_chain_size(n: int, sms=None):
+    """Phase 3, K3 and K4 at another n on the bench sequence (2 layers; its
+    windows and relabels): states and dW <= 1e-5 of the twin. With ``sms``
+    the grid fills that many SMs only (114, an H100 PCIe's count, gives
+    n=19's 128 column tiles to 114 blocks, so some blocks walk two tiles),
+    and two launches of K4 must give bitwise-equal results."""
+    import torch
+    ck = _pkg()[3]
+    dev = torch.device('cuda')
+    mres, mims, wseq = _chain_sequence(n, 2)
     rng = np.random.default_rng(SEED + 4 + n)
-    y = ck.window_chain_plain(_randn_state(n, rng, dev), mres, mims, n, wseq)
+    x = _randn_state(n, rng, dev)
+    y = ck.window_chain_plain(x, mres, mims, n, wseq)
     g = _randn_state(n, rng, dev)
     ref = ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
     if sms is None:
+        fwd = ck.window_chain_fwd(x, mres, mims, n, wseq)
         got = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
     else:
         if ck._bwd_slots(n, sms) <= sms:
-            raise AssertionError(f'window_chain_bwd n={n} on {sms} SMs: no block walks two tiles')
+            raise AssertionError(f'window chains n={n} on {sms} SMs: no block walks two tiles')
+        fwd = ck._window_chain_fwd_cuda(x, mres, mims, n, wseq, sms=sms)
         got = ck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
         again = ck._window_chain_bwd_cuda(y, g, mres, mims, n, wseq, sms=sms)
         if not all(torch.equal(a, b) for a, b in zip(got[:2] + tuple(got[2] + got[3]),
@@ -757,66 +791,110 @@ def check_chain_bwd_size(n: int, sms=None):
                    if a is not None):
             raise AssertionError(f'window_chain_bwd n={n} on {sms} SMs: two launches differ')
     torch.cuda.synchronize()
+    ef = rel_err(fwd, y)[0]
     e = max(rel_err(got[0], ref[0])[0], rel_err(got[1], ref[1])[0])
     pe = max(rel_err(a, b)[0] for dk, dr in zip(got[2:], ref[2:]) for a, b in zip(dk, dr)
              if b is not None)
-    where = '' if sms is None else (f' on {sms} SMs, {ck._bwd_slots(n, sms)} column tiles, '
-                                    'bitwise equal over two launches')
+    where = '' if sms is None else (f' on {sms} SMs, {ck._bwd_slots(n, sms)} column tiles')
+    print(f'window_chain_fwd n={n} ({len(wseq)} steps{where}): rel err {ef:.2e}')
+    print(f'window_chain_bwd n={n} ({len(wseq)} steps{where}'
+          f'{"" if sms is None else ", bitwise equal over two launches"}): state rel err '
+          f'{e:.2e}, dW rel err {pe:.2e}')
+    _hold(f'window_chain_fwd n={n}{where}', ef, 1e-5)
     _hold(f'window_chain_bwd n={n}{where} states', e, 1e-5)
     _hold(f'window_chain_bwd n={n}{where} dW', pe, PLANE_BAR)
-    print(f'window_chain_bwd n={n} ({len(wseq)} steps{where}): state rel err {e:.2e}, '
-          f'dW rel err {pe:.2e}')
 
 
-def check_chain_bwd_depth(n: int = 18, layer_counts=(10, 20)):
-    """Phase 3, K4 under depth: the bench ansatz's window sequence at n=18
-    with 10 and 20 layers, its states and dW against the twin (bars 1e-5),
-    and both against the twin in float64, which tells the kernel's share of
-    the difference from the twin's. The verdict against the bar is printed
-    and recorded in the kernels' JSON line; it does not stop the run, since
-    the main paths never walk this deep (5 layers, held above at the bar).
-    Non-finite output stops it."""
+def _walk_window_apply(x, mres, mims, n: int, wseq):
+    """The chain walked by K2 window by window, with the twin's relabels."""
+    from deepquantum_tpu_torch.ops.planar_gate import _rotate_planar
+    wg = _pkg()[2]
+    x = x.clone()
+    for mre, mim, st in zip(mres, mims, wseq):
+        if st[0] == 'win':
+            wg.window_apply(x, mre, mim, n, st[1])
+        else:
+            x = _rotate_planar(x, st[1], n)
+    return x
+
+
+def check_window_depth(n: int = 18, layer_counts=(10, 20)) -> dict:
+    """Phase 3, the window kernels under depth: the bench ansatz's window
+    sequence at n=18 with 10 and 20 layers, walked forward by K3, by K2
+    window by window (the twin's relabels between), and backward by K4. Each
+    against the float32 twin (states <= 1e-5, dW <= PLANE_BAR) and, with the
+    twin, against the twin run in float64: the kernel's own error, <=
+    DEPTH_BAR at the deepest walk and grown by at most DEPTH_RATIO from the
+    shallower one (a bias that grows with the windows gives 2.0, rounding to
+    nearest about sqrt(2)). A miss stops the run. Returns {kernel: [one row
+    per layer count]}."""
     import torch
     ck = _pkg()[3]
     dev = torch.device('cuda')
-    rows = []
+    out = {'window_apply': [], 'window_chain_fwd': [], 'window_chain_bwd': []}
+
+    def errs(a, b):
+        return max(rel_err(p.double(), q.double())[0] for p, q in zip(a, b) if q is not None)
+
     for layers in layer_counts:
-        cir = bench_circuit(n, layers=layers)
-        mres, mims, wseq = cir._planar_seq(cir._full_params())
-        keep = [i for i, st in enumerate(wseq) if st[0] in ('win', 'rot')]
-        mres, mims = [mres[i] for i in keep], [mims[i] for i in keep]
-        wseq = tuple(wseq[i] for i in keep)
-        if not ck.chain_fused_ok(wseq, n, mres):
-            raise AssertionError(f'window_chain_bwd n={n}, {layers} layers: does not qualify')
+        mres, mims, wseq = _chain_sequence(n, layers)
         n_win = sum(1 for st in wseq if st[0] == 'win')
+        d64 = [[None if m is None else m.double() for m in ms] for ms in (mres, mims)]
         rng = np.random.default_rng(SEED + 40 + layers)
-        y = ck.window_chain_plain(_randn_state(n, rng, dev), mres, mims, n, wseq)
+        x = _randn_state(n, rng, dev)
+        y = ck.window_chain_plain(x, mres, mims, n, wseq)
         g = _randn_state(n, rng, dev)
+        y64 = ck.window_chain_plain(x.double(), *d64, n, wseq)
+        walks = {'window_chain_fwd': ck.window_chain_fwd(x, mres, mims, n, wseq),
+                 'window_apply': _walk_window_apply(x, mres, mims, n, wseq)}
         got = ck.window_chain_bwd(y, g, mres, mims, n, wseq)
         ref = ck.window_chain_bwd_plain(y, g, mres, mims, n, wseq)
-        d64 = [[None if m is None else m.double() for m in ms] for ms in (mres, mims)]
         exact = ck.window_chain_bwd_plain(y.double(), g.double(), *d64, n, wseq)
         torch.cuda.synchronize()
+        for name, st in walks.items():
+            if not torch.isfinite(st).all():
+                raise AssertionError(f'{name} n={n}, {layers} layers: non-finite output')
+            out[name].append(dict(layers=layers, windows=n_win, state_rel_err=errs([st], [y]),
+                                  kernel_vs_float64=[errs([st], [y64])],
+                                  twin_vs_float64=[errs([y], [y64])]))
         if not all(torch.isfinite(t).all() for t in got[:2]):
             raise AssertionError(f'window_chain_bwd n={n}, {layers} layers: non-finite output')
-
-        def errs(a, b):
-            st = max(rel_err(a[0].double(), b[0].double())[0],
-                     rel_err(a[1].double(), b[1].double())[0])
-            dw = max(rel_err(p.double(), q.double())[0] for dk, dr in zip(a[2:], b[2:])
-                     for p, q in zip(dk, dr) if q is not None)
-            return st, dw
-
-        (e, pe), (ke, kpe), (te, tpe) = errs(got, ref), errs(got, exact), errs(ref, exact)
-        holds = e <= 1e-5 and pe <= PLANE_BAR
-        print(f'window_chain_bwd n={n}, {layers} layers ({len(wseq)} steps, {n_win} windows): '
-              f'against the twin states {e:.2e}, dW {pe:.2e} (bars 1e-5, {PLANE_BAR:.0e}: '
-              f'{"holds" if holds else "FAILS"}); against the float64 twin: kernel {ke:.2e} / '
-              f'{kpe:.2e}, float32 twin {te:.2e} / {tpe:.2e}')
-        rows.append(dict(layers=layers, windows=n_win, state_rel_err=e, dw_rel_err=pe,
-                         holds_bar=holds, kernel_vs_float64=[ke, kpe],
-                         twin_vs_float64=[te, tpe]))
-    return rows
+        out['window_chain_bwd'].append(dict(
+            layers=layers, windows=n_win, state_rel_err=errs(got[:2], ref[:2]),
+            dw_rel_err=errs(got[2] + got[3], ref[2] + ref[3]),
+            kernel_vs_float64=[errs(got[:2], exact[:2]), errs(got[2] + got[3], exact[2] + exact[3])],
+            twin_vs_float64=[errs(ref[:2], exact[:2]), errs(ref[2] + ref[3], exact[2] + exact[3])]))
+    for name, rows in out.items():
+        first, last = rows[0], rows[-1]
+        for r in rows:
+            r['holds_bar'] = r['state_rel_err'] <= 1e-5 and r.get('dw_rel_err', 0) <= PLANE_BAR
+        growth = [b / a for a, b in zip(first['kernel_vs_float64'], last['kernel_vs_float64'])]
+        last['growth'] = dict(from_layers=first['layers'], factor=growth)
+        last['holds_depth_bar'] = max(last['kernel_vs_float64']) <= DEPTH_BAR \
+            and max(growth) <= DEPTH_RATIO
+        for r in rows:
+            what = 'states / dW' if 'dw_rel_err' in r else 'states'
+            twin = [r['state_rel_err']] + ([r['dw_rel_err']] if 'dw_rel_err' in r else [])
+            print(f'{name} n={n}, {r["layers"]} layers ({r["windows"]} windows): {what} against '
+                  f'the twin {" / ".join(f"{v:.2e}" for v in twin)} (bar 1e-5: '
+                  f'{"holds" if r["holds_bar"] else "FAILS"}); against the float64 twin: kernel '
+                  f'{" / ".join(f"{v:.2e}" for v in r["kernel_vs_float64"])}, float32 twin '
+                  f'{" / ".join(f"{v:.2e}" for v in r["twin_vs_float64"])}')
+        print(f'{name} n={n}: kernel error against float64 grew x'
+              f'{" / ".join(f"{v:.2f}" for v in growth)} from {first["layers"]} to '
+              f'{last["layers"]} layers (bars: {DEPTH_BAR:.0e} at {last["layers"]}, '
+              f'x{DEPTH_RATIO}: {"holds" if last["holds_depth_bar"] else "FAILS"})')
+    for name, rows in out.items():
+        for r in rows:
+            _hold(f'{name} n={n}, {r["layers"]} layers, states', r['state_rel_err'], 1e-5)
+            if 'dw_rel_err' in r:
+                _hold(f'{name} n={n}, {r["layers"]} layers, dW', r['dw_rel_err'], PLANE_BAR)
+        last = rows[-1]
+        if not last['holds_depth_bar']:
+            raise AssertionError(f'{name} n={n}: against float64 '
+                                 f'{last["kernel_vs_float64"]} at {last["layers"]} layers, '
+                                 f'growth {last["growth"]}; bars {DEPTH_BAR}, x{DEPTH_RATIO}')
+    return out
 
 
 def _device_ms(fn, name: str, calls: int = 5) -> float:
@@ -1783,12 +1861,17 @@ def _device_profile(step, steps: int) -> dict:
         elif ev.key == 'cudaLaunchKernel':
             launch_us = ev.self_cpu_time_total
     by_name.sort(reverse=True)
+
+    def row(t, c, k):
+        return dict(name=k[:90], ms_per_step=t / 1e3 / steps, calls_per_step=c / steps)
+
     return dict(
         profiled_range_host_ms_per_step=ranges,
         device_ms_per_step=dev_us / 1e3 / steps, device_ops_per_step=dev_ops / steps,
         cuda_launch_cpu_ms_per_step=launch_us / 1e3 / steps,
-        top_kernels=[dict(name=k[:90], ms_per_step=t / 1e3 / steps, calls_per_step=c / steps)
-                     for t, c, k in by_name[:12]])
+        top_kernels=[row(*r) for r in by_name[:12]],
+        # the port's own kernels (csrc/), all of them
+        port_kernels=[row(*r) for r in by_name if re.search(PORT_KERNEL, r[2])])
 
 
 def profile_photonic(card: str) -> dict:
@@ -1927,11 +2010,11 @@ def main() -> int:
                             **{k: r[k] for k in ('device_ms', 'non_unitary_rel_err', 'depth',
                                                  'shared_planes_ms', 'shared_planes_rel_err')
                                if k in r}))
-    # computed, not measured: the FP32 bounds from the inputs as bound_ms is,
-    # and K4's barriers from its step table (one per row, less a final relabel)
-    derived = {name: {k: results[name][k] for k in ('bound_fp32_ms', 'bound_fp32_by',
+    # computed, not measured: the window body's alternative bounds from the
+    # inputs as bound_ms is, and the chains' barriers from their step tables
+    derived = {name: {k: results[name][k] for k in ('bound_tf32x3_ms', 'bound_tf32x3_by',
                                                     'table_barriers') if k in results[name]}
-               for name in ('window_apply', 'window_chain_bwd')}
+               for name in ('window_apply', 'window_chain_fwd', 'window_chain_bwd')}
     print(f'derived from the inputs and the step table, not measured: {json.dumps(derived)}')
     print(f'total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))

@@ -6,28 +6,25 @@
 // (Pallas; body _window_kernel).
 //
 // Bound on the H100: each column of 128 complex amplitudes moves 2 KiB
-// (read + write) for 4 * 2 * 128^2 = 131k flops. On the FP32 CUDA cores
-// (67 TFLOP/s) that is 0.256 ms at n = 24, against 0.080 ms for the bytes;
-// the first design (an FMA loop that re-staged W for every 32-column tile)
-// reached half of that and lost to one cuBLAS float32 matmul. This design
-// moves the products to the tensor cores in 3xTF32 (window_mma.cuh: three
-// TF32 products per real product, FP32 sums), whose bound is
-// 3 * 17.2 GFLOP / 495 TFLOP/s = 0.104 ms at n = 24, so the bytes and the
-// tensor cores are now within a factor of 1.3 of each other:
+// (read + write) for 4 * 2 * 128^2 = 131k flops, 17.2 GFLOP at n = 24
+// against 0.080 ms for the bytes. The first design (an FMA loop on the FP32
+// CUDA cores that re-staged W for every 32-column tile) reached half of its
+// 0.256 ms bound and lost to one cuBLAS float32 matmul. The second design
+// moved the products to the tensor cores in 3xTF32 (bound 0.104 ms), whose sums the
+// tensor core truncates: a bias that grows with every window a state walks
+// (window_mma.cuh). The body is now the FP64 tensor cores (DMMA, 67 TFLOP/s:
+// 0.256 ms at n = 24, operations bound), exact products and f64 sums:
 //
 // - a persistent grid of one block per SM; each block copies W (both
 //   float32 planes, 128 KB) into shared memory ONCE and keeps it for all of
 //   its tiles;
 // - the block's 32-column tiles stream through a ring of two stages with
 //   cp.async, so the next tile loads while the current one multiplies;
-// - each warp owns 16 rows of W and all 32 columns of the tile and splits
-//   its operands into TF32 hi / lo as they leave shared memory;
-// - the result goes from the accumulators straight back over the tile's
-//   columns in device memory.
-// mma.sync itself runs at 319 TFLOP/s on the H100 (tools/mma_rate.py), so
-// 0.162 ms is the bound of this instruction at n = 24. Splitting each tile
-// once per block instead of once per warp (a third tile of lo in shared
-// memory) did not make the kernel faster.
+// - each warp owns 16 rows of W and all 32 columns of the tile and widens
+//   its operands to f64 as they leave shared memory;
+// - the result, rounded once to float32, goes from the accumulators straight
+//   back over the tile's columns in device memory.
+// tools/mma_rate.py measures the DMMA instruction's own rate on the card.
 
 #include "window_mma.cuh"
 
@@ -61,12 +58,11 @@ window_apply_kernel(const float* __restrict__ wre, const float* __restrict__ wim
     dq::mma::cp_async_commit();
     dq::mma::cp_async_wait<1>();   // W and this tile have landed
     __syncthreads();
-    const float* const xs[1] = {stages + (i % kStages) * Tile::kFloats};
-    float acc[1][kTileCols / 8][2][4];
-    dq::mma::window_product<kTileCols, 1>(ws, xs, acc);
+    double acc[kTileCols / 8][2][4];
+    dq::mma::window_product<kTileCols>(ws, stages + (i % kStages) * Tile::kFloats, acc);
     // in place is safe: only this block reads these columns, and it has
     // staged them; the load in flight is another tile's
-    dq::mma::store_product<kTileCols>(acc[0], x, N, R, tile * kTileCols);
+    dq::mma::store_product<kTileCols>(acc, x, N, R, tile * kTileCols);
     __syncthreads();   // the stage is free for the load issued next
   }
   dq::mma::cp_async_wait<0>();

@@ -11,26 +11,30 @@
 //
 // Bound on the H100: per window 2 x 2^(n-7) columns x 131k flop for the two
 // W^H products and 4 real (128 x R)(R x 128) products for dW, 26.6 GFLOP at
-// n = 18 with the bench sequence: 0.397 ms on the FP32 CUDA cores, 0.161 ms
-// on the tensor cores in 3xTF32; the states (at most 4 x 4 MiB) stay in the
-// 50 MB L2. The first design reached 8 % of the FP32 bound: its dW phase
-// was tiled over 128 output patches, so half of the grid idled while each
-// patch streamed 393 KB of states in FP32 FMA, every work item re-staged
-// the 128 KB W^H, and it took 119 grid-wide barriers. This design:
+// n = 18 with the bench sequence: 0.397 ms on the FP64 tensor cores this
+// body runs (67 TFLOP/s; the FP32 CUDA cores have the same peak), 0.161 ms
+// in 3xTF32 (the earlier body, which truncated its sums and missed the 1e-5 bar
+// from 10 layers on: window_mma.cuh); the states (at most 4 x 4 MiB) stay
+// in the 50 MB L2. The first design reached 8 % of the FP32 bound: its dW
+// phase was tiled over 128 output patches, so half of the grid idled while
+// each patch streamed 393 KB of states in FP32 FMA, every work item
+// re-staged the 128 KB W^H, and it took 119 grid-wide barriers. This design:
 //
 // - Window step, one pass per block and no barrier inside: a block owns a
 //   tile of TC columns (16, or 32 when 16-column tiles would outnumber the
 //   blocks). It stages W^H once (the wrapper hands over the
 //   (W_re^T, -W_im^T) stacks, so W^H is a plain window product) and both
-//   its y tile and its g tile, runs x = W^H y and g' = W^H g on the tensor
-//   cores (window_mma.cuh, 3xTF32, one pass over W^H for both), writes both
-//   back in place (its columns are its own; the old g stays in shared
-//   memory), and forms its share of dW = g_old x_new^H from the same
-//   shared tiles on the tensor cores: a rank-TC product into 128 registers
-//   a thread, written to the block's slot of a partial buffer. Where the
-//   tiles outnumber the grid (n = 19 on a card of fewer than 128 SMs), a
-//   block takes tiles blockIdx.x, + gridDim.x, ... in turn, keeps W^H, and
-//   adds each tile's product onto its slot in that order.
+//   its y tile and its g tile, runs x = W^H y, then g' = W^H g, on the
+//   tensor cores (window_mma.cuh: f64 operands and sums, one float32
+//   rounding to nearest per result; one state at a time, so that the f64
+//   sums of one state are live), writes both back in place (its columns are
+//   its own; the old g stays in shared memory), and forms its share of
+//   dW = g_old x_new^H from the same shared tiles on the same tensor cores:
+//   a rank-TC product in passes of 32 rows, written to the block's slot of a
+//   partial buffer. Where the tiles outnumber the grid (n = 19 on a card of
+//   fewer than 128 SMs), a block takes tiles blockIdx.x, + gridDim.x, ... in
+//   turn, keeps W^H, and adds each tile's product onto its slot in that
+//   order.
 // - The partials are reduced in a fixed order (slot 0, 1, ...) by all blocks
 //   at the start of the next step, after the barrier that ends the window
 //   step: no barrier of its own, no float atomics, a gradient bitwise equal
@@ -39,9 +43,9 @@
 //   ends on a window.
 // - Relabel step: a run of consecutive relabels arrives as one row (the
 //   wrapper adds the deltas mod n), relabelled by one transpose of the
-//   (2^d, 2^(n-d)) view through shared-memory tiles of 4096 entries (any
-//   1 <= d < n). While it runs, each block that has columns prefetches the
-//   next window's W^H into shared memory with cp.async.
+//   (2^d, 2^(n-d)) view (window_rotate.cuh, shared with K3). While it runs,
+//   each block that has columns prefetches the next window's W^H into
+//   shared memory with cp.async.
 // One barrier per table row: 33 window rows and 33 relabel rows at n = 18
 // on the bench sequence, against 119.
 //
@@ -51,6 +55,7 @@
 #include <cooperative_groups.h>
 
 #include "window_mma.cuh"
+#include "window_rotate.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,71 +66,19 @@ using dq::mma::kThreads;
 using dq::mma::kWFloats;
 using dq::mma::Tile;
 constexpr int64_t kPlane = int64_t(kRows) * kRows;
-constexpr int kRotTile = 4096;   // entries of a relabel's transpose tile
-constexpr int kRotEdge = 64;     // its edge when both sides allow
 
 template <int TC>
 constexpr int smem_bytes() {
   return static_cast<int>(sizeof(float)) * (kWFloats + 2 * Tile<TC>::kFloats);
 }
 
-// the largest padded transpose tile, 2048 x (2 + 1), must fit the g tile
-static_assert(kRotTile / 2 * 3 <= Tile<16>::kFloats, "the transpose tile must fit the g tile");
-
-// The two states (y, g), each two planes viewed as (P, Q) = (2^d, 2^(n-d)),
-// transposed into (ynext, gnext) as (Q, P): the qubit positions rotate left
-// by d. A tile is TI x TJ = 4096 entries: 64 x 64, or P x 4096 / P when P
-// is smaller (Q x 4096 / Q likewise), so that a merged delta far from n / 2
-// still reads and writes runs of at least 256 bytes; each thread keeps 16
-// loads in flight. The blocks of the grid share the tiles. Reads bypass L1:
-// other blocks wrote the states earlier in the launch.
-__device__ void rotate_states(const float* y, float* ynext, const float* g, float* gnext, int n,
-                              int d, float* tile) {
-  constexpr int kEach = kRotTile / kThreads;
-  const int64_t N = int64_t(1) << n;
-  const int64_t P = int64_t(1) << d;
-  const int64_t Q = int64_t(1) << (n - d);
-  const int ti_n = P < kRotEdge   ? static_cast<int>(P)
-                   : Q < kRotEdge ? kRotTile / static_cast<int>(Q)
-                                  : kRotEdge;
-  const int tj_n = kRotTile / ti_n;
-  const int stride = tj_n + 1;   // odd: the column reads of the write phase hit distinct banks
-  const int64_t tiles_q = Q / tj_n;
-  const int64_t per_plane = (P / ti_n) * tiles_q;
-  for (int64_t tt = blockIdx.x; tt < 4 * per_plane; tt += gridDim.x) {
-    const int64_t plane = tt / per_plane;   // y re, y im, g re, g im
-    const int64_t ti = (tt % per_plane) / tiles_q;
-    const int64_t tj = (tt % per_plane) % tiles_q;
-    const float* src = (plane < 2 ? y : g) + (plane % 2) * N + ti * ti_n * Q + tj * tj_n;
-    float* dst = (plane < 2 ? ynext : gnext) + (plane % 2) * N + tj * tj_n * P + ti * ti_n;
-    float v[kEach];
-#pragma unroll
-    for (int u = 0; u < kEach; ++u) {
-      const int e = threadIdx.x + u * kThreads;
-      v[u] = __ldcg(src + (e / tj_n) * Q + e % tj_n);
-    }
-#pragma unroll
-    for (int u = 0; u < kEach; ++u) {
-      const int e = threadIdx.x + u * kThreads;
-      tile[(e / tj_n) * stride + e % tj_n] = v[u];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kEach; ++u) {
-      const int e = threadIdx.x + u * kThreads;
-      const int j = e / ti_n;
-      const int i = e % ti_n;
-      dst[j * P + i] = tile[i * stride + j];
-    }
-    __syncthreads();
-  }
-}
+static_assert(dq::kRotSmemFloats <= Tile<16>::kFloats, "the transpose tile must fit the g tile");
 
 // The new x of the tile, from the y product's accumulators, into xs as
 // [2][128][TC + 4] (this stride keeps the dW product's reads of it free of
 // bank conflicts).
 template <int TC>
-__device__ __forceinline__ void stash_x(const float (&acc)[TC / 8][2][4], float* xs) {
+__device__ __forceinline__ void stash_x(const double (&acc)[TC / 8][2][4], float* xs) {
   constexpr int XS = TC + 4;
   static_assert(2 * kRows * XS <= Tile<TC>::kFloats, "the x tile must fit the y tile");
   const int lane = threadIdx.x % 32;
@@ -139,79 +92,77 @@ __device__ __forceinline__ void stash_x(const float (&acc)[TC / 8][2][4], float*
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float* at = xs + (p * kRows + m0 + g + 8 * h) * XS + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(at) = make_float2(acc[j][p][2 * h], acc[j][p][2 * h + 1]);
+        *reinterpret_cast<float2*>(at) =
+            make_float2(float(acc[j][p][2 * h]), float(acc[j][p][2 * h + 1]));
       }
 }
 
-// This block's share of dW = g x^H over the TC columns of its tile, in
-// 3xTF32 on the tensor cores: A = the old g tile (gs, [2][128][TC + 8]),
+// This block's share of dW = g x^H over the TC columns of its tile, on the
+// window body's tensor cores: A = the old g tile (gs, [2][128][TC + 8]),
 // B[k][j] = x[j][k] (xs, [2][128][TC + 4]). Warp w owns dW rows
-// 64 (w / 4) .. + 64 and columns 32 (w % 4) .. + 32, one plane after the
-// other (64 sums a thread):
+// 64 (w / 4) .. + 64 and columns 32 (w % 4) .. + 32 of each plane, taken
+// in passes of 32 rows (32 f64 sums a thread):
 //   dWre = gr xr^T + gi xi^T,  dWim = gi xr^T + (-gr) xi^T.
 // The result goes to `out` ([2][128][128]) or, with `add`, onto it.
 template <int TC>
 __device__ __forceinline__ void dw_partial(const float* gs, const float* xs, float* out, bool add) {
   constexpr int GS = Tile<TC>::kStride;
   constexpr int XS = TC + 4;
+  constexpr int kMt = 2;                // 16-row tiles a pass
+  constexpr int kPasses = 4 / kMt;      // passes a plane
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
   const int i0 = (threadIdx.x / 32 / 4) * 64;
   const int j0 = (threadIdx.x / 32 % 4) * 32;
 #pragma unroll 1
-  for (int p = 0; p < 2; ++p) {
+  for (int pass = 0; pass < 2 * kPasses; ++pass) {
+    const int p = pass / kPasses;       // 0: dWre, 1: dWim
+    const int r0 = i0 + (pass % kPasses) * kMt * 16;
     // A for the xr and the xi products: (gr, gi) for dWre, (gi, -gr) for dWim
     const float* ga = gs + (p ? kRows * GS : 0);
     const float* gb = gs + (p ? 0 : kRows * GS);
-    const float sb = p ? -1.f : 1.f;
-    float acc[4][4][4];
+    double acc[kMt][4][4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
     // k is not unrolled, so that one k-step's operands are live at a time
 #pragma unroll 1
     for (int k0 = 0; k0 < TC; k0 += 8) {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        float aah[4], aal[4], abh[4], abl[4];
-        const int row = (i0 + mt * 16 + g) * GS + k0 + t;
+      for (int mt = 0; mt < kMt; ++mt) {
+        double aa[4], ab[4];
+        const int row = (r0 + mt * 16 + g) * GS + k0 + t;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int off = row + (q & 1) * 8 * GS + (q >> 1) * 4;
-          dq::mma::split(ga[off], aah[q], aal[q]);
-          dq::mma::split(sb * gb[off], abh[q], abl[q]);
+          aa[q] = ga[off];
+          ab[q] = p ? -gb[off] : gb[off];
         }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const float* xr = xs + (j0 + nt * 8 + g) * XS + k0 + t;
           const float* xi = xr + kRows * XS;
-          float xrh[2], xrl[2], xih[2], xil[2];
-          dq::mma::split(xr[0], xrh[0], xrl[0]);
-          dq::mma::split(xr[4], xrh[1], xrl[1]);
-          dq::mma::split(xi[0], xih[0], xil[0]);
-          dq::mma::split(xi[4], xih[1], xil[1]);
-          float step[4] = {};
-          dq::mma::mma3(step, aah, aal, xrh, xrl);
-          dq::mma::mma3(step, abh, abl, xih, xil);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += step[q];
+          const double br[2] = {xr[0], xr[4]};
+          const double bi[2] = {xi[0], xi[4]};
+          dq::mma::mma_f64(acc[mt][nt], aa, br);
+          dq::mma::mma_f64(acc[mt][nt], ab, bi);
         }
       }
     }
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float2* at = reinterpret_cast<float2*>(out + p * kPlane +
-                                                 (i0 + mt * 16 + g + 8 * h) * kRows + j0 +
+                                                 (r0 + mt * 16 + g + 8 * h) * kRows + j0 +
                                                  nt * 8 + 2 * t);
-          float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          float2 v = make_float2(float(acc[mt][nt][2 * h]), float(acc[mt][nt][2 * h + 1]));
           if (add) {
             const float2 old = *at;
             v.x += old.x;
@@ -294,15 +245,16 @@ window_chain_bwd_kernel(const int* __restrict__ table, int nstep,
         dq::mma::cp_async_commit();
         dq::mma::cp_async_wait<0>();
         __syncthreads();
-        const float* const xs[2] = {ys, gs};
-        float acc[2][TC / 8][2][4];
-        dq::mma::window_product<TC, 2>(ws, xs, acc);
+        // x = W^H y and g' = W^H g in place, one state after the other:
+        // only this block touches these columns in this step, and the old g
+        // stays in gs for dW
+        double acc[TC / 8][2][4];
+        dq::mma::window_product<TC>(ws, ys, acc);
         __syncthreads();   // every warp is done with the y tile
-        // x = W^H y and g' = W^H g in place: only this block touches these
-        // columns in this step, and the old g stays in gs for dW
-        dq::mma::store_product<TC>(acc[0], ycur, N, R, c0);
-        dq::mma::store_product<TC>(acc[1], gcur, N, R, c0);
-        stash_x<TC>(acc[0], ys);
+        dq::mma::store_product<TC>(acc, ycur, N, R, c0);
+        stash_x<TC>(acc, ys);
+        dq::mma::window_product<TC>(ws, gs, acc);
+        dq::mma::store_product<TC>(acc, gcur, N, R, c0);
         __syncthreads();
         dw_partial<TC>(gs, ys, pbuf, item != blockIdx.x);
         __syncthreads();   // the tiles are reloaded for the next item
@@ -319,7 +271,7 @@ window_chain_bwd_kernel(const int* __restrict__ table, int nstep,
           dq::mma::cp_async_commit();
         }
       }
-      rotate_states(ycur, ynxt, gcur, gnxt, n, table[3 * s + 1], gs);
+      dq::rotate_states(ycur, ynxt, gcur, gnxt, n, table[3 * s + 1], gs);
       float* tmp = ycur;
       ycur = ynxt;
       ynxt = tmp;
@@ -351,7 +303,7 @@ cudaError_t launch(int sms, void** args, int64_t N, int64_t slots, cudaStream_t 
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int64_t items = (N >> 7) / TC;
   int64_t work = items;
-  if (work < 4 * N / kRotTile) work = 4 * N / kRotTile;   // transpose tiles of y and g
+  if (work < 4 * N / dq::kRotTile) work = 4 * N / dq::kRotTile;   // transpose tiles of y and g
   int64_t blocks = int64_t(per_sm) * sms;
   if (blocks > work) blocks = work;
   if ((items < blocks ? items : blocks) > slots) return cudaErrorInvalidValue;

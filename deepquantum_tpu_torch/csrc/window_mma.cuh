@@ -1,32 +1,40 @@
-// The tensor-core window body shared by K2 (window_apply.cu) and K4
-// (window_chain_bwd.cu): y = W x for a tile of columns, W a complex
-// 128 x 128 window held as split float32 planes in shared memory, x the
-// tile of one or two states (both planes) in shared memory. The real work
-// is the block product [[Wr, -Wi], [Wi, Wr]] [xr; xi], run as
+// The tensor-core window body shared by K2 (window_apply.cu), K3
+// (window_chain.cu) and K4 (window_chain_bwd.cu): y = W x for a tile of
+// columns, W a complex 128 x 128 window held as split float32 planes in
+// shared memory, x the tile of one state (both planes) in shared memory.
+// The real work is the block product [[Wr, -Wi], [Wi, Wr]] [xr; xi], run as
 //   yr += Wr xr + (-Wi) xi,   yi += Wi xr + Wr xi.
 //
-// K2 replaces the TPU kernel deepquantum_tpu/ops/window_gate.py::window_apply
-// and K4 deepquantum_tpu/ops/chain_kernel.py::window_chain_bwd; both TPU
-// kernels run these products on the MXU at Precision.HIGHEST. Here they
-// replace the FP32 FMA loop of window_tile.cuh (which K3 keeps). What bounds
-// that loop on the H100 is the CUDA cores' 67 TFLOP/s; the tensor cores do
-// TF32 at 495 TFLOP/s. TF32 keeps 10 mantissa bits, so every operand is
-// split, a = hi + lo with hi = round-to-TF32(a) and lo = a - hi (the tensor
-// core reads the top 10 mantissa bits of lo), and a product is taken as
-// lo*hi + hi*lo + hi*hi with FP32 accumulators (3xTF32): the lost terms are
-// below 2^-21 of |a b|, under float32's own rounding of the 128-term sums.
-// Operands are split as they leave shared memory: hi and lo of both W
-// planes would take 256 KB, more than a block has.
+// K2 replaces deepquantum_tpu/ops/window_gate.py::window_apply, K3 and K4
+// deepquantum_tpu/ops/chain_kernel.py::window_chain_fwd / window_chain_bwd;
+// the TPU kernels run these products on the MXU at Precision.HIGHEST.
 //
-// The instruction is mma.sync.m16n8k8 (TF32 in, FP32 out), not wgmma:
-// wgmma reads B from shared memory in its own swizzled layout, so the
-// split operands would first have to be written back there (two extra
-// planes per operand, which do not fit beside W), and its 64-row tiles
-// want four warps per product where this body gives each warp 16 rows of
-// its own. mma.sync takes its operands from registers, which is where the
-// split puts them.
+// The body: FP64 tensor cores (DMMA), mma.sync.m16n8k8 with f64 operands
+// and f64 sums. Every float32 operand is widened to f64 as it leaves shared
+// memory (exact), the product of two float32 values is exact in f64 and the
+// sums run in f64, so the only rounding of a window product is the one
+// float32 rounding, to nearest, of each result. That rounding is unbiased:
+// over a walk of L windows the error grows like sqrt(L).
 //
-// Fragment layouts of m16n8k8 (PTX ISA), lane = 4 g + t:
+// The body it replaces ran each real product as three TF32 products
+// (3xTF32: a = hi + lo, lo*hi + hi*lo + hi*hi) with float32 sums. The tensor
+// core does not round its float32 sums to nearest: it aligns the products
+// to the largest exponent among them and C, drops the low bits toward zero
+// and truncates the result (Fasi, Higham, Mikaitis and Pranesh, PeerJ
+// Computer Science 2021). Six mma.sync chained through C per 8-deep step
+// shrank every result by a fraction of an ulp in the same direction, a bias
+// that grew linearly with the windows walked: K4 missed its 1e-5 bar from 10
+// layers on at n=18 (tests/test_torch_tf32.py emulates it). 3xTF32 with
+// every mma started from a zero fragment and added in float32 still grew
+// x1.88 from 10 to 20 layers on the card, against x1.40 for this body, and
+// was slower on K2, K3 and K4 (PERF.md, rows 4-6).
+//
+// Cost: DMMA peaks at 67 TFLOP/s on the H100 SXM against 495 / 3 for
+// 3xTF32, one instruction where there were three, and no operand split.
+// mma.sync is the only route to the FP64 tensor cores (wgmma has no f64).
+//
+// Fragment layouts of m16n8k8 (PTX ISA; the same for .tf32 and .f64),
+// lane = 4 g + t:
 //   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g)
 //   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
@@ -57,44 +65,13 @@ struct Tile {
   static constexpr int kFloats = 2 * kRows * kStride;
 };
 
-// round to nearest at 10 mantissa bits (ties away from zero); the low 13
-// bits of the result are zero, which is what the tensor core reads
-__device__ __forceinline__ float tf32_round(float a) {
-  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
-}
-
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  hi = tf32_round(a);
-  lo = a - hi;   // exact in float32
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+// d += a b for one 8-deep step on the FP64 tensor cores
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
-        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
-}
-
-// d += a b in 3xTF32, the small terms first. The tensor core does not round
-// its float32 sums to nearest, so an accumulator that takes all 96
-// instructions of a 128-deep window product drifts in one direction: on the
-// H100 that missed K2's bar of 1e-6 against its twin. The callers therefore
-// start each 8-deep step from a zero fragment and add it to their sums with
-// a float32 add, which rounds to nearest.
-__device__ __forceinline__ void mma3(float (&d)[4], const float (&ah)[4], const float (&al)[4],
-                                     const float (&bh)[2], const float (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// sums += step, plane by plane, in float32 (round to nearest)
-__device__ __forceinline__ void add_step(float (&sums)[2][4], const float (&step)[2][4]) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) sums[p][q] += step[p][q];
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -133,13 +110,13 @@ __device__ __forceinline__ void load_tile(float* xs, const float* x, int64_t N, 
   }
 }
 
-// acc[s][j][0] / [1]: the C fragments of the real / imaginary plane of
-// the warp's 16 rows (16 * warp + g, + 8) by the 8 columns of n-tile j
-// (8 j + 2t, + 1) of state s. All warps call this together; it only reads
-// shared memory.
-template <int TC, int NS>
-__device__ __forceinline__ void window_product(const float* ws, const float* const (&xs)[NS],
-                                               float (&acc)[NS][TC / 8][2][4]) {
+// acc[j][0] / [1]: the C fragments of the real / imaginary plane of the
+// warp's 16 rows (16 * warp + g, + 8) by the 8 columns of n-tile j
+// (8 j + 2t, + 1). All warps call this together; it only reads shared
+// memory.
+template <int TC>
+__device__ __forceinline__ void window_product(const float* ws, const float* xs,
+                                               double (&acc)[TC / 8][2][4]) {
   constexpr int NT = TC / 8;
   constexpr int XS = Tile<TC>::kStride;
   const int lane = threadIdx.x % 32;
@@ -147,50 +124,40 @@ __device__ __forceinline__ void window_product(const float* ws, const float* con
   const int t = lane % 4;
   const int m0 = (threadIdx.x / 32) * 16;
 #pragma unroll
-  for (int s = 0; s < NS; ++s)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[s][j][q / 4][q % 4] = 0.f;
+    for (int q = 0; q < 8; ++q) acc[j][q / 4][q % 4] = 0;
   const float* wr = ws + (m0 + g) * kRows;   // rows m0 + g and m0 + g + 8: both r % 8 = g
   const float* wi = wr + kRows * kRows;
+  const float* xr = xs + t * XS + g;
+  const float* xi = xr + kRows * XS;
 #pragma unroll 2
   for (int k0 = 0; k0 < kRows; k0 += 8) {
-    float arh[4], arl[4], aih[4], ail[4], nih[4], nil[4];
+    double ar[4], ai[4], ni[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int off = (q & 1) * 8 * kRows + ((k0 + (q >> 1) * 4 + t) ^ (g << 2));
-      split(wr[off], arh[q], arl[q]);
-      split(wi[off], aih[q], ail[q]);
-      nih[q] = -aih[q];
-      nil[q] = -ail[q];
+      ar[q] = wr[off];
+      ai[q] = wi[off];
+      ni[q] = -ai[q];
     }
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const float* xr = xs[s] + (k0 + t) * XS + g;
-      const float* xi = xr + kRows * XS;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float brh[2], brl[2], bih[2], bil[2];
-        split(xr[j * 8], brh[0], brl[0]);
-        split(xr[4 * XS + j * 8], brh[1], brl[1]);
-        split(xi[j * 8], bih[0], bil[0]);
-        split(xi[4 * XS + j * 8], bih[1], bil[1]);
-        float step[2][4] = {};
-        mma3(step[0], arh, arl, brh, brl);
-        mma3(step[0], nih, nil, bih, bil);
-        mma3(step[1], aih, ail, brh, brl);
-        mma3(step[1], arh, arl, bih, bil);
-        add_step(acc[s][j], step);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int at = k0 * XS + j * 8;
+      const double br[2] = {xr[at], xr[at + 4 * XS]};
+      const double bi[2] = {xi[at], xi[at + 4 * XS]};
+      mma_f64(acc[j][0], ar, br);
+      mma_f64(acc[j][0], ni, bi);
+      mma_f64(acc[j][1], ai, br);
+      mma_f64(acc[j][1], ar, bi);
     }
   }
 }
 
-// Write one state's accumulators to columns [c0, c0 + TC) of the planes
-// (y, y + N), each viewed as (128, R).
+// Write the accumulators, rounded to float32, to columns [c0, c0 + TC) of
+// the planes (y, y + N), each viewed as (128, R).
 template <int TC>
-__device__ __forceinline__ void store_product(const float (&acc)[TC / 8][2][4], float* y,
+__device__ __forceinline__ void store_product(const double (&acc)[TC / 8][2][4], float* y,
                                               int64_t N, int64_t R, int64_t c0) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -201,8 +168,10 @@ __device__ __forceinline__ void store_product(const float (&acc)[TC / 8][2][4], 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t at = int64_t(m0 + g + 8 * h) * R + c0 + j * 8 + 2 * t;
-      *reinterpret_cast<float2*>(y + at) = make_float2(acc[j][0][2 * h], acc[j][0][2 * h + 1]);
-      *reinterpret_cast<float2*>(y + N + at) = make_float2(acc[j][1][2 * h], acc[j][1][2 * h + 1]);
+      *reinterpret_cast<float2*>(y + at) =
+          make_float2(float(acc[j][0][2 * h]), float(acc[j][0][2 * h + 1]));
+      *reinterpret_cast<float2*>(y + N + at) =
+          make_float2(float(acc[j][1][2 * h]), float(acc[j][1][2 * h + 1]));
     }
   }
 }

@@ -40,7 +40,8 @@ _SIGNATURES = {
     # x, mre, mim, batch, pstride, n, k, bits[3]
     'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     'dq_window_apply_f32': (_P, _P, _P, _I),                   # x, mre, mim, n
-    'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I),   # table, nstep, wre, wim, a, b, n
+    # table, nstep, wre, wim, a, b, sms, n
+    'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I, _I),
     # g, x, parts, batch, nblocks, n, k, bits[3]
     'dq_planar_grad_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # y, g, mre_t, mim_t, parts, batch, pstride, nblocks, n, k, bits[3]

@@ -5,18 +5,21 @@ ops/window_gate.py::schedule_window_seq runs as ONE cooperative launch of
 ``csrc/window_chain.cu`` on a CUDA tensor: the state stays in two ping-pong
 buffers that fit the H100's L2 at 14 <= n <= 19 (the counterpart of the TPU
 kernel's VMEM-resident state), a device-side step table drives the walk,
-and the windows ride as a compact (n_win, 128, 128) stack. On a CPU tensor
-the plain twin ``window_chain_plain`` walks the same steps in Python.
+and the windows ride as a compact (n_win, 128, 128) stack. The table merges
+each run of consecutive relabels into one row (``_merged_rows``). On a CPU
+tensor the plain twin ``window_chain_plain`` walks the same steps in Python.
 
 The backward, ``window_chain_bwd``, is the adjoint recurrence of
 ``planar_chain`` over the same sequence in ONE cooperative launch of
 ``csrc/window_chain_bwd.cu``: it carries the final state y and its
 cotangent g (each with a ping-pong partner) through the steps in reverse,
 at a window x = W^H y, dW = g x^H, g = W^H g, at a relabel both are
-relabelled back. Its table merges each run of consecutive relabels into one
-row (``_bwd_rows``), and each block's share of a dW goes to a partial slot
-that the kernel reduces in a fixed order. Its twin
-``window_chain_bwd_plain`` is the Python loop.
+relabelled back. Its table is merged the same way, and each block's share
+of a dW goes to a partial slot that the kernel reduces in a fixed order.
+Its twin ``window_chain_bwd_plain`` is the Python loop.
+
+Both kernels run their window products on the FP64 tensor cores
+(``csrc/window_mma.cuh``), rounding each result once to float32.
 
 The JAX kernel's per-step zero window blocks at rot steps and its hand-split
 bf16 matmuls are TPU artefacts and are not carried over.
@@ -64,10 +67,11 @@ def _step_table(wires_seq, n: int, backward: bool = False):
     return (rows[::-1] if backward else rows), win_steps
 
 
-def _bwd_rows(rows, n: int):
-    """The backward walk's table with each run of consecutive relabels merged
-    into one row: rotations of the qubit positions compose by adding their
-    deltas mod n, and a run that adds up to 0 leaves no row."""
+def _merged_rows(rows, n: int):
+    """A walk's table (either direction) with each run of consecutive
+    relabels merged into one row: rotations of the qubit positions compose
+    by adding their deltas mod n, and a run that adds up to 0 leaves no
+    row."""
     out = []
     for row in rows:
         if row[0] == 0 and out and out[-1][0] == 0:
@@ -116,16 +120,26 @@ def window_chain_fwd(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Te
     raises if the build or the launch fails; a CPU tensor takes the twin."""
     if x.device.type == 'cpu':
         return window_chain_plain(x, mres, mims, n, wires_seq)
+    return _window_chain_fwd_cuda(x, mres, mims, n, wires_seq)
+
+
+def _window_chain_fwd_cuda(x, mres, mims, n: int, wires_seq, sms: int | None = None):
+    """The launch behind ``window_chain_fwd``. ``sms`` caps the
+    multiprocessors the grid fills (default: all of the card's); fewer stand
+    in for a smaller card, on which a block walks several column tiles."""
     from . import _cuda
     rows, win_steps = _check_chain('window_chain_fwd', x, mres, n, wires_seq, backward=False)
     wre = torch.stack([mres[i] for i in win_steps])
     wim = torch.stack([mims[i] for i in win_steps])
     wre, wim = _cuda.check_planes('window_chain_fwd', x, (len(win_steps), 128, 128), wre, wim)
+    rows = _merged_rows(rows, n)
     table = torch.tensor(rows, dtype=torch.int32).to(x.device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     # ping-pong buffers: the caller's x is copied once into a, never written
     a = x.clone()
     b = torch.empty_like(x)
-    _cuda.launch('dq_window_chain_fwd_f32', x.device, table, len(rows), wre, wim, a, b, n)
+    _cuda.launch('dq_window_chain_fwd_f32', x.device, table, len(rows), wre, wim, a, b, sms, n)
     window_chain_fwd.launches += 1
     n_rot = len(rows) - len(win_steps)
     return b if n_rot % 2 else a
@@ -159,7 +173,8 @@ def window_chain_bwd_plain(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int,
 def _bwd_slots(n: int, sms: int) -> int:
     """The partial slots of one K4 buffer: the column tiles of 2^(n-7)
     columns, 16 wide while they do not outnumber ``sms``, else 32 wide (the
-    kernel's own rule). The kernel writes min(tiles, grid) of them."""
+    rule of both chain kernels). The kernel writes min(tiles, grid) of
+    them."""
     cols = 1 << (n - 7)
     return cols // (16 if cols // 16 <= sms else 32)
 
@@ -194,7 +209,7 @@ def _window_chain_bwd_cuda(y, g, mres, mims, n: int, wires_seq, sms: int | None 
     wim_t = -torch.stack([mims[i] for i in win_steps]).transpose(1, 2)
     wre_t, wim_t = _cuda.check_planes('window_chain_bwd', y, (len(win_steps), 128, 128),
                                       wre_t, wim_t)
-    rows = _bwd_rows(rows, n)
+    rows = _merged_rows(rows, n)
     table = torch.tensor(rows, dtype=torch.int32).to(y.device)
     # work buffers: y is the saved forward output and g is autograd's (it may
     # arrive non-contiguous); each gets a ping-pong partner

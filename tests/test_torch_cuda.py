@@ -137,16 +137,24 @@ def test_window_kernel_non_unitary_in_place(n, card):
     got = twg.window_apply(x, mre, mim, n, 7)
     assert got is x
     assert twg.window_apply.launches == before + 1
-    # the bar of chip_smoke.py at n=24: 3xTF32 on the tensor cores against float32 matmuls
+    # the bar of chip_smoke.py at n=24: the FP64 tensor cores against float32 matmuls
     err = (x - want).abs().max().item() / want.abs().max().item()
     assert err <= 1e-6, err
 
 
-@pytest.mark.parametrize('n', [16, 19])
+def _chain_seq(cir):
+    """The circuit's window sequence, its windows and relabels only (the
+    bench plan at n=14 also has per-gate steps)."""
+    mres, mims, wseq = cir._planar_seq(cir._full_params())
+    keep = [i for i, s in enumerate(wseq) if s[0] in ('win', 'rot')]
+    return [mres[i] for i in keep], [mims[i] for i in keep], tuple(wseq[i] for i in keep)
+
+
+@pytest.mark.parametrize('n', [16, 19, 14, 18])
 def test_chain_kernel_matches_twin(n, card):
     cir = _bench(n, 2, card)
     with torch.inference_mode():
-        mres, mims, wseq = cir._planar_seq(cir._full_params())
+        mres, mims, wseq = _chain_seq(cir)
         assert tck.chain_fused_ok(wseq, n, mres)
         x = _state(n, np.random.default_rng(n), card)
         x0 = x.clone()
@@ -156,6 +164,86 @@ def test_chain_kernel_matches_twin(n, card):
         assert tck.window_chain_fwd.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.equal(x, x0)   # the caller's state is not written
+
+
+@pytest.mark.parametrize('n,sms', [(19, 114), (18, 16)])
+def test_chain_kernel_on_fewer_sms(n, sms, card):
+    """K3 on a grid capped below the column tiles: a block walks several
+    tiles and keeps each window for all of them."""
+    cir = _bench(n, 2, card)
+    with torch.no_grad():
+        mres, mims, wseq = _chain_seq(cir)
+        assert tck._bwd_slots(n, sms) > sms          # more tiles than blocks
+        x = _state(n, np.random.default_rng(n + 5), card)
+        want = tck.window_chain_plain(x, mres, mims, n, wseq)
+        before = tck.window_chain_fwd.launches
+        got = tck._window_chain_fwd_cuda(x, mres, mims, n, wseq, sms=sms)
+        assert tck.window_chain_fwd.launches == before + 1
+        too_many = torch.cuda.get_device_properties(card).multi_processor_count + 1
+        with pytest.raises(RuntimeError):
+            tck._window_chain_fwd_cuda(x, mres, mims, n, wseq, sms=too_many)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope='module')
+def depth_walks():
+    """The bench sequence at n=18 with 10 and 20 layers, a seeded state and
+    cotangent, and the twin's walks in float32 and in float64:
+    {layers: (sequence, x, y, g, y64, bwd32, bwd64)}."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    n, out = 18, {}
+    dqt.set_dtype('complex64')
+    with torch.no_grad():
+        for layers in (10, 20):
+            mres, mims, wseq = _chain_seq(_bench(n, layers, torch.device('cuda')))
+            d64 = [[None if m is None else m.double() for m in ms] for ms in (mres, mims)]
+            rng = np.random.default_rng(40 + layers)
+            x = _state(n, rng, 'cuda')
+            g = _state(n, rng, 'cuda')
+            y = tck.window_chain_plain(x, mres, mims, n, wseq)
+            out[layers] = ((mres, mims, wseq), x, y, g,
+                           tck.window_chain_plain(x.double(), *d64, n, wseq),
+                           tck.window_chain_bwd_plain(y, g, mres, mims, n, wseq),
+                           tck.window_chain_bwd_plain(y.double(), g.double(), *d64, n, wseq))
+    return out
+
+
+def _rel_max(got, want):
+    return max((a.double() - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(got, want) if b is not None)
+
+
+@pytest.mark.parametrize('kernel', ['window_apply', 'window_chain_fwd', 'window_chain_bwd'])
+def test_window_kernels_under_depth(kernel, depth_walks, card):
+    """K2 (window by window, the twin's relabels between), K3 and K4 over the
+    bench sequence at n=18 with 10 and 20 layers (65 and 130 windows):
+    within 1e-5 of the float32 twin (dW too), and against the twin run in
+    float64 within 5e-6 at 20 layers, grown by at most 1.6 from 10 layers
+    (a bias that grows linearly gives 2.0, rounding to nearest about 1.4)."""
+    n, errs = 18, {}
+    with torch.no_grad():
+        for layers, ((mres, mims, wseq), x, y, g, y64, bwd, bwd64) in depth_walks.items():
+            if kernel == 'window_chain_bwd':
+                got = tck.window_chain_bwd(y, g, mres, mims, n, wseq)
+                got = list(got[:2]) + got[2] + got[3]
+                want = list(bwd[:2]) + bwd[2] + bwd[3]
+                exact = list(bwd64[:2]) + bwd64[2] + bwd64[3]
+            else:
+                if kernel == 'window_chain_fwd':
+                    st = tck.window_chain_fwd(x, mres, mims, n, wseq)
+                else:
+                    st = x.clone()
+                    for mre, mim, step in zip(mres, mims, wseq):
+                        if step[0] == 'win':
+                            twg.window_apply(st, mre, mim, n, 7)
+                        else:
+                            st = tpg._rotate_planar(st, step[1], n)
+                got, want, exact = [st], [y], [y64]
+            assert _rel_max(got, want) <= 1e-5
+            errs[layers] = _rel_max(got, exact)
+    assert errs[20] <= 5e-6, errs
+    assert errs[20] / errs[10] <= 1.6, errs
 
 
 def test_slice_matches_complex128(card):

@@ -1,29 +1,26 @@
 #!/usr/bin/env python3
 """Where the time of K4 (window_chain_bwd) goes, phase by phase, on one card.
 
-    python3 tools/k4_phase_split.py [--old-source FILE] [--out FILE]
+    python3 tools/k4_phase_split.py [--out FILE]
 
-Builds a copy of csrc/window_chain_bwd.cu (and, with --old-source, of its
-first design, commit 6f1e10d) with per-block clocks inserted at the phase
-boundaries by text anchors: thread 0 of each block stamps clock64() at every
+Builds a copy of csrc/window_chain_bwd.cu with per-block clocks inserted at
+the phase boundaries by text anchors: thread 0 of each block stamps clock64() at every
 boundary (globaltimer at the start and the end, to turn cycles into time).
-It runs each build on the n=18 bench sequence of chip_smoke.py (the shape
+It runs the build on the n=18 bench sequence of chip_smoke.py (the shape
 phase 3 times), 20 timed launches with CUDA events after 2 warm-ups, reads
 the stamps of the last launch and prints the mean over blocks of the time
 each block spent in each phase:
 
-  1 window products (K4 now: x = W^H y and g' = W^H g with their stores;
-    the first design: its phase 1), 2 dW (the block's partial, or the first
-    design's phase 2), 3 relabels, 4 waiting in grid.sync() (load imbalance
-    and the barrier itself), 5 the reduction of the dW partials.
+  1 window products (x = W^H y and g' = W^H g with their stores), 2 dW
+    (the block's partial), 3 relabels, 4 waiting in grid.sync() (load
+    imbalance and the barrier itself), 5 the reduction of the dW partials.
 
 It counts the grid barriers of a launch from the stamps (label 4), and
 times the barrier floor: a cooperative kernel of the same grid and shared
-memory that does nothing but grid.sync(), per barrier. The first design
-comes from git (`git show 6f1e10d:deepquantum_tpu_torch/csrc/window_chain_bwd.cu
-> _archive/window_chain_bwd_pr3.cu`; `_archive/` is ignored by git). The
-production sources and build are untouched: the clocks exist only in these
-copies, under deepquantum_tpu_torch/_build/k4_phase_split/.
+memory that does nothing but grid.sync(), per barrier. The production
+sources and build are untouched: the clocks exist only in the copy, under
+deepquantum_tpu_torch/_build/k4_phase_split/. (K4's first design, which
+included the since deleted csrc/window_tile.cuh, is no longer split.)
 """
 
 from __future__ import annotations
@@ -91,47 +88,31 @@ extern "C" int dq_k4_sync_floor(int blocks, int threads, int smem, int iters, vo
 }
 '''
 
-# (anchor, replacement) at the phase boundaries of each design; every anchor
-# must occur exactly once in its source
-ANCHORS = {
-    'redesign': [
-        ('  cg::grid_group grid = cg::this_grid();\n',
-         '  cg::grid_group grid = cg::this_grid();\n  DQ_STAMP_INIT();\n'),
-        ('      pending = -1;\n', '      pending = -1;\n      DQ_STAMP(5);\n'),
-        ('        stash_x<TC>(acc[0], ys);\n        __syncthreads();\n',
-         '        stash_x<TC>(acc[0], ys);\n        __syncthreads();\n        DQ_STAMP(1);\n'),
-        ('        __syncthreads();   // the tiles are reloaded for the next item\n',
-         '        __syncthreads();\n        DQ_STAMP(2);\n'),
-        ('      gnxt = tmp;\n', '      gnxt = tmp;\n      DQ_STAMP(3);\n'),
-        ('      grid.sync();\n', '      grid.sync();\n      DQ_STAMP(4);\n'),
-        ('                    dwim + pending * kPlane);\n  }\n  dq::mma::cp_async_wait<0>();\n',
-         '                    dwim + pending * kPlane);\n    DQ_STAMP(5);\n  }\n'
-         '  dq::mma::cp_async_wait<0>();\n  DQ_STAMP_END();\n'),
-    ],
-    'first_design': [
-        ('  cg::grid_group grid = cg::this_grid();\n',
-         '  cg::grid_group grid = cg::this_grid();\n  DQ_STAMP_INIT();\n'),
-        ('      grid.sync();\n      // phase 2: dW from the old g and the new x\n',
-         '      DQ_STAMP(1);\n      grid.sync();\n      DQ_STAMP(4);\n'
-         '      // phase 2: dW from the old g and the new x\n'),
-        ('        dw_tile(gcur, ycur, dwre + w * kPlane, dwim + w * kPlane, N, R, t, dws);\n      }\n',
-         '        dw_tile(gcur, ycur, dwre + w * kPlane, dwim + w * kPlane, N, R, t, dws);\n      }\n'
-         '      DQ_STAMP(2);\n'),
-        ('      dq::rotate_planes(gcur, gnxt, n, d, tile);\n',
-         '      dq::rotate_planes(gcur, gnxt, n, d, tile);\n      DQ_STAMP(3);\n'),
-        ('    gnxt = tmp;\n    grid.sync();\n  }\n}\n',
-         '    gnxt = tmp;\n    grid.sync();\n    DQ_STAMP(4);\n  }\n  DQ_STAMP_END();\n}\n'),
-    ],
-}
+# (anchor, replacement) at the phase boundaries; every anchor must occur
+# exactly once in the source
+ANCHORS = [
+    ('  cg::grid_group grid = cg::this_grid();\n',
+     '  cg::grid_group grid = cg::this_grid();\n  DQ_STAMP_INIT();\n'),
+    ('      pending = -1;\n', '      pending = -1;\n      DQ_STAMP(5);\n'),
+    ('        dq::mma::store_product<TC>(acc, gcur, N, R, c0);\n        __syncthreads();\n',
+     '        dq::mma::store_product<TC>(acc, gcur, N, R, c0);\n        __syncthreads();\n'
+     '        DQ_STAMP(1);\n'),
+    ('        __syncthreads();   // the tiles are reloaded for the next item\n',
+     '        __syncthreads();\n        DQ_STAMP(2);\n'),
+    ('      gnxt = tmp;\n', '      gnxt = tmp;\n      DQ_STAMP(3);\n'),
+    ('      grid.sync();\n', '      grid.sync();\n      DQ_STAMP(4);\n'),
+    ('                    dwim + pending * kPlane);\n  }\n  dq::mma::cp_async_wait<0>();\n',
+     '                    dwim + pending * kPlane);\n    DQ_STAMP(5);\n  }\n'
+     '  dq::mma::cp_async_wait<0>();\n  DQ_STAMP_END();\n'),
+]
 
 
 def build(name: str, source: str):
     from deepquantum_tpu_torch.ops import _cuda
-    for anchor, repl in ANCHORS[name]:
+    for anchor, repl in ANCHORS:
         if source.count(anchor) != 1:
             raise SystemExit(f'{name}: anchor not found once: {anchor!r}')
         source = source.replace(anchor, repl)
-    old = name == 'first_design'
     out = OUT_DIR / name
     out.mkdir(parents=True, exist_ok=True)
     (out / 'k4.cu').write_text(PRELUDE + source)
@@ -143,7 +124,7 @@ def build(name: str, source: str):
         raise SystemExit(f'nvcc failed for {name}:\n{proc.stdout}{proc.stderr}')
     dll = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    types = [P, I, P, P, P, P, P, P, P, P] + ([I] if old else [P, I, I, I])
+    types = [P, I, P, P, P, P, P, P, P, P, P, I, I, I]
     dll.dq_window_chain_bwd_f32.argtypes = types + [I, P]
     dll.dq_window_chain_bwd_f32.restype = I
     dll.dq_k4_set_stamps.argtypes = [P, I]
@@ -183,7 +164,7 @@ def split_stamps(stamps: np.ndarray) -> dict:
     return dict(blocks=len(per_block), barriers_per_call=barriers, mean_us_per_block=mean)
 
 
-def run_variant(name, dll, old, table_rows, args, n, reps=20):
+def run_variant(name, dll, table_rows, args, n, reps=20):
     import torch
     from deepquantum_tpu_torch.ops import chain_kernel as ck
     dev = torch.device('cuda')
@@ -202,10 +183,9 @@ def run_variant(name, dll, old, table_rows, args, n, reps=20):
     def call():
         ya.copy_(y)
         ga.copy_(g)
-        extra = [n] if old else [p(part), slots, sms, n]
         rc = dll.dq_window_chain_bwd_f32(p(table), len(table_rows), p(wre_t), p(wim_t), p(ya),
-                                         p(yb), p(ga), p(gb), p(dw[0]), p(dw[1]), *extra, 0,
-                                         stream)
+                                         p(yb), p(ga), p(gb), p(dw[0]), p(dw[1]), p(part), slots,
+                                         sms, n, 0, stream)
         if rc:
             raise RuntimeError(f'{name}: CUDA error {rc}')
 
@@ -240,9 +220,9 @@ def run_variant(name, dll, old, table_rows, args, n, reps=20):
     b.synchronize()
     t_copy = a.elapsed_time(b) / reps
     out = split_stamps(stamps.cpu().numpy().view(np.uint64))
-    # the shared memory of a block of each design at n = 18, so that the
-    # floor's grid sits on the card as the kernel's does
-    smem = 4 * (2 * 128 * 16 * 2 + 2 * 32 * 132) if old else 4 * (2 * 128 * 128 + 2 * 2 * 128 * 24)
+    # the shared memory of a block at n = 18, so that the floor's grid sits
+    # on the card as the kernel's does
+    smem = 4 * (2 * 128 * 128 + 2 * 2 * 128 * 24)
     iters = 200
     blocks = out['blocks']
     for _ in range(2):
@@ -264,7 +244,6 @@ def run_variant(name, dll, old, table_rows, args, n, reps=20):
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--old-source', default=None, help='an earlier window_chain_bwd.cu (first design)')
     ap.add_argument('--out', default=None, help='also write the JSON here')
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -288,16 +267,12 @@ def main() -> int:
         data = (wre_t, wim_t, y, g, len(win_steps))
         result = dict(card=smi, device=torch.cuda.get_device_name(0), n=n, steps=len(rows),
                       windows=len(win_steps))
-        variants = [('redesign', (CSRC / 'window_chain_bwd.cu').read_text(), False,
-                     ck._bwd_rows(rows, n))]
-        if args.old_source:
-            variants.insert(0, ('first_design', Path(args.old_source).read_text(), True, rows))
-        for name, source, old, table_rows in variants:
-            t0 = time.perf_counter()
-            dll = build(name, source)
-            print(f'{name}: built in {time.perf_counter() - t0:.1f} s')
-            result[name] = run_variant(name, dll, old, table_rows, data, n)
-            print(f'{name}: {json.dumps(result[name])}')
+        name = 'redesign'
+        t0 = time.perf_counter()
+        dll = build(name, (CSRC / 'window_chain_bwd.cu').read_text())
+        print(f'{name}: built in {time.perf_counter() - t0:.1f} s')
+        result[name] = run_variant(name, dll, ck._merged_rows(rows, n), data, n)
+        print(f'{name}: {json.dumps(result[name])}')
     text = json.dumps(result)
     print(text)
     if args.out:
