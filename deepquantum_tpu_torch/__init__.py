@@ -24,7 +24,7 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     bs = dqt.photonic.Clements(12, init_state=[1] * 6 + [0] * 6, cutoff=7)
     probs = bs(data=angles, is_prob=True)       # boson sampling: one permanent per outcome
     gbs = dqt.photonic.GaussianBosonSampling(10, squeezing, unitary, detector='threshold')
-    probs = gbs(is_prob=True)                   # click patterns: one torontonian each
+    probs = gbs(is_prob=True)                   # click patterns: a kernel call per click count
 """
 
 from . import photonic

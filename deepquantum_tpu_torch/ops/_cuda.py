@@ -49,8 +49,8 @@ _SIGNATURES = {
     # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, part, slots, sms, n
     'dq_window_chain_bwd_f32': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I),
     'dq_permanent_ryser': (_P, _I, _P, _I, _I, _I),            # mats, is_c64, parts, b, n, level
-    # o_mat, gamma (or null), is_c64, idx, valid, det, quad (or null), nsub, 2m
-    'dq_tor_lu': (_P, _P, _I, _P, _P, _P, _P, _I, _I),
+    # o_mat, gamma (or null), is_c64, idx, det, quad (or null), batch, m
+    'dq_tor_lu': (_P, _P, _I, _P, _P, _P, _I, _I),
 }
 
 _lock = threading.Lock()

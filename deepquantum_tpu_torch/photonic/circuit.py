@@ -8,8 +8,9 @@ a plain function of them (there is no jit cache: the functions are called).
   one dense vector, one Ryser permanent per state, all in ONE launch of the
   permanent kernel on the card (``qmath.permanent_batch``).
 - Gaussian backend: affine symplectic folds on (cov, mean), then per
-  outcome a hafnian (``detector='pnrd'``) or a torontonian
-  (``detector='threshold'``, the CUDA LU kernel on the card).
+  outcome a hafnian (``detector='pnrd'``), or for ``detector='threshold'``
+  the torontonians of all click patterns of one click count in one call
+  of the CUDA LU kernel on the card (one pattern alone: one torontonian).
 
 Not ported yet, and raising ``NotImplementedError`` by name: Fock tensor
 mode (``basis=False``), ``den_mat``, ``mps``, ``backend='bosonic'``,

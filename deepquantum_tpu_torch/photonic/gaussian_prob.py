@@ -3,8 +3,16 @@
 PyTorch counterpart of ``deepquantum_tpu/photonic/gaussian_prob.py``: the
 Q-function matrices from (cov, mean) in the ladder representation, then per
 final state a sub-matrix hafnian (``pnrd``) or torontonian (``threshold``).
-Each outcome is one call, so a full table issues one small launch sequence
-per outcome.
+
+The JAX package groups the states by photon number so that each group is
+one fixed-shape vmapped computation, and one ``jax.jit`` runs the table. An
+eager port has no jit, so the grouping is written out for click patterns: a
+``threshold`` table gathers, per click count k, the (B_k, 2k, 2k) stack of
+O sub-matrices (and (B_k, 2k) gammas when displaced) in one index op, calls
+``torontonian_batch`` once (one K8 / K9 wrapper call for k >= 3, the plain
+formula vectorised over B_k below), and scatters the probabilities back
+into the caller's order. One outcome alone (``get_prob``) is one
+torontonian, and ``pnrd`` stays one hafnian per state.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from ..config import cdtype
 from .hafnian_ import hafnian
 from .qmath import fock_combinations, quadrature_to_ladder
 from .state import GaussianState
-from .torontonian_ import torontonian
+from .torontonian_ import torontonian, torontonian_batch
 
 __all__ = ['fock_probs_gaussian', 'probs_gaussian_helper']
 
@@ -73,8 +81,42 @@ def _prob_one_state(final_state, a_mat, o_mat, gamma, p_vac, detector, purity, l
     return prob.real.abs()
 
 
+def click_groups(final_states, nmode: int):
+    """Threshold outcomes grouped by click count: {k: (positions in
+    ``final_states``, (B_k, 2k) sorted rows (y, y + nmode) of the clicked
+    modes)}, as numpy."""
+    fs = np.asarray(final_states, np.int64).reshape(len(final_states), nmode)
+    clicks = fs.sum(1)
+    groups = {}
+    for k in np.unique(clicks):
+        pos = np.flatnonzero(clicks == k)
+        # each state's modes repeated by its counts: k entries a row
+        half = np.repeat(np.tile(np.arange(nmode), len(pos)), fs[pos].ravel()).reshape(len(pos), k)
+        groups[int(k)] = (pos, np.concatenate([half, half + nmode], axis=1))
+    return groups
+
+
+def gather_group(o_mat, gamma, idx):
+    """The (B_k, 2k, 2k) stack of O sub-matrices of one click count, and its
+    (B_k, 2k) gammas (None for an undisplaced state), one index op each."""
+    return o_mat[idx[:, :, None], idx[:, None, :]], None if gamma is None else gamma[idx]
+
+
+def _threshold_table(final_states, o_mat, gamma, p_vac, loop):
+    """Click probabilities of many patterns: one torontonian_batch per
+    click count, results back in the caller's order."""
+    parts, order = [], []
+    for pos, idx in click_groups(final_states, o_mat.shape[-1] // 2).values():
+        parts.append(torontonian_batch(*gather_group(o_mat, gamma if loop else None, idx)))
+        order.append(pos)
+    inverse = np.argsort(np.concatenate(order))
+    prob = p_vac * torch.cat(parts)[torch.as_tensor(inverse, device=o_mat.device)]
+    return prob.real.abs()
+
+
 def probs_gaussian_helper(final_states, cov, mean, detector='pnrd', purity=None, loop=None):
-    """Probabilities of the given final states for one (cov, mean), stacked."""
+    """Probabilities of the given final states for one (cov, mean), stacked:
+    a threshold table by click count, else one call per state."""
     if purity is None or loop is None:
         mean_np = mean.detach().cpu().numpy()
         if purity is None:
@@ -82,6 +124,8 @@ def probs_gaussian_helper(final_states, cov, mean, detector='pnrd', purity=None,
         if loop is None:
             loop = bool(np.any(mean_np != 0))
     a_mat, o_mat, gamma, p_vac = _q_mats(cov, mean)
+    if detector == 'threshold' and len(final_states) > 1:
+        return _threshold_table(final_states, o_mat, gamma, p_vac, bool(loop))
     return torch.stack([_prob_one_state(fs, a_mat, o_mat, gamma, p_vac, detector, bool(purity),
                                         bool(loop)) for fs in final_states])
 

@@ -656,6 +656,51 @@ def test_tor_kernels_match_twins(card, m, dtype):
     assert torch.equal(det, det9)
 
 
+@pytest.mark.parametrize('b,m', [(45, 8), (7, 14)])
+@pytest.mark.parametrize('dtype', [torch.complex128, torch.complex64])
+def test_batched_tor_kernels_match_batched_twins(card, b, m, dtype):
+    """A (B, 2m, 2m) stack in one wrapper call (batched_launches), per
+    subset <= 1e-9 of the batched twin; two launches give the same bits."""
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    from deepquantum_tpu_torch.photonic import torontonian_ as tt
+    rng = np.random.default_rng(b + m)
+    pairs = [_tor_inputs(m, rng, card, dtype) for _ in range(b)]
+    o, g = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    idx, valid, sign = tt._padded_tor_indices(m, card)
+    single = (tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches)
+    c8, c9 = tk.tor_dets_cuda.batched_launches, tk.tor_dets_quads_cuda.batched_launches
+    det, s8 = tk.tor_dets_cuda(o, idx, valid, sign)
+    det9, quad, _ = tk.tor_dets_quads_cuda(o, g, idx, valid, sign)
+    torch.cuda.synchronize()
+    assert (tk.tor_dets_cuda.batched_launches, tk.tor_dets_quads_cuda.batched_launches) == \
+        (c8 + 1, c9 + 1)
+    assert (tk.tor_dets_cuda.launches, tk.tor_dets_quads_cuda.launches) == single
+    assert s8 is sign and det.dtype == torch.complex128 and det.shape == (b, (1 << m) - 1)
+    ref, _ = tk.tor_dets_plain(o, idx, valid, sign)
+    ref9, refq, _ = tk.tor_dets_quads_plain(o, g, idx, valid, sign)
+    for a, c in ((det, ref), (det9, ref9), (quad, refq)):
+        assert ((a - c).abs() / c.abs()).max().item() <= 1e-9
+    assert torch.equal(det, det9)
+    again, _ = tk.tor_dets_cuda(o, idx, valid, sign)
+    again9, againq, _ = tk.tor_dets_quads_cuda(o, g, idx, valid, sign)
+    assert torch.equal(det, again) and torch.equal(det9, again9) and torch.equal(quad, againq)
+
+
+def test_torontonian_batch_is_one_call_on_the_card(card128):
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    rng = np.random.default_rng(6)
+    pairs = [_tor_inputs(5, rng, card128) for _ in range(6)]
+    o, g = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    c8, c9 = tk.tor_dets_cuda.batched_launches, tk.tor_dets_quads_cuda.batched_launches
+    t0, t1 = dqt.photonic.torontonian_batch(o), dqt.photonic.torontonian_batch(o, g)
+    assert (tk.tor_dets_cuda.batched_launches, tk.tor_dets_quads_cuda.batched_launches) == \
+        (c8 + 1, c9 + 1)
+    for i in range(6):
+        r0, r1 = dqt.torontonian(o[i].cpu()), dqt.torontonian(o[i].cpu(), g[i].cpu())
+        assert abs(complex(t0[i]) - complex(r0)) <= 1e-9 * abs(complex(r0))
+        assert abs(complex(t1[i]) - complex(r1)) <= 1e-9 * abs(complex(r1))
+
+
 def test_torontonian_routes_on_the_card(card128):
     """Size >= 6 launches K8 (no gamma) or K9; below, the plain formula."""
     from deepquantum_tpu_torch.photonic import tor_kernel as tk

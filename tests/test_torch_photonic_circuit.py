@@ -3,11 +3,16 @@
 Gates, the global unitary and symplectic, the Clements decomposition,
 circuits carried across with ``qumode_from_jax``, and the two user calls of
 the slice: boson sampling on the Fock backend in basis mode (one permanent
-per outcome) and Gaussian boson sampling (a torontonian per click pattern,
-a hafnian per photon pattern). Both packages run their complex128 policy on
-the CPU, where the port's kernel wrappers take their plain twins, so values
-are held to 1e-8 (they agree to about 1e-14).
+per outcome) and Gaussian boson sampling (the click patterns' torontonians
+in one batched call per click count, a hafnian per photon pattern). Both
+packages run their complex128 policy on the CPU, where the port's kernel
+wrappers take their plain twins, so values are held to 1e-8 (they agree to
+about 1e-14); the click tables against the JAX package's vmapped
+torontonian to 1e-9.
 """
+
+import itertools
+from math import comb
 
 import numpy as np
 import pytest
@@ -17,6 +22,8 @@ import deepquantum_tpu as dq
 import deepquantum_tpu_torch as dqt
 from deepquantum_tpu import photonic as jph
 from deepquantum_tpu.photonic import gates as jgates
+from deepquantum_tpu.photonic import gaussian_prob as jgp
+from deepquantum_tpu.photonic import torontonian_ as jtor
 from deepquantum_tpu_torch import photonic as tph
 from deepquantum_tpu_torch.ops import permanent_kernel as pk
 from deepquantum_tpu_torch.photonic import gates as tgates
@@ -397,6 +404,87 @@ def test_gaussian_boson_sampling_matches_jax(detector, displaced, nmode):
     assert float(tcir.get_prob(vac)) == pytest.approx(float(_table(got)[vac][0]))
     for a, b in zip(tcir.photon_number_mean_var([0, 2]), jcir.photon_number_mean_var([0, 2])):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-10)
+
+
+def _jax_click_table(jcir, nmode, displaced):
+    """Every click pattern's probability, in itertools.product order, from
+    the JAX package: its Gaussian state and Q matrices, then its vmapped
+    torontonian (``torontonian_batch``) once per click count, at
+    complex128. The undisplaced case passes gamma = 0, as the JAX
+    torontonian does itself at complex128; each stack is padded to C(7, k)
+    matrices, so that one compiled program per k serves 6 and 7 modes."""
+    import jax
+    import jax.numpy as jnp
+    cov, mean = jcir()
+    _, o_mat, gamma, p_vac = jgp._q_mats(jnp.reshape(cov, (2 * nmode, 2 * nmode)),
+                                         jnp.reshape(mean, (2 * nmode, 1)))
+    tor_batch = _JAX_TOR.setdefault('fn', jax.jit(jtor.torontonian_batch))
+    states = np.array(list(itertools.product((0, 1), repeat=nmode)))
+    tor = np.ones(len(states), complex)
+    for k in range(1, nmode + 1):
+        pos = np.flatnonzero(states.sum(1) == k)
+        half = np.stack([np.flatnonzero(f) for f in states[pos]])
+        idx = np.concatenate([half, half + nmode], axis=1)
+        idx = np.concatenate([idx, np.repeat(idx[:1], comb(7, k) - len(idx), axis=0)])
+        g = gamma[idx] if displaced else jnp.zeros(idx.shape, gamma.dtype)
+        tor[pos] = np.asarray(tor_batch(o_mat[idx[:, :, None], idx[:, None, :]], g))[:len(pos)]
+    return np.abs(np.real(complex(p_vac) * tor)), [tuple(s) for s in states]
+
+
+_JAX_TOR = {}
+
+
+@pytest.mark.parametrize('displaced', [False, True])
+@pytest.mark.parametrize('nmode', [6, 7])
+def test_gbs_click_table_matches_jax_vmapped_torontonian(nmode, displaced, monkeypatch):
+    """The port's table (one torontonian_batch per click count: a wrapper
+    call for k >= 3, the plain formula below) against the JAX package."""
+    from deepquantum_tpu_torch.photonic import gaussian_prob as tgp
+    want, states = _jax_click_table(_gbs(jph, 'threshold', displaced, nmode), nmode, displaced)
+    calls = []
+    batch = tgp.torontonian_batch
+    monkeypatch.setattr(tgp, 'torontonian_batch',
+                        lambda o, g=None: calls.append(tuple(o.shape)) or batch(o, g))
+    tcir = _gbs(tph, 'threshold', displaced, nmode)
+    cov, mean = tcir()
+    probs, basis = tgp.fock_probs_gaussian(cov, mean, tcir.cutoff, 'threshold')
+    assert basis == states                          # the JAX order
+    np.testing.assert_allclose(probs.reshape(-1).numpy(), want, rtol=0, atol=1e-9)
+    assert calls == [(comb(nmode, k), 2 * k, 2 * k) for k in range(nmode + 1)]
+    got = _table(tcir(is_prob=True))                # the circuit's dict holds the same values
+    np.testing.assert_allclose(np.concatenate([got[s] for s in states]), want, rtol=0,
+                               atol=1e-9)
+    assert abs(sum(v[0] for v in got.values()) - 1) <= 1e-10
+
+
+@pytest.mark.parametrize('displaced', [False, True])
+def test_gbs_table_gradient_matches_jax(displaced):
+    """d (three patterns' probabilities) / d squeezing, taken from the full
+    table, against jax.grad of the JAX package's state and table program."""
+    import jax
+    import jax.numpy as jnp
+    nmode = 4
+    jcir, tcir = _gbs(jph, 'threshold', displaced, nmode), _gbs(tph, 'threshold', displaced, nmode)
+    for cir in (jcir, tcir):            # the squeezing magnitudes train
+        cir._train_mask = [False] * len(cir._train_mask)
+        for op in cir.operators[:nmode]:
+            cir._train_mask[op.pidx[0]] = True
+    states = tuple(itertools.product((0, 1), repeat=nmode))
+    pats = [(1, 1, 0, 1), (1, 1, 1, 1), (0, 1, 1, 0)]
+    rows = jnp.asarray([states.index(p) for p in pats])
+    table = jgp._probs_fn(states, 'threshold', False, displaced)
+
+    def jloss(p):
+        cov, mean = jcir(params=p)
+        return table(jnp.reshape(cov, (2 * nmode, 2 * nmode)),
+                     jnp.reshape(mean, (2 * nmode, 1)))[rows].sum()
+
+    want = np.asarray(jax.grad(jloss)(jcir.params))
+    p = tcir.params.requires_grad_()
+    probs = tcir(params=p, is_prob=True)
+    sum(probs[tph.FockState(list(s))] for s in pats).backward()
+    assert p.grad.shape == (nmode,)
+    np.testing.assert_allclose(p.grad.numpy(), want, rtol=0, atol=1e-8)
 
 
 def test_detector_chosen_at_the_call_matches_jax():

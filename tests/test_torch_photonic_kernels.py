@@ -17,6 +17,7 @@ import itertools
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -234,6 +235,78 @@ def test_torontonian_batch_and_large_m_route():
         assert abs(complex(ttor.torontonian(os_[0], gs[0])) - want[0]) <= 1e-9 * abs(want[0])
     finally:
         ttor.MAX_MODES = old
+
+
+def _stack(m, b, seed, c64=False):
+    rng = np.random.default_rng(seed)
+    pairs = [_tor_inputs(m, rng, perturb=True, c64=c64) for _ in range(b)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def test_batched_tor_twins_match_vmapped_pallas_kernels_through_the_epilogue():
+    """The JAX package's vmapped torontonian puts the batch on a grid axis
+    of each size bucket's pallas_call; its values per matrix, through the
+    epilogue, against the port's batched twins (one call on the stack)."""
+    m, b = 2, 3
+    os_, gs = _stack(m, b, 17, c64=True)
+    jidx, jvalid, jsign = jtor._padded_tor_indices(m)
+
+    def click(o):
+        det, psign = jtk.tor_dets_pallas(o, jidx, jvalid, jsign, interpret=True)
+        return jtor._tor_epilogue(det, psign, m)
+
+    def loop(o, g):
+        det, quad, psign = jtk.tor_dets_quads_pallas(o, g, jidx, jvalid, jsign, interpret=True)
+        return jtor._tor_epilogue(det, psign, m, quad=quad)
+
+    want = np.asarray(jax.vmap(click)(jnp.asarray(os_, jnp.complex64)))
+    want_loop = np.asarray(jax.vmap(loop)(jnp.asarray(os_, jnp.complex64),
+                                          jnp.asarray(gs, jnp.complex64)))
+    idx, valid, sign = ttor._padded_tor_indices(m, CPU)
+    t_o, t_g = torch.as_tensor(os_).to(torch.complex64), torch.as_tensor(gs).to(torch.complex64)
+    det, _ = ttk.tor_dets_cuda(t_o, idx, valid, sign)            # CPU tensors: the twins
+    det2, quad, _ = ttk.tor_dets_quads_cuda(t_o, t_g, idx, valid, sign)
+    assert det.shape == quad.shape == (b, 3) and det.dtype == torch.complex128
+    assert _rel(ttor._tor_epilogue(det, sign, m).numpy(), want) <= 1e-6
+    assert _rel(ttor._tor_epilogue(det2, sign, m, quad=quad).numpy(), want_loop) <= 1e-6
+
+
+@pytest.mark.parametrize('with_gamma', [False, True])
+@pytest.mark.parametrize('m', [3, 4])
+def test_torontonian_batch_matches_jax_vmapped(m, with_gamma, monkeypatch):
+    """One wrapper call for the whole stack, the same values as the JAX
+    package's vmapped torontonian at complex128."""
+    os_, gs = _stack(m, 4, 40 + m)
+    gs = gs if with_gamma else None
+    want = np.asarray(jtor.torontonian_batch(jnp.asarray(os_),
+                                             None if gs is None else jnp.asarray(gs)))
+    calls = []
+    name = 'tor_dets_quads_cuda' if with_gamma else 'tor_dets_cuda'
+    wrapper = getattr(ttor, name)
+    monkeypatch.setattr(ttor, name, lambda o, *a: calls.append(o.shape) or wrapper(o, *a))
+    got = ttor.torontonian_batch(os_, gs)
+    assert got.dtype == torch.complex128 and got.shape == (4,)
+    assert _rel(got.numpy(), want) <= 1e-9
+    assert calls == [(4, 2 * m, 2 * m)]
+    # the single torontonian is the same code on one (2m, 2m) matrix
+    one = complex(ttor.torontonian(os_[1], None if gs is None else gs[1]))
+    assert abs(one - complex(got[1])) <= 1e-12 * abs(want[1])
+    assert calls[1] == (2 * m, 2 * m)
+
+
+def test_batched_tor_twins_match_a_loop_of_single_twins():
+    m, b = 4, 5
+    os_, gs = _stack(m, b, 23)
+    idx, valid, sign = ttor._padded_tor_indices(m, CPU)
+    o, g = torch.as_tensor(os_), torch.as_tensor(gs)
+    det, s = ttk.tor_dets_plain(o, idx, valid, sign)
+    det9, quad, _ = ttk.tor_dets_quads_plain(o, g, idx, valid, sign)
+    assert s is sign and det.shape == det9.shape == quad.shape == (b, 15)
+    for i in range(b):
+        d1, _ = ttk.tor_dets_plain(o[i], idx, valid, sign)
+        d2, q2, _ = ttk.tor_dets_quads_plain(o[i], g[i], idx, valid, sign)
+        for got, want in ((det[i], d1), (det9[i], d2), (quad[i], q2)):
+            assert ((got - want).abs() / want.abs()).max().item() <= 1e-13
 
 
 def test_tor_wrappers_check_the_scaffold():
