@@ -19,7 +19,9 @@ Phases (each raises on failure, so the run exits non-zero):
    time the card could take (bound_ms, from the bytes each call must move
    and the operations it does, against the published peaks):
    planar_apply, planar_grad, planar_bwd_fused at n=22 on eight wire sets
-   (states <= 1e-6 / 1e-5, planes <= 1e-5), window_apply at n=24 with a
+   (states <= 1e-6 / 1e-5, planes <= 1e-5; planar_apply and planar_grad, and
+   their batched forms below, also timed against the one torch.einsum that
+   computes the same, held to 1e-5 of the twin), window_apply at n=24 with a
    random unitary (<= 1e-6; also timed against the one library call that
    computes the same function, a real 256 x 256 block matmul) and at
    n = 12, 13, 16, 20, 24 with a random non-unitary W (<= 1e-6),
@@ -53,7 +55,14 @@ Phases (each raises on failure, so the run exits non-zero):
    forms of K1, K5, K6 (rows planar_apply_batched, planar_grad_batched,
    planar_bwd_fused_batched) on (B, 2, 2^n) stacks with per-sample planes at (n, B) = (14, 100) and
    (20, 8), k = 1, 2, 3 (states <= 1e-6, K6 1e-5, planes <= 1e-5), K1 also
-   with one set of planes for every sample. The window kernels under
+   with one set of planes for every sample. The batched gate chain (rows
+   planar_chain_batched, planar_chain_batched_bwd: K1b / K6b redesigned, a
+   whole chain in one launch per direction, csrc/planar_chain_batched.cu) at
+   (n, B) = (14, 100), (12, 256), (16, 8) on the QML ansatz's sequence with
+   Haar planes (check_batched_chain): against the twin and the per-step
+   K1b / K5b / K6b, states <= 1e-6 (backward 1e-5), planes <= 1e-5, dW
+   bitwise equal over two launches, device time beside the wrapper's, the
+   bound, the per-step route's time and the cluster sizes. The window kernels under
    depth (check_window_depth): the bench sequence at n=18 with 10 and 20
    layers, walked by window_chain_fwd, by window_apply window by window
    with the twin's relabels, and backward by window_chain_bwd; states
@@ -88,11 +97,15 @@ Phases (each raises on failure, so the run exits non-zero):
    a step = expectation(data=feats, params=p) (100, 1), its mean, backward,
    SGD. Plain (feats = data) and hybrid (feats = data @ W + b): loss and
    gradients (p; W, b) against the complex128 route (<= 1e-5, <= 1e-4);
-   per step batched planar_apply and planar_grad launched, no window or
-   chain kernel; with fused_bwd batched planar_bwd_fused instead of
-   planar_grad, gradients <= 1e-5 from the default; three SGD steps on the
-   kernel and twin routes (<= 1e-5 apart); medians on both routes and the
-   device's busy share from a profiler window;
+   per step, default and fused_bwd alike, one planar_chain_batched launch
+   for the gates, one for the expectation's chain (counted apart), one
+   planar_chain_batched_bwd launch and no per-step, window or window-chain
+   kernel; gradients with fused_bwd <= 1e-5 from the default; three SGD
+   steps on the kernel and twin routes (<= 1e-5 apart); medians on the
+   kernel, per-step and twin routes in turns and the device's busy share
+   from a profiler window; then the same ansatz at n=18, B=8, outside the
+   chain's range: the per-step batched planar_apply and planar_grad
+   (planar_bwd_fused with fused_bwd), no chain kernel, against complex128;
 8. boson sampling at complex128: Clements(12 modes, 6 photons) with seeded
    angles gives 12376 probabilities from ONE permanent_cuda_batch launch
    (sum 1 within 1e-6, twin route within 1e-8), then get_amplitude of the
@@ -114,9 +127,10 @@ Phases (each raises on failure, so the run exits non-zero):
    batched calls), displaced through tor_dets_quads_cuda, and d P / d
    angles of three Clements(12, 6 photons) probabilities through one
    permanent_cuda_batch launch, each <= 1e-8 of the twin route's autograd;
-10. print the kernels' JSON line (fourteen rows: the nine kernels and the
-   batched forms of K1, K5, K6, K8, K9, each with its launches on the main
-   paths), the card line, and last {"ok": true, "device": {...}}.
+10. print the kernels' JSON line (sixteen rows: the nine kernels, the
+   batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
+   gate chain, each with its launches on the main paths), the card line,
+   and last {"ok": true, "device": {...}}.
 
 Nothing of JAX is imported.
 """
@@ -188,10 +202,17 @@ KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
                               'deepquantum_tpu/photonic/tor_kernel.py:188'),
     'tor_dets_quads_cuda_batched': ('deepquantum_tpu_torch/csrc/tor_lu.cu',
                                     'deepquantum_tpu/photonic/tor_kernel.py:230'),
+    # K1b / K6b redesigned: a batched gate chain in one launch per direction,
+    # each sample's state in shared memory (the per-step batched K1 / K6 stay
+    # for chains outside its range)
+    'planar_chain_batched': ('deepquantum_tpu_torch/csrc/planar_chain_batched.cu',
+                             'deepquantum_tpu/ops/planar_gate.py:412'),
+    'planar_chain_batched_bwd': ('deepquantum_tpu_torch/csrc/planar_chain_batched.cu',
+                                 'deepquantum_tpu/ops/planar_gate.py:687'),
 }
 # the kernel functions of csrc/, as the profiler names them
 PORT_KERNEL = (r'\(anonymous namespace\)::(planar_apply|planar_grad|planar_bwd_fused|window_apply|'
-               r'window_chain_fwd|window_chain_bwd|ryser|tor_lu)_kernel\b')
+               r'window_chain_fwd|window_chain_bwd|ryser|tor_lu|chain_fwd|chain_bwd)_kernel\b')
 BATCHED = {'planar_apply_batched': 'planar_apply', 'planar_grad_batched': 'planar_grad',
            'planar_bwd_fused_batched': 'planar_bwd_fused',
            'tor_dets_cuda_batched': 'tor_dets_cuda',
@@ -208,6 +229,12 @@ def _pkg():
     return dqt, planar_gate, window_gate, chain_kernel
 
 
+def _chain_mod():
+    _pkg()
+    from deepquantum_tpu_torch.ops import planar_chain_batched
+    return planar_chain_batched
+
+
 def _photonic():
     _pkg()
     from deepquantum_tpu_torch.ops import permanent_kernel
@@ -220,11 +247,14 @@ def _wrappers():
     batched row reads the same wrapper's ``batched_launches``."""
     _, pg, wg, ck = _pkg()
     pk, _, tk, _ = _photonic()
+    pcb = _chain_mod()
     fns = {'planar_apply': pg.planar_apply, 'window_apply': wg.window_apply,
            'window_chain_fwd': ck.window_chain_fwd, 'window_chain_bwd': ck.window_chain_bwd,
            'planar_grad': pg.planar_grad, 'planar_bwd_fused': pg.planar_bwd_fused,
            'permanent_cuda_batch': pk.permanent_cuda_batch, 'tor_dets_cuda': tk.tor_dets_cuda,
-           'tor_dets_quads_cuda': tk.tor_dets_quads_cuda}
+           'tor_dets_quads_cuda': tk.tor_dets_quads_cuda,
+           'planar_chain_batched': pcb.planar_chain_batched,
+           'planar_chain_batched_bwd': pcb.planar_chain_batched_bwd}
     out = {name: (fn, 'launches') for name, fn in fns.items()}
     out.update({name: (fns[single], 'batched_launches') for name, single in BATCHED.items()})
     return out
@@ -299,6 +329,7 @@ def twin_route():
     kernel wrappers)."""
     _, pg, wg, ck = _pkg()
     pk, pq, tk, pt = _photonic()
+    pcb = _chain_mod()
 
     def planar(x, mre, mim, n, wires):
         x.copy_(pg.planar_evolve_xla(x, mre, mim, n, wires))
@@ -320,7 +351,10 @@ def twin_route():
                (pg, 'planar_grad', pg.planar_grad_xla), (pg, 'planar_bwd_fused', bwd_fused),
                (pq, 'permanent_cuda_batch', pk.permanent_plain_batch),
                (pt, 'tor_dets_cuda', tk.tor_dets_plain),
-               (pt, 'tor_dets_quads_cuda', tk.tor_dets_quads_plain)]
+               (pt, 'tor_dets_quads_cuda', tk.tor_dets_quads_plain),
+               (pcb, 'planar_chain_batched', pcb.planar_chain_batched_plain),
+               (pcb, 'planar_chain_batched_bwd',
+                lambda y, g, chain: pcb.planar_chain_batched_plain(y, chain, g))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -438,6 +472,66 @@ def build():
             print(f'  nvcc: {line.strip()}')
 
 
+def _mean_or_none(values):
+    values = [v for v in values if v is not None]
+    return float(np.mean(values)) if values else None
+
+
+def _segment_view(x, n: int, wires, gate: str, runs: str = 'abcd'):
+    """x (..., 2, 2^n) viewed as (..., 2, segments): the amplitude axis cut
+    around the sorted gate wires into runs of other bits and one axis of 2
+    per gate bit; with the einsum subscripts of the segments (``gate``: the
+    letters of the gate bits, in wire order)."""
+    shape, sub, prev = [], '', -1
+    for j, w in enumerate(wires):
+        shape += [1 << (w - prev - 1), 2]
+        sub += runs[j] + gate[j]
+        prev = w
+    shape.append(1 << (n - 1 - prev))
+    sub += runs[len(wires)]
+    return x.view(tuple(x.shape[:-1]) + tuple(shape)), sub
+
+
+def library_apply_ms(x, mre, mim, n: int, wires, ref, name: str) -> float:
+    """The library yardstick of K1 / K1b, used nowhere in the port: ONE
+    torch.einsum of the gate's real block form [[Re, -Im], [Im, Re]] (per
+    sample for (B, K, K) planes; built here, outside the timed call) with
+    the state viewed as (..., 2, 2, ..., 2) around the gate's bits. Held
+    against the twin's ``ref`` (<= 1e-5), then timed."""
+    import torch
+    k = len(wires)
+    blk = torch.stack([torch.stack([mre, -mim], -3), torch.stack([mim, mre], -3)], -4)
+    blk = blk.reshape(tuple(blk.shape[:-2]) + (2,) * (2 * k))
+    xv, sub_in = _segment_view(x, n, wires, 'efg')
+    _, sub_out = _segment_view(x, n, wires, 'hij')
+    bz, xz = 'z' * (mre.dim() == 3), 'z' * (x.dim() == 3)
+    eq = f'{bz}PQ{"hij"[:k]}{"efg"[:k]},{xz}Q{sub_in}->{xz}P{sub_out}'
+    e = rel_err(torch.einsum(eq, blk, xv).reshape(x.shape), ref)[0]
+    _hold(f'{name}: the library einsum', e, 1e-5)
+    return time_ms(lambda: torch.einsum(eq, blk, xv))[0]
+
+
+def library_grad_ms(g, x, n: int, wires, ref, name: str) -> float:
+    """The library yardstick of K5 / K5b, used nowhere in the port: ONE
+    torch.einsum of a constant (2, 2, 2) sign tensor with g and x viewed
+    around the gate's bits, dW_re = g_re x_re + g_im x_im and dW_im =
+    g_im x_re - g_re x_im summed over the other bits. Held against the
+    twin's ``ref`` (dRe, dIm) (<= 1e-5), then timed."""
+    import torch
+    k, kk = len(wires), 1 << len(wires)
+    sign = torch.zeros(2, 2, 2, device=x.device)
+    sign[0, 0, 0] = sign[0, 1, 1] = sign[1, 1, 0] = 1.0
+    sign[1, 0, 1] = -1.0
+    gv, sub_g = _segment_view(g, n, wires, 'hij')
+    xv, sub_x = _segment_view(x, n, wires, 'efg')
+    z = 'z' * (x.dim() == 3)
+    eq = f'OPQ,{z}P{sub_g},{z}Q{sub_x}->{z}O{"hij"[:k]}{"efg"[:k]}'
+    out = torch.einsum(eq, sign, gv, xv).reshape(tuple(x.shape[:-2]) + (2, kk, kk))
+    e = max(rel_err(out[..., 0, :, :], ref[0])[0], rel_err(out[..., 1, :, :], ref[1])[0])
+    _hold(f'{name}: the library einsum', e, 1e-5)
+    return time_ms(lambda: torch.einsum(eq, sign, gv, xv))[0]
+
+
 def check_gate_kernels(results: dict, rng, rng_g):
     """Phase 3, the per-gate kernels K1, K5, K6 at n=22 on eight wire sets.
     States and unitaries come from ``rng`` in a fixed order, cotangents from
@@ -449,20 +543,22 @@ def check_gate_kernels(results: dict, rng, rng_g):
     state_bytes = 2 * (1 << n) * 4          # one (2, 2^n) float32 state
     x = _randn_state(n, rng, dev)
     g = _randn_state(n, rng_g, dev)
-    acc = {name: dict(errs=[], abs_errs=[], plane_errs=[], t_k=[], t_p=[], bounds=[])
+    acc = {name: dict(errs=[], abs_errs=[], plane_errs=[], t_k=[], t_p=[], t_l=[], bounds=[])
            for name in ('planar_apply', 'planar_grad', 'planar_bwd_fused')}
 
-    def note(name, wires, e, d, pe, tk, tp, bnd):
+    def note(name, wires, e, d, pe, tk, tp, bnd, tl=None):
         a = acc[name]
         a['errs'].append(e)
         a['abs_errs'].append(d)
         a['plane_errs'].append(pe)
         a['t_k'].append(tk)
         a['t_p'].append(tp)
+        a['t_l'].append(tl)
         a['bounds'].append(bnd)
         errs = ', '.join(f'{what} rel err {v:.2e}' for what, v in (('state', e), ('plane', pe))
                          if v is not None)
-        print(f'{name} n={n} wires={wires}: {errs}, kernel {tk:.4f} ms, twin {tp:.4f} ms, '
+        lib = '' if tl is None else f', one einsum {tl:.4f} ms'
+        print(f'{name} n={n} wires={wires}: {errs}, kernel {tk:.4f} ms, twin {tp:.4f} ms{lib}, '
               f'bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
 
     for wires in GATE_WIRE_SETS:
@@ -480,7 +576,8 @@ def check_gate_kernels(results: dict, rng, rng_g):
         work = x.clone()
         tk, _ = time_ms(lambda: pg.planar_apply(work, mre, mim, n, wires))
         tp, _ = time_ms(lambda: pg.planar_evolve_xla(x, mre, mim, n, wires))
-        note('planar_apply', wires, e, d, None, tk, tp, bound(2 * state_bytes, apply_flops))
+        tl = library_apply_ms(x, mre, mim, n, wires, ref, f'planar_apply wires={wires}')
+        note('planar_apply', wires, e, d, None, tk, tp, bound(2 * state_bytes, apply_flops), tl)
 
         # K5: (dRe, dIm) from g and x, pure reads
         ref = pg.planar_grad_xla(g, x, n, wires)
@@ -490,8 +587,9 @@ def check_gate_kernels(results: dict, rng, rng_g):
         _hold(f'planar_grad wires={wires}', pe, PLANE_BAR)
         tk, _ = time_ms(lambda: pg.planar_grad(g, x, n, wires))
         tp, _ = time_ms(lambda: pg.planar_grad_xla(g, x, n, wires))
+        tl = library_grad_ms(g, x, n, wires, ref, f'planar_grad wires={wires}')
         note('planar_grad', wires, None, pd, pe, tk, tp,
-             bound(2 * state_bytes + 2 * 4 ** k * 4, apply_flops))
+             bound(2 * state_bytes + 2 * 4 ** k * 4, apply_flops), tl)
 
         # K6: x = U^H y, g' = U^H g, planes from the raw g, in place on both
         ref = pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
@@ -518,6 +616,7 @@ def check_gate_kernels(results: dict, rng, rng_g):
                              rel_err=max(states) if states else None,
                              plane_rel_err=max(planes) if planes else None,
                              ms=float(np.mean(a['t_k'])), plain_ms=float(np.mean(a['t_p'])),
+                             library_ms=_mean_or_none(a['t_l']),
                              shape=f'n={n}, mean over {len(GATE_WIRE_SETS)} wire sets',
                              **mean_bound(a['bounds']))
 
@@ -538,20 +637,21 @@ def check_batched_kernels(results: dict, rng):
     rows = {name: [] for name in PLANAR_BATCHED}
     for n, b in BATCH_SHAPES:
         stack_bytes = b * 2 * (1 << n) * 4           # one (B, 2, 2^n) float32 stack
-        acc = {name: dict(errs=[], abs_errs=[], plane_errs=[], t_k=[], t_p=[], bounds=[])
+        acc = {name: dict(errs=[], abs_errs=[], plane_errs=[], t_k=[], t_p=[], t_l=[], bounds=[])
                for name in PLANAR_BATCHED}
         x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
         g = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
 
-        def note(name, wires, e, d, pe, tk, tp, bnd):
+        def note(name, wires, e, d, pe, tk, tp, bnd, tl=None):
             a = acc[name]
             for key, v in (('errs', e), ('abs_errs', d), ('plane_errs', pe), ('t_k', tk),
-                           ('t_p', tp), ('bounds', bnd)):
+                           ('t_p', tp), ('t_l', tl), ('bounds', bnd)):
                 a[key].append(v)
             errs = ', '.join(f'{what} rel err {v:.2e}' for what, v in (('state', e), ('plane', pe))
                              if v is not None)
+            lib = '' if tl is None else f', one einsum {tl:.4f} ms'
             print(f'{name} n={n} B={b} wires={wires}: {errs}, kernel {tk:.4f} ms, twin '
-                  f'{tp:.4f} ms, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
+                  f'{tp:.4f} ms{lib}, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
 
         for wires in BATCH_WIRES[n]:
             k = len(wires)
@@ -570,8 +670,10 @@ def check_batched_kernels(results: dict, rng):
             work = x.clone()
             tk, _ = time_ms(lambda: pg.planar_apply(work, mre, mim, n, wires))
             tp, _ = time_ms(lambda: pg.planar_evolve_xla(x, mre, mim, n, wires))
+            tl = library_apply_ms(x, mre, mim, n, wires, ref,
+                                  f'planar_apply_batched n={n} B={b} wires={wires}')
             note('planar_apply_batched', wires, e, d, None, tk, tp,
-                 bound(2 * stack_bytes + plane_bytes, flops))
+                 bound(2 * stack_bytes + plane_bytes, flops), tl)
 
             ref = pg.planar_grad_xla(g, x, n, wires)
             got = pg.planar_grad(g, x, n, wires)
@@ -580,8 +682,10 @@ def check_batched_kernels(results: dict, rng):
             _hold(f'planar_grad_batched n={n} B={b} wires={wires}', pe, PLANE_BAR)
             tk, _ = time_ms(lambda: pg.planar_grad(g, x, n, wires))
             tp, _ = time_ms(lambda: pg.planar_grad_xla(g, x, n, wires))
+            tl = library_grad_ms(g, x, n, wires, ref,
+                                 f'planar_grad_batched n={n} B={b} wires={wires}')
             note('planar_grad_batched', wires, None, pd, pe, tk, tp,
-                 bound(2 * stack_bytes + plane_bytes, flops))
+                 bound(2 * stack_bytes + plane_bytes, flops), tl)
 
             ref = pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
             wy, wg_ = y.clone(), g.clone()
@@ -622,6 +726,7 @@ def check_batched_kernels(results: dict, rng):
             row = dict(max_abs_err=max(a['abs_errs']), rel_err=max(states) if states else None,
                        plane_rel_err=max(planes) if planes else None,
                        ms=float(np.mean(a['t_k'])), plain_ms=float(np.mean(a['t_p'])),
+                       library_ms=_mean_or_none(a['t_l']),
                        shape=f'n={n}, B={b}, mean over k = 1, 2, 3',
                        **mean_bound(a['bounds']))
             if name == 'planar_apply_batched':
@@ -631,6 +736,216 @@ def check_batched_kernels(results: dict, rng):
         del x, g, y, work
     for name, r in rows.items():
         results[name] = dict(r[0], other_shapes=r[1:])
+
+
+CHAIN_SHAPES = [(14, 100), (12, 256), (16, 8)]   # the QML stack; a wide batch; a full
+                                                  # cluster of 8 on the backward
+CHAIN_NAMES = ('planar_chain_batched', 'planar_chain_batched_bwd')
+
+
+def _haar_stack(b: int, k: int, rng) -> np.ndarray:
+    z = rng.normal(size=(b, k, k)) + 1j * rng.normal(size=(b, k, k))
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r, axis1=1, axis2=2)
+    return q * (d / np.abs(d))[:, None, :]
+
+
+def _chain_inputs(n: int, b: int, rng, dev):
+    """The QML circuit's scheduled batched sequence at n (2 layers; at n=16
+    its relabels, which the table folds) with Haar planes in place of its
+    gates': per sample (b, K, K) where the QML step's planes are per sample,
+    one (K, K) set expanded over the batch where they are one set."""
+    import torch
+    cir = qml_circuit(dev, n)
+    data = torch.as_tensor(rng.random((b, n)), dtype=torch.float32, device=dev)
+    mres, mims, wseq = cir._planar_seq_batched(
+        cir._full_params(None, data, cir._data_indices(n)))
+    out_r, out_i = [], []
+    for m, ws in zip(mres, wseq):
+        if ws[0] == 'rot':
+            out_r.append(None)
+            out_i.append(None)
+            continue
+        k = 1 << len(ws)
+        us = _haar_stack(1 if m.stride(0) == 0 else b, k, rng)
+        re = torch.as_tensor(us.real, dtype=torch.float32, device=dev).expand(b, k, k)
+        im = torch.as_tensor(us.imag, dtype=torch.float32, device=dev).expand(b, k, k)
+        out_r.append(re)
+        out_i.append(im)
+    return out_r, out_i, wseq
+
+
+def _by_cluster(clusters: dict) -> str:
+    return ', '.join(f'C={c}: device {v["device_ms"]:.4f} ms, {v["resident"]} clusters resident'
+                     for c, v in clusters.items())
+
+
+def check_batched_chain(results: dict, rng):
+    """Phase 3, the batched gate chain (K1b / K6b redesigned): both entries
+    of csrc/planar_chain_batched.cu at (n, B) = (14, 100), (12, 256), (16, 8)
+    on the QML sequence with Haar planes (``_chain_inputs``), against the
+    plain twin and against the per-step K1b (forward) and K1b + K5b + K1b /
+    K6b (backward) on the same inputs. Bars as for the per-step kernels:
+    states <= 1e-6 of max|ref| (backward 1e-5), planes <= 1e-5; dW bitwise
+    equal over two launches; the inputs unwritten. Every shape's numbers are
+    printed before a miss stops the run. Times: through the wrapper (CUDA
+    events around the call), device time (the call's kernels behind a
+    queued sleep), the per-step route both ways, the packing; the least
+    cluster size that fits, the rule's (larger for a small batch) and twice
+    the rule's, each with its device time and resident clusters."""
+    import torch
+    pg, pcb = _pkg()[1], _chain_mod()
+    dev = torch.device('cuda')
+    rows = {name: [] for name in CHAIN_NAMES}
+    misses = []
+
+    def hold(name, err, bar):
+        if not err <= bar:
+            misses.append(f'{name}: rel err {err} > {bar}')
+
+    for n, b in CHAIN_SHAPES:
+        label = f'n={n} B={b}'
+        mres, mims, wseq = _chain_inputs(n, b, rng, dev)
+        if not (pcb.batched_chain_ok(wseq, n, mres) and pcb.batched_chain_ok(wseq, n, mres, True)):
+            raise AssertionError(f'batched chain {label}: the sequence does not qualify')
+        ks = [len(ws) for ws in wseq if ws[0] != 'rot']
+        n_rot = len(wseq) - len(ks)
+        x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
+        g = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
+        x0, g0 = x.clone(), g.clone()
+        chain = pcb.pack_chain(x, mres, mims, n, wseq)
+        n_per = sum(1 for r in chain.rows if not r[1])
+        steps = (f'{len(ks)} gate steps (k=1: {ks.count(1)}, k=2: {ks.count(2)}, k=3: '
+                 f'{ks.count(3)}; {n_per} with per-sample planes) and {n_rot} relabels folded')
+        stack_bytes = b * 2 * (1 << n) * 4
+        plane_bytes = 2 * 4 * (chain.ps_re.numel() * (chain.pstride > 0)
+                               + chain.sh_re.numel() * (chain.sh_re.numel() > 1))
+        flops = b * sum((1 << (n - k)) * 8 * 4 ** k for k in ks)
+
+        # forward
+        ref = pcb.planar_chain_batched_plain(x, chain)
+        ref64 = pcb.planar_chain_batched_plain(x.double(), chain)
+        y = pcb.planar_chain_batched(x, chain)
+        y_steps = pg._steps_forward(x, mres, mims, n, wseq)
+        torch.cuda.synchronize()
+        e, d = rel_err(y, ref)
+        e_steps = rel_err(y, y_steps)[0]
+        e64, e64_steps = rel_err(y, ref64)[0], rel_err(y_steps, ref64)[0]
+        hold(f'planar_chain_batched {label}', e, 1e-6)
+        hold(f'planar_chain_batched {label} against the per-step K1b', e_steps, 1e-6)
+        tk, _ = time_ms(lambda: pcb.planar_chain_batched(x, chain))
+        t_dev = _queued_ms(lambda: pcb.planar_chain_batched(x, chain))
+        t_pack, _ = time_ms(lambda: pcb.pack_chain(x, mres, mims, n, wseq))
+        tp, _ = time_ms(lambda: pcb.planar_chain_batched_plain(x, chain), reps=5)
+        ts, _ = time_ms(lambda: pg._steps_forward(x, mres, mims, n, wseq), reps=10)
+        ts_dev = _queued_ms(lambda: pg._steps_forward(x, mres, mims, n, wseq), reps=10,
+                            sleep_cycles=40_000_000)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        c_rule = 1 << pcb.cluster_bits(n, False, b, sms)
+        clusters = {}
+        for c in sorted({1 << pcb.cluster_bits(n), c_rule, min(8, 2 * c_rule)}):
+            yc = pcb._planar_chain_batched_cuda(x, chain, cluster=c)
+            torch.cuda.synchronize()
+            if not torch.equal(yc, y):
+                misses.append(f'planar_chain_batched {label}: cluster {c} differs from {c_rule}')
+            clusters[c] = dict(device_ms=_queued_ms(
+                lambda: pcb._planar_chain_batched_cuda(x, chain, cluster=c)),
+                resident=pcb.max_active_clusters(n, False, c))
+        bnd = bound(2 * stack_bytes + plane_bytes, flops)
+        rows['planar_chain_batched'].append(dict(
+            max_abs_err=d, rel_err=e, plane_rel_err=None, ms=tk, plain_ms=tp, library_ms=None,
+            device_ms=t_dev, per_step_ms=ts, per_step_device_ms=ts_dev, pack_ms=t_pack,
+            per_step_rel_err=e_steps, float64_rel_err=e64, cluster=c_rule, clusters=clusters,
+            shape=f'n={n}, B={b}, {steps}', **bnd))
+        print(f'planar_chain_batched {label} ({steps}): rel err {e:.2e} against the twin, '
+              f'{e_steps:.2e} against the per-step K1b; against the float64 twin kernel {e64:.2e}, '
+              f'per-step {e64_steps:.2e}; through the wrapper {tk:.4f} ms, device {t_dev:.4f} ms, '
+              f'packing {t_pack:.4f} ms, twin {tp:.4f} ms, per-step route {ts:.4f} ms (device '
+              f'{ts_dev:.4f} ms); bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]}, '
+              f'{bnd["bound_ms"] / t_dev:.0%} of the device time); cluster size {c_rule} by the '
+              f'rule; by cluster size '
+              + _by_cluster(clusters))
+
+        # backward from the twin's output
+        y = ref
+        y_in = y.clone()
+        got = pcb.planar_chain_batched_bwd(y, g, chain)
+        again = pcb.planar_chain_batched_bwd(y, g, chain)
+        want = pcb.planar_chain_batched_plain(y, chain, g)
+        steps_def = pg._steps_backward(y, g, mres, mims, n, wseq, False)
+        steps_fus = pg._steps_backward(y, g, mres, mims, n, wseq, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y_in) and torch.equal(g, g0) and torch.equal(x, x0)):
+            raise AssertionError(f'batched chain {label}: an input was written')
+        gates = [i for i, ws in enumerate(wseq) if ws[0] != 'rot']
+        if any(got[2][i] is None for i in gates) or any(a is not None for a, ws in zip(got[2], wseq)
+                                                       if ws[0] == 'rot'):
+            raise AssertionError(f'planar_chain_batched_bwd {label}: dW slots do not match the '
+                                 'gates')
+        eb = max(rel_err(got[0], want[0])[0], rel_err(got[1], want[1])[0])
+        db = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+        e_rec = rel_err(got[0], x)[0]
+        pe = max(rel_err(got[j][i], want[j][i])[0] for j in (2, 3) for i in gates)
+        pd = max(rel_err(got[j][i], want[j][i])[1] for j in (2, 3) for i in gates)
+        e_vs = {}
+        for route, (g_in, dres, dims) in (('K1b + K5b + K1b', steps_def), ('K6b', steps_fus)):
+            e_vs[route] = (rel_err(got[1], g_in)[0],
+                           max(rel_err(a[i], r[i])[0] for a, r in ((got[2], dres), (got[3], dims))
+                               for i in gates))
+        bitwise = all(torch.equal(a, c) for a, c in zip(got[:2], again[:2])) and all(
+            torch.equal(got[j][i], again[j][i]) for j in (2, 3) for i in gates)
+        hold(f'planar_chain_batched_bwd {label} states', eb, 1e-5)
+        hold(f'planar_chain_batched_bwd {label} recovers x', e_rec, 1e-5)
+        hold(f'planar_chain_batched_bwd {label} planes', pe, PLANE_BAR)
+        for route, (es, ep) in e_vs.items():
+            hold(f'planar_chain_batched_bwd {label} against {route}, states', es, 1e-5)
+            hold(f'planar_chain_batched_bwd {label} against {route}, planes', ep, PLANE_BAR)
+        if not bitwise:
+            misses.append(f'planar_chain_batched_bwd {label}: two launches differ')
+        tk, _ = time_ms(lambda: pcb.planar_chain_batched_bwd(y, g, chain))
+        t_dev = _queued_ms(lambda: pcb.planar_chain_batched_bwd(y, g, chain))
+        tp, _ = time_ms(lambda: pcb.planar_chain_batched_plain(y, chain, g), reps=5)
+        per_step = {}
+        for fused in (False, True):
+            per_step['fused_bwd' if fused else 'default'] = dict(
+                ms=time_ms(lambda: pg._steps_backward(y, g, mres, mims, n, wseq, fused),
+                           reps=10)[0],
+                device_ms=_queued_ms(lambda: pg._steps_backward(y, g, mres, mims, n, wseq, fused),
+                                     reps=10, sleep_cycles=80_000_000))
+        cb = 1 << pcb.cluster_bits(n, True, b, sms)
+        clusters = {}
+        for c in sorted({1 << pcb.cluster_bits(n, True), cb, min(8, 2 * cb)}):
+            other = pcb._planar_chain_batched_bwd_cuda(y, g, chain, cluster=c)
+            torch.cuda.synchronize()
+            eo = max(rel_err(other[1], got[1])[0],
+                     max(rel_err(other[j][i], got[j][i])[0] for j in (2, 3) for i in gates))
+            hold(f'planar_chain_batched_bwd {label}: cluster {c} against {cb}', eo, 1e-5)
+            clusters[c] = dict(device_ms=_queued_ms(
+                lambda: pcb._planar_chain_batched_bwd_cuda(y, g, chain, cluster=c)),
+                resident=pcb.max_active_clusters(n, True, c), rel_err=eo)
+        dw_bytes = b * chain.fd * 4
+        bnd = bound(4 * stack_bytes + plane_bytes + dw_bytes, 3 * flops)
+        rows['planar_chain_batched_bwd'].append(dict(
+            max_abs_err=max(db, pd), rel_err=eb, plane_rel_err=pe, ms=tk, plain_ms=tp,
+            library_ms=None, device_ms=t_dev, per_step=per_step, recovers_x_rel_err=e_rec,
+            per_step_rel_err=e_vs, cluster=cb, clusters=clusters, shape=f'n={n}, B={b}, {steps}',
+            **bnd))
+        print(f'planar_chain_batched_bwd {label}: state rel err {eb:.2e}, plane rel err {pe:.2e} '
+              f'against the twin (x recovered to {e_rec:.2e}), against the per-step route '
+              + ', '.join(f'{r} {es:.2e} / {ep:.2e}' for r, (es, ep) in e_vs.items())
+              + f'; dW {"bitwise equal" if bitwise else "DIFFERENT"} over two launches; through '
+              f'the wrapper {tk:.4f} ms, device {t_dev:.4f} ms, twin {tp:.4f} ms, per-step route '
+              + ', '.join(f'{r} {v["ms"]:.4f} ms (device {v["device_ms"]:.4f})'
+                          for r, v in per_step.items())
+              + f'; bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]}, '
+              f'{bnd["bound_ms"] / t_dev:.0%} of the device time); cluster size {cb} by the rule; '
+              f'by cluster size '
+              + _by_cluster(clusters))
+        del x, g, y, ref, ref64, y_steps, got, again, want, steps_def, steps_fus
+    for name, r in rows.items():
+        results[name] = dict(r[0], other_shapes=r[1:])
+    if misses:
+        raise AssertionError('batched chain: ' + '; '.join(misses))
 
 
 def check_window_kernels(results: dict, rng, rng_g):
@@ -930,19 +1245,20 @@ def _device_ms(fn, name: str, calls: int = 5) -> float:
     return ms
 
 
-def _queued_ms(fn, reps: int = REPS) -> float:
+def _queued_ms(fn, reps: int = REPS, sleep_cycles: int = 2_000_000) -> float:
     """Device time of one fn() call: CUDA events around it while a sleep
     kernel queued just before keeps the card busy, so the host's enqueue
     hides behind it and the events time fn's kernels back to back, the gaps
     between them included; the median of ``reps``. Used where a call is
     many small launches, in place of a profiler window per row (a window
-    has come back without any device operation on the card)."""
+    has come back without any device operation on the card). A call whose
+    enqueue takes longer asks for more ``sleep_cycles``."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        torch.cuda._sleep(2_000_000)          # ~1 ms of device time, longer than the enqueue
+        torch.cuda._sleep(sleep_cycles)       # 2M: ~1 ms of device time, longer than the enqueue
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1155,17 +1471,18 @@ def check_step_backward(n: int = 22, extra_cnot=(0, 11), layers: int = 2, reps: 
 QML_N, QML_LAYERS, QML_B = 14, 2, 100     # bench_suite.py::bench_batched_qml
 
 
-def qml_circuit(device=None):
+def qml_circuit(device=None, n: int = QML_N):
     """bench_batched_qml's circuit (benchmarks/bench_suite.py:693-755):
     QML_LAYERS x (ry(encode) on every wire; rz, ry on every wire; CNOT
     ring), observable Z on wire 0, reupload: the 14 features of a sample
-    wrap around the 28 encoders. With no device it lands on the card."""
+    wrap around the 28 encoders (``n`` other than 14: the same ansatz on n
+    wires). With no device it lands on the card."""
     dqt = _pkg()[0]
-    cir = dqt.QubitCircuit(QML_N, device=device, reupload=True)
+    cir = dqt.QubitCircuit(n, device=device, reupload=True)
     for _ in range(QML_LAYERS):
-        for i in range(QML_N):
+        for i in range(n):
             cir.ry(i, encode=True)
-        for i in range(QML_N):
+        for i in range(n):
             cir.rz(i)
             cir.ry(i)
         cir.cnot_ring()
@@ -1174,14 +1491,15 @@ def qml_circuit(device=None):
     return cir
 
 
-def qml_inputs(device):
+def qml_inputs(device, n: int = QML_N, batch: int = QML_B):
     """The benchmark's data, (100, 14) float32 from default_rng(0), and the
-    hybrid variant's linear layer W (14 x 14) and b from default_rng(SEED)."""
+    hybrid variant's linear layer W (14 x 14) and b from default_rng(SEED)
+    (or (batch, n), (n, n) and n)."""
     import torch
-    data = np.random.default_rng(0).random((QML_B, QML_N)).astype(np.float32)
+    data = np.random.default_rng(0).random((batch, n)).astype(np.float32)
     rng = np.random.default_rng(SEED)
-    w = rng.normal(0, 0.5, (QML_N, QML_N)).astype(np.float32)
-    b = rng.normal(0, 0.1, QML_N).astype(np.float32)
+    w = rng.normal(0, 0.5, (n, n)).astype(np.float32)
+    b = rng.normal(0, 0.1, n).astype(np.float32)
     return [torch.as_tensor(a, device=device) for a in (data, w, b)]
 
 
@@ -1211,26 +1529,26 @@ def qml_step(cir, leaves, hybrid: bool, update: bool = True):
     return loss.detach(), grads
 
 
-def _qml_leaves(cir, device, hybrid: bool):
+def _qml_leaves(cir, device, hybrid: bool, batch: int = QML_B):
     dqt = _pkg()[0]
-    data, w, b = qml_inputs(device)
+    data, w, b = qml_inputs(device, cir.nqubit, batch)
     p = cir.params.to(dqt.rdtype()).requires_grad_()
     if hybrid:
         w, b = w.to(dqt.rdtype()).requires_grad_(), b.to(dqt.rdtype()).requires_grad_()
     return [p, data.to(dqt.rdtype()), w.to(dqt.rdtype()), b.to(dqt.rdtype())]
 
 
-def _qml_reference(hybrid: bool, sgd_steps: int = 3):
+def _qml_reference(hybrid: bool, sgd_steps: int = 3, n: int = QML_N, batch: int = QML_B):
     """Loss and gradients on the port's complex128 einsum route on the
     card, then the losses of ``sgd_steps`` SGD steps."""
     import torch
     dqt = _pkg()[0]
     dqt.set_dtype('complex128')
     try:
-        cir = qml_circuit('cuda')
+        cir = qml_circuit('cuda', n)
         if cir._planar_ok():
             raise AssertionError('the complex128 reference must take the einsum route')
-        leaves = _qml_leaves(cir, 'cuda', hybrid)
+        leaves = _qml_leaves(cir, 'cuda', hybrid, batch)
         loss, grads = qml_step(cir, leaves, hybrid, update=False)
         losses = [qml_step(cir, leaves, hybrid)[0].item() for _ in range(sgd_steps)]
         with torch.no_grad():
@@ -1246,19 +1564,56 @@ def qml_step_loss(cir, leaves, hybrid: bool) -> float:
     return cir.expectation(data=data @ w + b if hybrid else data, params=p).mean().item()
 
 
+@contextlib.contextmanager
+def per_step_route():
+    """Run a batched gate chain step by step, as outside the batched-chain
+    range (the per-step K1b forward; K1b + K5b + K1b or K6b backward): the
+    planar engine's packing of the one-launch chain gives nothing."""
+    pg = _pkg()[1]
+    saved = pg._batched_chain
+    pg._batched_chain = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        pg._batched_chain = saved
+
+
+@contextlib.contextmanager
+def expectation_launches(out: list):
+    """Count in out[0] the forward-chain launches made inside
+    planar_pauli_expectation (the observable's own one-step chain)."""
+    pg, pcb = _pkg()[1], _chain_mod()
+    saved = pg.planar_pauli_expectation
+
+    def counted(*args, **kwargs):
+        before = pcb.planar_chain_batched.launches
+        value = saved(*args, **kwargs)
+        out[0] += pcb.planar_chain_batched.launches - before
+        return value
+
+    pg.planar_pauli_expectation = counted
+    try:
+        yield
+    finally:
+        pg.planar_pauli_expectation = saved
+
+
 def check_batched_qml(card: str, reps: int = 10):
     """The batched QML slice: bench_batched_qml's circuit at n=14, 2 layers,
-    B=100 through the public API on the card, plain and hybrid. Per step
-    batched planar_apply and planar_grad launched (planar_bwd_fused with
-    fused_bwd, and then no planar_grad), no window or chain kernel; loss and
-    gradients against the complex128 route (<= 1e-5, <= 1e-4), fused against
-    default (<= 1e-5), three SGD steps on the kernel and twin routes (losses
-    <= 1e-5 apart after each); the median step on both routes and the
-    device's busy share in a profiler window."""
+    B=100 through the public API on the card, plain and hybrid. Per step,
+    default and fused_bwd alike: one planar_chain_batched launch for the
+    gate chain, one more for the expectation's own one-step chain (counted
+    apart), one planar_chain_batched_bwd launch, and no per-step K1b / K5b /
+    K6b, window or window-chain kernel; loss and gradients against the
+    complex128 route (<= 1e-5, <= 1e-4), fused against default (<= 1e-5),
+    three SGD steps on the kernel and twin routes (losses <= 1e-5 apart
+    after each); the step medians on the kernel route, the per-step route
+    (``per_step_route``) and the twin route in turns, and the device's busy
+    share in a profiler window."""
     import torch
     dqt = _pkg()[0]
     dqt.set_dtype('complex64')
-    no_window = ('window_apply', 'window_chain_fwd', 'window_chain_bwd')
+    no_launch = ('window_apply', 'window_chain_fwd', 'window_chain_bwd') + PLANAR_BATCHED
     main_counts, out = {name: 0 for name in KERNELS}, {}
     for hybrid in (False, True):
         label = f'batched QML n={QML_N}, {QML_LAYERS} layers, B={QML_B}' + \
@@ -1272,24 +1627,25 @@ def check_batched_qml(card: str, reps: int = 10):
                 raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
             leaves = _qml_leaves(cir, cir.device, hybrid)
             reset_counts()
-            loss, grads = qml_step(cir, leaves, hybrid, update=False)
+            in_exp = [0]
+            with expectation_launches(in_exp):
+                loss, grads = qml_step(cir, leaves, hybrid, update=False)
             torch.cuda.synchronize()
             counts = read_counts()
             d_loss = abs(loss.item() - ref_loss)
             d_grad = max((a.double() - r).abs().max().item() for a, r in zip(grads, ref_grads))
-            print(f'{label}, fused_bwd={fused}: launches {counts}, loss {loss.item():.8f} '
-                  f'(complex128 {ref_loss:.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e} '
-                  f'over {"p, W, b" if hybrid else "p"}')
-            if any(counts[k] for k in no_window):
-                raise AssertionError(f'{label}: a window or chain kernel was launched')
-            if counts['planar_apply_batched'] < 1:
-                raise AssertionError(f'{label}: batched planar_apply was not launched')
-            if fused and (counts['planar_bwd_fused_batched'] < 1
-                          or counts['planar_grad_batched'] != 0):
-                raise AssertionError(f'{label}, fused_bwd: launches {counts}')
-            if not fused and (counts['planar_grad_batched'] < 1
-                              or counts['planar_bwd_fused_batched'] != 0):
-                raise AssertionError(f'{label}: launches {counts}')
+            print(f'{label}, fused_bwd={fused}: launches {counts} (of planar_chain_batched, '
+                  f'{in_exp[0]} in the expectation\'s chain), loss {loss.item():.8f} (complex128 '
+                  f'{ref_loss:.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e} over '
+                  f'{"p, W, b" if hybrid else "p"}')
+            if any(counts[k] for k in no_launch):
+                raise AssertionError(f'{label}: a per-step, window or window-chain kernel was '
+                                     'launched')
+            if (counts['planar_chain_batched'] - in_exp[0], in_exp[0],
+                    counts['planar_chain_batched_bwd']) != (1, 1, 1):
+                raise AssertionError(f'{label}, fused_bwd={fused}: expected one forward-chain '
+                                     'launch for the gates, one for the expectation and one '
+                                     f'backward-chain launch, got {counts}')
             if not (d_loss <= 1e-5 and d_grad <= 1e-4):
                 raise AssertionError(f'{label}, fused_bwd={fused}: differs from complex128')
             grads_by_route[fused] = grads
@@ -1320,21 +1676,75 @@ def check_batched_qml(card: str, reps: int = 10):
         if not (d_twin <= 1e-5 and d_ref <= 1e-5):
             raise AssertionError(f'{label}: the SGD losses drift between routes')
 
-        leaves = _qml_leaves(cir, cir.device, hybrid)
-        t_kernel, _ = time_ms(lambda: qml_step(cir, leaves, hybrid), reps=reps, warmup=2)
-        dev = _device_profile(lambda: qml_step(cir, leaves, hybrid), 3)
-        with twin_route():
-            leaves = _qml_leaves(cir, cir.device, hybrid)
-            t_twin, _ = time_ms(lambda: qml_step(cir, leaves, hybrid), reps=reps, warmup=2)
-        busy = dev['device_ms_per_step'] / t_kernel
-        print(f'{label}: step median over {reps}: kernel route {t_kernel:.3f} ms, twin route '
-              f'{t_twin:.3f} ms; device {dev["device_ms_per_step"]:.3f} ms per step '
+        reset_counts()
+        with per_step_route():
+            qml_step(cir, _qml_leaves(cir, cir.device, hybrid), hybrid)
+        torch.cuda.synchronize()
+        steps = read_counts()
+        if steps['planar_chain_batched'] or steps['planar_chain_batched_bwd'] \
+                or steps['planar_apply_batched'] < 1 or steps['planar_grad_batched'] < 1:
+            raise AssertionError(f'{label}: the per-step route launched {steps}')
+        routes = {'kernel': contextlib.nullcontext, 'per_step': per_step_route,
+                  'twin': twin_route}
+        leaves = {r: _qml_leaves(cir, cir.device, hybrid) for r in routes}
+        times = {r: [] for r in routes}
+        for r in ('kernel', 'per_step', 'twin', 'twin', 'per_step', 'kernel'):
+            with routes[r]():
+                times[r] += time_ms(lambda: qml_step(cir, leaves[r], hybrid), reps=reps // 2,
+                                    warmup=1)[1]
+        t = {r: float(np.median(v)) for r, v in times.items()}
+        dev = _device_profile(lambda: qml_step(cir, leaves['kernel'], hybrid), 3)
+        busy = dev['device_ms_per_step'] / t['kernel']
+        print(f'{label}: step median over {len(times["kernel"])} (in turns: kernel, per-step, '
+              f'twin, twin, per-step, kernel): kernel route {t["kernel"]:.3f} ms, per-step route '
+              f'{t["per_step"]:.3f} ms ({sum(steps.values())} launches a step), twin route '
+              f'{t["twin"]:.3f} ms; device {dev["device_ms_per_step"]:.3f} ms per step '
               f'({dev["device_ops_per_step"]:.0f} device ops, busy {busy:.1%}), top '
               f'{[(k["name"][:40], round(k["ms_per_step"], 4)) for k in dev["top_kernels"][:4]]} '
               f'[{card}]')
-        out['hybrid' if hybrid else 'plain'] = dict(step_ms=t_kernel, twin_step_ms=t_twin,
-                                                   device_busy_share=busy)
+        out['hybrid' if hybrid else 'plain'] = dict(
+            step_ms=t['kernel'], per_step_step_ms=t['per_step'], twin_step_ms=t['twin'],
+            per_step_launches=steps, device_busy_share=busy)
     return main_counts, out
+
+
+def check_batched_qml_wide(n: int = 18, batch: int = 8):
+    """The batched QML step outside the batched-chain range (n=18 > 17):
+    bench_batched_qml's ansatz on 18 wires, 2 layers, B=8, plain, through
+    the public API. The per-step batched kernels carry it: K1b and K5b per
+    gate step (K6b instead of K5b with fused_bwd), no chain kernel; loss and
+    gradient against the complex128 route (<= 1e-5, <= 1e-4), fused against
+    default (<= 1e-5)."""
+    import torch
+    label = f'batched QML n={n}, {QML_LAYERS} layers, B={batch} (outside the chain range)'
+    ref_loss, ref_grads, _ = _qml_reference(False, 0, n, batch)
+    main_counts, grads = {name: 0 for name in KERNELS}, {}
+    for fused in (False, True):
+        cir = qml_circuit(None, n)
+        cir.fused_bwd = fused
+        leaves = _qml_leaves(cir, cir.device, False, batch)
+        reset_counts()
+        loss, grads[fused] = qml_step(cir, leaves, False, update=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        d_loss = abs(loss.item() - ref_loss)
+        d_grad = (grads[fused][0].double() - ref_grads[0]).abs().max().item()
+        print(f'{label}, fused_bwd={fused}: launches {counts}, |d loss| {d_loss:.2e}, '
+              f'max|d grad| {d_grad:.2e}')
+        if counts['planar_chain_batched'] or counts['planar_chain_batched_bwd'] \
+                or counts['planar_apply_batched'] < 1 \
+                or counts['planar_bwd_fused_batched' if fused else 'planar_grad_batched'] < 1 \
+                or counts['planar_grad_batched' if fused else 'planar_bwd_fused_batched']:
+            raise AssertionError(f'{label}, fused_bwd={fused}: launches {counts}')
+        if not (d_loss <= 1e-5 and d_grad <= 1e-4):
+            raise AssertionError(f'{label}, fused_bwd={fused}: differs from complex128')
+        for name, c in counts.items():
+            main_counts[name] += c
+    d = (grads[False][0] - grads[True][0]).abs().max().item()
+    print(f'{label}: default vs fused_bwd max|d grad| {d:.2e}')
+    if not d <= 1e-5:
+        raise AssertionError(f'{label}: default and fused gradients differ by {d}')
+    return main_counts
 
 
 # ------------------------------------------------------ photonic gradients
@@ -1921,10 +2331,12 @@ def check_gbs(card: str, rng):
 PARTS = {   # label -> where the real step spends host time
     'sequence': 'QubitCircuit._planar_seq (gate matrices, window plan and products)',
     'sequence_batched': 'QubitCircuit._planar_seq_batched (every group\'s (B, K, K) matrices)',
-    'chain_forward': 'planar_chain (K3 at n=18; batched K1 per gate step in the QML step)',
-    'pauli_expectation': 'planar_pauli_expectation (K3 at n=18; batched K1 in the QML step)',
+    'chain_forward': 'planar_chain (K3 at n=18; one planar_chain_batched launch in the QML '
+                     'step)',
+    'pauli_expectation': 'planar_pauli_expectation (K3 at n=18; one planar_chain_batched launch '
+                         'in the QML step)',
     'chain_backward': '_chain_backward, the adjoint walk inside loss.backward() (K4 at n=18; '
-                      'batched K1 + K5 + K1 per gate step in the QML step)',
+                      'one planar_chain_batched_bwd launch in the QML step)',
 }
 
 
@@ -2231,6 +2643,7 @@ def main() -> int:
     with torch.no_grad():
         check_gate_kernels(results, rng, rng_g)
         check_batched_kernels(results, np.random.default_rng(SEED + 5))
+        check_batched_chain(results, np.random.default_rng(SEED + 8))
         check_window_kernels(results, rng, rng_g)
         with complex128():
             check_permanent_kernel(results, rng_p)
@@ -2261,6 +2674,7 @@ def main() -> int:
     for counts in check_step_backward():
         add(counts)
     add(check_batched_qml(smi)[0])
+    add(check_batched_qml_wide())
     add(check_boson_sampling(smi, rng_p))
     add(check_gbs(smi, rng_p))
     add(check_photonic_gradients(smi, np.random.default_rng(SEED + 6)))
@@ -2272,13 +2686,13 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         # library_ms: window_apply has one (a real block matmul, timed in
-        # phase 3) and tor_dets_cuda has one, single and batched (a batched
-        # det per size group).
-        # The others have no single PyTorch call: a gate on arbitrary wires
-        # needs a permute beside its matmul (per sample: a permute and a
-        # batched matmul), the reduced planes need two products combined,
-        # the chains are loops of steps, nothing computes a permanent, and
-        # the quadratic form is a det, a solve and a dot
+        # phase 3), planar_apply and planar_grad have one, single and
+        # batched (a torch.einsum over the state viewed around the gate's
+        # bits), and tor_dets_cuda has one, single and batched (a batched
+        # det per size group). The others have no single PyTorch call:
+        # planar_bwd_fused has three outputs, the chains are loops of steps,
+        # nothing computes a permanent, and the quadratic form is a det, a
+        # solve and a dot
         kernels.append(dict(name=name, route='cuda', source=source, replaces=replaces,
                             launches=main_path[name], max_abs_err=r['max_abs_err'],
                             rel_err=r['rel_err'], plane_rel_err=r['plane_rel_err'], ms=r['ms'],
@@ -2286,7 +2700,9 @@ def main() -> int:
                             bound_by=r['bound_by'], library_ms=r.get('library_ms'),
                             shape=r['shape'], other_shapes=r.get('other_shapes'),
                             **{k: r[k] for k in ('device_ms', 'non_unitary_rel_err', 'depth',
-                                                 'shared_planes_ms', 'shared_planes_rel_err')
+                                                 'shared_planes_ms', 'shared_planes_rel_err',
+                                                 'per_step_ms', 'per_step_device_ms', 'per_step',
+                                                 'pack_ms', 'cluster', 'clusters')
                                if k in r}))
     # computed, not measured: the window body's alternative bounds from the
     # inputs as bound_ms is, and the chains' barriers from their step tables

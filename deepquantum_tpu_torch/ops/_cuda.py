@@ -51,6 +51,13 @@ _SIGNATURES = {
     'dq_permanent_ryser': (_P, _I, _P, _I, _I, _I),            # mats, is_c64, parts, b, n, level
     # o_mat, gamma (or null), is_c64, idx, det, quad (or null), batch, m
     'dq_tor_lu': (_P, _P, _I, _P, _P, _P, _I, _I),
+    # table, nstep, ps_re, ps_im, sh_re, sh_im, pstride, x, y, batch, n, c
+    'dq_planar_chain_batched_fwd_f32': (_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I),
+    # table, nstep, ps_re, ps_im, sh_re, sh_im, pstride, y, g, x_out, g_out, parts, fd,
+    # batch, n, c
+    'dq_planar_chain_batched_bwd_f32': (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I),
+    'dq_planar_chain_batched_clusters': (_I, _I, _I, _P),      # n, c, backward, out (host int)
 }
 
 _lock = threading.Lock()

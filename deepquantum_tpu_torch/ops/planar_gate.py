@@ -10,9 +10,12 @@ amplitude index (the ``evolve_state`` convention).
 
 A batch of states, as data-encoded QML runs it, is a (B, 2, 2^n) stack with
 per-sample (B, K, K) planes (or one (K, K) set shared by every sample, as an
-observable's): the three per-gate kernels take the batch as a grid axis,
-as the JAX package's kernels do, and the chain's Functions carry it through.
-Windows and the one-launch chain refuse batched planes, as there.
+observable's). The three per-gate kernels take the batch as a grid axis,
+as the JAX package's kernels do; the chain's Functions carry a batched gate
+chain at 8 <= n <= 17 (its backward at n <= 16) as ONE launch per direction
+of the batched-chain kernel (ops/planar_chain_batched.py), each sample's
+state in shared memory, and walk it gate by gate outside that range.
+Windows and the window-chain kernel refuse batched planes, as in JAX.
 
 Gradients come from two ``torch.autograd.Function``s, ``planar_chain`` and
 ``planar_pauli_expectation``. The chain's backward is the adjoint method:
@@ -441,11 +444,39 @@ def schedule_planar_seq(mres, mims, wseq, n: int):
 
 
 # --------------------------------------------------------------- gate chains
-def _run_steps(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
-    """Walk a scheduled sequence step by step, updating the work buffer x in
-    place where the step allows (gates, windows); rotations return a new
+def _batched_chain(x: torch.Tensor, mres, mims, n: int, wires_seq):
+    """The packed one-launch form of a batched gate chain
+    (ops/planar_chain_batched.py) when the forward qualifies
+    (``batched_chain_ok``), else None. Packed once per call and kept for
+    the backward."""
+    from .planar_chain_batched import batched_chain_ok, pack_chain
+    if x.dtype == torch.float32 and x.dim() == 3 and batched_chain_ok(wires_seq, n, mres):
+        return pack_chain(x, mres, mims, n, wires_seq)
+    return None
+
+
+def _chain_forward(x: torch.Tensor, mres, mims, n: int, wires_seq, chain=None) -> torch.Tensor:
+    """The chain without autograd: the final state in a new tensor. A
+    batched gate chain packed by ``_batched_chain`` runs as ONE launch of
+    the batched-chain kernel; a sequence of windows + relabels at
+    14 <= n <= 19 as ONE launch of the window-chain kernel
+    (ops/chain_kernel.py). Otherwise ``_steps_forward`` walks it."""
+    from .chain_kernel import chain_fused_ok, window_chain_fwd
+    from .planar_chain_batched import planar_chain_batched
+    if chain is not None:
+        return planar_chain_batched(x, chain)
+    if x.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
+        return window_chain_fwd(x, mres, mims, n, wires_seq)
+    return _steps_forward(x, mres, mims, n, wires_seq)
+
+
+def _steps_forward(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """The per-step forward: x copied once into a work buffer, each step
+    its own kernel, in place where the step allows (a gate planar_apply, a
+    window window_apply); a relabel (a plain transpose) gives a new
     buffer."""
     from .window_gate import window_apply
+    x = x.clone()
     for mre, mim, ws in zip(mres, mims, wires_seq):
         if ws[0] == 'rot':
             x = _rotate_planar(x, ws[1], n)
@@ -456,17 +487,6 @@ def _run_steps(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
     return x
 
 
-def _chain_forward(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
-    """The chain without autograd: the final state in a new tensor. When the
-    whole sequence is windows + relabels and 14 <= n <= 19, it runs as ONE
-    launch of the window-chain kernel (ops/chain_kernel.py). Otherwise x is
-    copied once into a work buffer and each step runs its own kernel."""
-    from .chain_kernel import chain_fused_ok, window_chain_fwd
-    if x.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
-        return window_chain_fwd(x, mres, mims, n, wires_seq)
-    return _run_steps(x.clone(), mres, mims, n, wires_seq)
-
-
 def _conj_t(mre: torch.Tensor, mim: torch.Tensor):
     """Planes of U^H from the planes of U: (U_re^T, -U_im^T), per sample
     for (B, K, K) planes."""
@@ -474,15 +494,33 @@ def _conj_t(mre: torch.Tensor, mim: torch.Tensor):
 
 
 def _chain_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq,
-                    fused_bwd: bool):
+                    fused_bwd: bool, chain=None):
     """The adjoint recurrence over a scheduled sequence: from the final state
     y and its cotangent g give (g_in, dres, dims), dres/dims aligned to the
-    step list with None at relabel slots. Neither y nor g is written."""
+    step list with None at relabel slots. Neither y nor g is written. A
+    packed batched chain whose reverse walk qualifies (n <= 16) is ONE
+    launch of the batched-chain kernel, whatever ``fused_bwd`` says; windows
+    + relabels at 14 <= n <= 19 ONE launch of the window-chain kernel;
+    otherwise ``_steps_backward`` walks it."""
     from .chain_kernel import chain_fused_ok, window_chain_bwd
-    from .window_gate import window_apply, window_grad
+    from .planar_chain_batched import batched_chain_ok, planar_chain_batched_bwd
+    if chain is not None and batched_chain_ok(wires_seq, n, mres, backward=True):
+        _, g_in, dres, dims = planar_chain_batched_bwd(y, g, chain)
+        return g_in, dres, dims
     if y.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
         _, g_in, dres, dims = window_chain_bwd(y, g, mres, mims, n, wires_seq)
         return g_in, dres, dims
+    return _steps_backward(y, g, mres, mims, n, wires_seq, fused_bwd)
+
+
+def _steps_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq,
+                    fused_bwd: bool):
+    """The per-step adjoint walk, y and g copied once into work buffers: a
+    gate step as planar_apply + planar_grad + planar_apply or, with
+    ``fused_bwd``, as one planar_bwd_fused; a window as window_apply +
+    window_grad + window_apply; a relabel undone on both. Returns (g_in,
+    dres, dims) as ``_chain_backward``."""
+    from .window_gate import window_apply, window_grad
     y = y.clone(memory_format=torch.contiguous_format)
     g = g.clone(memory_format=torch.contiguous_format)
     dres = [None] * len(wires_seq)
@@ -547,9 +585,11 @@ class _PlanarChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n, wires_seq, fused_bwd, *planes):
         mres, mims = _split_planes(planes, wires_seq)
-        y = _chain_forward(x, mres, mims, n, wires_seq)
+        chain = _batched_chain(x, mres, mims, n, wires_seq)
+        y = _chain_forward(x, mres, mims, n, wires_seq, chain)
         ctx.save_for_backward(y, *planes)
         ctx.spec = (n, wires_seq, fused_bwd)
+        ctx.chain = chain
         return y
 
     @staticmethod
@@ -558,7 +598,7 @@ class _PlanarChain(torch.autograd.Function):
         n, wires_seq, fused_bwd = ctx.spec
         y, *planes = ctx.saved_tensors
         mres, mims = _split_planes(planes, wires_seq)
-        g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd)
+        g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd, ctx.chain)
         # a (K, K) plane shared by a batch of states gets the batch's sum
         dplanes = [(d if d.dim() == m.dim() else d.sum(0)).to(m.dtype)
                    for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
@@ -575,9 +615,11 @@ def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq,
     reverse: it un-applies each unitary to recover its input (U^H y), reduces
     the matrix cotangent and carries the state cotangent on (U^H g). When the
     whole sequence is windows + relabels and 14 <= n <= 19, each direction is
-    ONE launch (ops/chain_kernel.py); otherwise each step runs its own
-    kernels, a gate step as three launches or, with ``fused_bwd``, as the
-    single ``planar_bwd_fused``. The recurrence is exact for unitary steps."""
+    ONE launch (ops/chain_kernel.py); a batched gate chain at 8 <= n <= 17
+    (the backward n <= 16) likewise (ops/planar_chain_batched.py); otherwise
+    each step runs its own kernels, a gate step as three launches or, with
+    ``fused_bwd``, as the single ``planar_bwd_fused``. The recurrence is
+    exact for unitary steps."""
     wires_seq = tuple(wires_seq)
     return _PlanarChain.apply(x, n, wires_seq, bool(fused_bwd),
                               *_flat_planes(mres, mims, wires_seq))
@@ -590,7 +632,8 @@ class _PauliExpectation(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n, wires_seq, *planes):
         mres, mims = _split_planes(planes, wires_seq)
-        ox = _chain_forward(x, mres, mims, n, wires_seq)
+        chain = _batched_chain(x, mres, mims, n, wires_seq)
+        ox = _chain_forward(x, mres, mims, n, wires_seq, chain)
         ctx.save_for_backward(ox)
         return torch.sum(x[..., 0, :] * ox[..., 0, :] + x[..., 1, :] * ox[..., 1, :], dim=-1)
 

@@ -570,15 +570,21 @@ def _qml(n, layers, device=None):
 
 @pytest.mark.parametrize('fused', [False, True])
 def test_batched_qml_step_matches_complex128(fused, card):
-    """The data-encoded step on the default device: batched K1 and K5 (K6
-    with fused_bwd), no window or chain kernel; loss and the gradients in
-    the parameters and the data against the complex128 einsum route."""
+    """The data-encoded step on the default device: at n=14 the gate chain
+    is one planar_chain_batched launch and its backward one
+    planar_chain_batched_bwd launch (the observable's chain one more
+    forward launch), with no per-step batched K1 / K5 / K6, window or chain
+    kernel, fused_bwd or not; loss and the gradients in the parameters and
+    the data against the complex128 einsum route."""
+    from deepquantum_tpu_torch.ops import planar_chain_batched as pcb
     n, b = 14, 12
     feats = np.random.default_rng(3).uniform(0, np.pi, (b, n))
     names = {'apply': tpg.planar_apply, 'grad': tpg.planar_grad, 'fused': tpg.planar_bwd_fused}
+    chains = (pcb.planar_chain_batched, pcb.planar_chain_batched_bwd)
     windows = (twg.window_apply, tck.window_chain_fwd, tck.window_chain_bwd)
     before = {k: fn.batched_launches for k, fn in names.items()}
     before_win = [fn.launches for fn in windows]
+    before_chain = [fn.launches for fn in chains]
     out = {}
     for dtype in ('complex64', 'complex128'):
         dqt.set_dtype(dtype)
@@ -591,13 +597,150 @@ def test_batched_qml_step_matches_complex128(fused, card):
         out[dtype] = (loss.item(), p.grad.double(), d.grad.double())
         if dtype == 'complex64':
             used = {k: fn.batched_launches - before[k] for k, fn in names.items()}
-    assert used['apply'] > 0 and [fn.launches for fn in windows] == before_win
-    assert (used['fused'] > 0 and used['grad'] == 0) if fused else \
-        (used['grad'] > 0 and used['fused'] == 0)
+            used_chain = [fn.launches - c for fn, c in zip(chains, before_chain)]
+    assert used == {'apply': 0, 'grad': 0, 'fused': 0} and used_chain == [2, 1]
+    assert [fn.launches for fn in windows] == before_win
     (l64, p64, d64), (l128, p128, d128) = out['complex64'], out['complex128']
     assert abs(l64 - l128) <= 1e-5 * b
     assert (p64 - p128).abs().max().item() <= 1e-4
     assert (d64 - d128).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_batched_qml_step_outside_the_chain_range(fused, card):
+    """At n=18, past the batched chain's range, the step walks the gates
+    with the per-step batched kernels (K1 and K5, K6 with fused_bwd) and
+    launches no chain kernel; gradients against complex128."""
+    from deepquantum_tpu_torch.ops import planar_chain_batched as pcb
+    n, b = 18, 3
+    feats = np.random.default_rng(4).uniform(0, np.pi, (b, n))
+    names = {'apply': tpg.planar_apply, 'grad': tpg.planar_grad, 'fused': tpg.planar_bwd_fused}
+    chains = (pcb.planar_chain_batched, pcb.planar_chain_batched_bwd)
+    before = {k: fn.batched_launches for k, fn in names.items()}
+    before_chain = [fn.launches for fn in chains]
+    grads = {}
+    for dtype in ('complex64', 'complex128'):
+        dqt.set_dtype(dtype)
+        cir = _qml(n, 1)
+        cir.fused_bwd = fused
+        p = cir.params.requires_grad_()
+        cir.expectation(data=torch.tensor(feats, device=card), params=p).sum().backward()
+        grads[dtype] = p.grad.double()
+        if dtype == 'complex64':
+            used = {k: fn.batched_launches - before[k] for k, fn in names.items()}
+    assert [fn.launches for fn in chains] == before_chain
+    assert used['apply'] > 0
+    assert (used['fused'] > 0 and used['grad'] == 0) if fused else \
+        (used['grad'] > 0 and used['fused'] == 0)
+    assert (grads['complex64'] - grads['complex128']).abs().max().item() <= 1e-4
+
+
+# The batched gate chain (csrc/planar_chain_batched.cu): the QML ansatz's
+# scheduled sequence at n with Haar planes, per sample where the ansatz's
+# planes are per sample (the encoders), one set elsewhere; relabels from
+# n=16 on, folded into the table. Bars as for the chain kernels: 1e-5 of
+# max|ref| over a few dozen steps, planes as _plane_close.
+CHAIN_CASES = [(12, 5), (14, 3), (16, 2), (17, 2)]
+
+
+def _chain_inputs(n, b, rng, device):
+    cir = _qml(n, 2, device)
+    data = torch.as_tensor(rng.uniform(0, np.pi, (b, n)), dtype=torch.float32, device=device)
+    mres, mims, wseq = cir._planar_seq_batched(cir._full_params(None, data, cir._data_indices(n)))
+    out_r, out_i = [], []
+    for m, ws in zip(mres, wseq):
+        if ws[0] == 'rot':
+            out_r.append(None)
+            out_i.append(None)
+            continue
+        k = 1 << len(ws)
+        us = np.stack([_haar(k, rng) for _ in range(1 if m.stride(0) == 0 else b)])
+        out_r.append(torch.as_tensor(us.real, dtype=torch.float32, device=device).expand(b, k, k))
+        out_i.append(torch.as_tensor(us.imag, dtype=torch.float32, device=device).expand(b, k, k))
+    x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n)), dtype=torch.float32, device=device)
+    g = torch.as_tensor(rng.standard_normal((b, 2, 1 << n)), dtype=torch.float32, device=device)
+    return out_r, out_i, wseq, x, g
+
+
+def _rel_close(got, want, bar=1e-5):
+    torch.testing.assert_close(got, want, atol=bar * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize('n,b', CHAIN_CASES)
+def test_batched_chain_matches_twin_and_steps(n, b, card):
+    """Both entries against the twin and against the per-step kernels (K1b
+    forward; K1b + K5b + K1b and K6b backward, n <= 16), one launch each,
+    the inputs unwritten."""
+    from deepquantum_tpu_torch.ops import planar_chain_batched as pcb
+    rng = np.random.default_rng(n * 7 + b)
+    mres, mims, wseq, x, g = _chain_inputs(n, b, rng, card)
+    assert (any(ws[0] == 'rot' for ws in wseq)) == (n >= 16)
+    chain = pcb.pack_chain(x, mres, mims, n, wseq)
+    x0, g0 = x.clone(), g.clone()
+    before = (pcb.planar_chain_batched.launches, pcb.planar_chain_batched_bwd.launches)
+    y = pcb.planar_chain_batched(x, chain)
+    torch.cuda.synchronize()
+    _rel_close(y, pcb.planar_chain_batched_plain(x, chain))
+    _rel_close(y, tpg._steps_forward(x, mres, mims, n, wseq))
+    assert pcb.planar_chain_batched.launches == before[0] + 1
+    if not pcb.batched_chain_ok(wseq, n, mres, backward=True):
+        assert n == 17
+        with pytest.raises(ValueError, match='past the kernel range'):
+            pcb.planar_chain_batched_bwd(y, g, chain)
+        return
+    got = pcb.planar_chain_batched_bwd(y, g, chain)
+    torch.cuda.synchronize()
+    assert pcb.planar_chain_batched_bwd.launches == before[1] + 1
+    assert torch.equal(x, x0) and torch.equal(g, g0)
+    want = pcb.planar_chain_batched_plain(y, chain, g)
+    _rel_close(got[0], want[0])
+    _rel_close(got[0], x)
+    _rel_close(got[1], want[1])
+    gates = [i for i, ws in enumerate(wseq) if ws[0] != 'rot']
+    for j in (2, 3):
+        for i in gates:
+            _plane_close(got[j][i], want[j][i])
+    for fused in (False, True):
+        g_in, dres, dims = tpg._steps_backward(y, g, mres, mims, n, wseq, fused)
+        _rel_close(got[1], g_in)
+        for i in gates:
+            _plane_close(got[2][i], dres[i])
+            _plane_close(got[3][i], dims[i])
+
+
+def test_batched_chain_dw_is_bitwise_reproducible(card):
+    from deepquantum_tpu_torch.ops import planar_chain_batched as pcb
+    n, b = 14, 100
+    mres, mims, wseq, x, g = _chain_inputs(n, b, np.random.default_rng(14), card)
+    chain = pcb.pack_chain(x, mres, mims, n, wseq)
+    first, again = (pcb.planar_chain_batched_bwd(x, g, chain) for _ in range(2))
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert all(torch.equal(a, c) for j in (2, 3) for a, c in zip(first[j], again[j])
+               if a is not None)
+
+
+@pytest.mark.parametrize('n', [13, 14, 16])
+def test_batched_chain_cluster_sizes_agree(n, card):
+    """A larger cluster than the rule's (a block holds a smaller share of
+    the sample): the forward gives the same bits (each group's arithmetic
+    is the same wherever it runs), the backward the same within the bars."""
+    from deepquantum_tpu_torch.ops import planar_chain_batched as pcb
+    mres, mims, wseq, x, g = _chain_inputs(n, 3, np.random.default_rng(n), card)
+    chain = pcb.pack_chain(x, mres, mims, n, wseq)
+    cf, cb = 1 << pcb.cluster_bits(n), 1 << pcb.cluster_bits(n, True)
+    assert torch.equal(pcb._planar_chain_batched_cuda(x, chain, cluster=cf),
+                       pcb._planar_chain_batched_cuda(x, chain, cluster=2 * cf))
+    got = pcb._planar_chain_batched_bwd_cuda(x, g, chain, cluster=cb)
+    if 2 * cb <= 8:
+        other = pcb._planar_chain_batched_bwd_cuda(x, g, chain, cluster=2 * cb)
+        _rel_close(other[1], got[1])
+        for j in (2, 3):
+            for a, c in zip(other[j], got[j]):
+                if a is not None:
+                    _plane_close(a, c)
+    with pytest.raises(ValueError, match='cluster'):
+        pcb._planar_chain_batched_cuda(x, chain, cluster=3)
+    assert pcb.max_active_clusters(n, False) > 0 and pcb.max_active_clusters(n, True) > 0
 
 
 # ------------------------------------------------------------------ photonic

@@ -27,10 +27,23 @@ transpose; the merge is checked against the steps one by one.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import deepquantum_tpu_torch as dqt
 from deepquantum_tpu_torch.ops import chain_kernel as tck
 from deepquantum_tpu_torch.ops.planar_gate import _rotate_planar
+
+# one intra-op thread: the suite's workers share the machine's cores
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_blas_thread():
+    """numpy's matmuls and QR here on one OpenBLAS thread: with one thread
+    per core in each of the suite's workers they spin against each other
+    (the FP64 walk took 41.6 s on 6 workers, 0.9 s alone)."""
+    with threadpool_limits(limits=1, user_api='blas'):
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -95,16 +108,14 @@ def tensor_core_mma(c, a, b):
     leading bit dropped toward zero, and the sum truncated to float32.
     c: (S, M, N), a: (S, M, 8), b: (S, 8, N) float32 tensors of TF32 values
     (their products are exact in float32)."""
-    prods = [a[:, :, k, None] * b[:, None, k, :] for k in range(a.shape[2])]
-    top = c.abs()
-    for p in prods:
-        top = torch.maximum(top, p.abs())
+    prods = a[:, :, :, None] * b[:, None, :, :]               # (S, M, 8, N)
+    top = torch.maximum(c.abs(), prods.abs().amax(dim=2))
     # 2^(24 - e), top = m 2^e with 0.5 <= m < 1: every term times it is below
-    # 2^25, and a cast to int32 drops its fraction toward zero
+    # 2^25, and a cast to int32 drops its fraction toward zero; the nine
+    # integers sum exactly in int32
     scale = ((151 - torch.frexp(top).exponent) << 23).view(torch.float32)
-    total = (c * scale).to(torch.int32)
-    for p in prods:
-        total += (p * scale).to(torch.int32)
+    total = (c * scale).to(torch.int32) + (prods * scale[:, :, None]).to(torch.int32).sum(
+        dim=2, dtype=torch.int32)
     exact = total.double() / scale
     out = exact.float()
     return torch.where(out.double().abs() > exact.abs(), torch.nextafter(out, torch.zeros_like(out)),
