@@ -8,135 +8,232 @@
 // once (2 planes x 2^n x 4 B, both ways) and does 8 * 4^k flops per group of
 // 2^k amplitudes that moves 16 * 2^k bytes: 2^k / 2 flop/B, at most 4 at
 // k = 3, far below the card's ridge. So the design spends nothing on
-// arithmetic: one thread owns one group of 2^k amplitudes (the base index
-// with zero bits inserted at the gate's bit positions, wire 0 the most
-// significant bit), loads them, multiplies by the <= 8x8 matrix planes held
-// in shared memory, and writes them back. Each thread owns its amplitudes,
-// so the update is in place with no synchronisation. None of the TPU
-// machinery (XOR lane/sublane rolls, head/mid/tail split, row blocks) is
-// carried over: the card gathers amplitudes by address.
+// arithmetic and everything on the loads and stores:
+// - every access is a 16-byte float4 (planar_quad.cuh): a thread owns a unit
+//   of 2^(k - LOW) quads per plane, 4 / 2^LOW whole groups, and pairs the
+//   gate's partners in registers. Where the gate holds amplitude bit 0 or 1
+//   the quad holds the partners themselves (LOW = 1, 2), so neighbouring
+//   threads still take neighbouring 16-byte words; the gate's bits >= 2 are
+//   the unit's quads. Each thread owns every amplitude it reads and writes,
+//   so the update is in place with no synchronisation;
+// - the grid is one wave of the blocks the card keeps resident for the
+//   instance, spread over the batch (the wrapper's gate_blocks, from
+//   dq_planar_apply_blocks_per_sm), not one thread per group: each thread
+//   walks several units, two at a time at k <= 2 so that two loads per
+//   plane are in flight;
+// - indices are 32-bit within a sample;
+// - the matrix planes sit in registers at k <= 2 (32 floats at k = 2) and
+//   in shared memory at k = 3 (128 floats, read inside the loop).
+// None of the TPU machinery (XOR lane/sublane rolls, head/mid/tail split,
+// row blocks) is carried over: the card gathers amplitudes by address.
 //
 // Batched form (the JAX kernel's leading batch grid axis): a (B, 2, 2^n)
 // stack with per-sample (B, 2^k, 2^k) planes, or one plane broadcast to
 // every sample. The sample is a grid axis: each sample owns bps consecutive
-// blocks, and each block stages its own sample's planes in shared memory.
-// A single state (B = 1) runs the unbatched instance.
+// blocks, and each block stages its own sample's planes. A single state is
+// B = 1.
 
-#include "planar_group.cuh"
+#include "planar_quad.cuh"
 
 namespace {
 
-constexpr int kThreads = dq::kGateThreads;
+constexpr int kThreads = dq::kQuadThreads;
 
-template <int K, bool BATCHED>
-__global__ void __launch_bounds__(kThreads)
-planar_apply_kernel(float* x, const float* __restrict__ mre, const float* __restrict__ mim,
-                    uint64_t ngroups, uint64_t dim, unsigned bps, int pstride, int bit0,
-                    int bit1, int bit2) {
-  constexpr int D = 1 << K;
-  // a batched grid gives each sample bps consecutive blocks; the sample's
-  // planes sit pstride floats apart (0: one plane broadcast to every sample)
-  uint64_t sample = 0;
-  unsigned lb = blockIdx.x;
-  unsigned nb = gridDim.x;
-  if constexpr (BATCHED) {
-    sample = blockIdx.x / bps;
-    lb = blockIdx.x - unsigned(sample) * bps;
-    nb = bps;
+// the gate's planes, in registers at k <= 2, read from shared memory at k = 3
+template <int K>
+struct Planes {
+  static constexpr int D = 1 << K;
+  static constexpr bool kRegs = K <= 2;
+  float re[kRegs ? D * D : 1];
+  float im[kRegs ? D * D : 1];
+  const float* sre;
+  const float* sim;
+
+  __device__ __forceinline__ Planes(const float* r, const float* i) : sre(r), sim(i) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int e = 0; e < D * D; ++e) {
+        re[e] = r[e];
+        im[e] = i[e];
+      }
+    }
   }
-  float* xr = x + sample * 2 * dim;
-  float* xi = xr + dim;
-  const float* pr = mre + sample * pstride;
-  const float* pi = mim + sample * pstride;
+  __device__ __forceinline__ float mr(int e) const {
+    if constexpr (kRegs) return re[e];
+    return sre[e];
+  }
+  __device__ __forceinline__ float mi(int e) const {
+    if constexpr (kRegs) return im[e];
+    return sim[e];
+  }
+};
+
+// y = M v for every group of one unit, stored quad by quad as it is done
+template <int K, int LOW>
+__device__ __forceinline__ void apply_unit(float4* xr, float4* xi, unsigned q0,
+                                           const dq::QuadPlan<K - LOW>& plan,
+                                           const float4 (&vr)[1 << (K - LOW)],
+                                           const float4 (&vi)[1 << (K - LOW)],
+                                           const Planes<K>& m, bool swap) {
+  constexpr int D = 1 << K;
+  constexpr int NQ = 1 << (K - LOW);
+  constexpr int CL = 1 << LOW;
+  float ar[NQ][4];
+  float ai[NQ][4];
+#pragma unroll
+  for (int ch = 0; ch < NQ; ++ch) {
+    dq::unpack_quad(vr[ch], ar[ch], swap);
+    dq::unpack_quad(vi[ch], ai[ch], swap);
+  }
+#pragma unroll
+  for (int ah = 0; ah < NQ; ++ah) {
+    float yr[4];
+    float yi[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const int s = LOW == 0 ? l : (LOW == 1 ? l >> 1 : 0);   // the lane's group
+      const int a = (ah << LOW) | (LOW == 0 ? 0 : (LOW == 1 ? (l & 1) : l));
+      float sr = 0.f;
+      float si = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < NQ; ++ch) {
+#pragma unroll
+        for (int cl = 0; cl < CL; ++cl) {
+          const int c = (ch << LOW) | cl;
+          const int lc = dq::quad_lane<LOW>(s, cl);
+          const float mr = m.mr(a * D + c);
+          const float mi = m.mi(a * D + c);
+          sr = fmaf(mr, ar[ch][lc], sr);
+          sr = fmaf(-mi, ai[ch][lc], sr);
+          si = fmaf(mr, ai[ch][lc], si);
+          si = fmaf(mi, ar[ch][lc], si);
+        }
+      }
+      yr[l] = sr;
+      yi[l] = si;
+    }
+    xr[q0 + plan.off[ah]] = dq::pack_quad(yr, swap);
+    xi[q0 + plan.off[ah]] = dq::pack_quad(yi, swap);
+  }
+}
+
+template <int K, int LOW>
+__global__ void __launch_bounds__(kThreads)
+planar_apply_kernel(float* __restrict__ x, const float* __restrict__ mre,
+                    const float* __restrict__ mim, unsigned units, unsigned quads, unsigned bps,
+                    int pstride, int hb0, int hb1, int hb2, int swap_lanes) {
+  constexpr int D = 1 << K;
+  constexpr int NQ = 1 << (K - LOW);
+  constexpr int UNROLL = K <= 2 ? 2 : 1;
+  const unsigned sample = blockIdx.x / bps;
+  const unsigned lb = blockIdx.x - sample * bps;
+  float4* xr = reinterpret_cast<float4*>(x) + size_t(sample) * 2 * quads;
+  float4* xi = xr + quads;
+  // the sample's planes sit pstride floats apart (0: one set for every sample)
+  const float* pr = mre + size_t(sample) * pstride;
+  const float* pi = mim + size_t(sample) * pstride;
   __shared__ float sre[D * D];
   __shared__ float sim[D * D];
-  for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
+  for (int e = threadIdx.x; e < D * D; e += kThreads) {
     sre[e] = pr[e];
     sim[e] = pi[e];
   }
   __syncthreads();
-  const int bits[3] = {bit0, bit1, bit2};
-  const uint64_t stride = uint64_t(nb) * blockDim.x;
-  for (uint64_t g = uint64_t(lb) * blockDim.x + threadIdx.x; g < ngroups; g += stride) {
-    const uint64_t base = dq::group_base<K>(g, bits);
-    uint64_t off[D];
-    float vr[D];
-    float vi[D];
+  const Planes<K> m(sre, sim);
+  const dq::QuadPlan<K - LOW> plan(hb0, hb1, hb2);
+  const bool swap = LOW == 1 && swap_lanes;
+  const unsigned stride = bps * kThreads;
+  unsigned u = lb * kThreads + threadIdx.x;
+  for (; u + (UNROLL - 1) * stride < units; u += UNROLL * stride) {
+    unsigned q[UNROLL];
+    float4 vr[UNROLL][NQ];
+    float4 vi[UNROLL][NQ];
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const uint64_t o = dq::group_offset<K>(base, c, bits);
-      off[c] = o;
-      vr[c] = xr[o];
-      vi[c] = xi[o];
+    for (int r = 0; r < UNROLL; ++r) {
+      q[r] = plan.base(u + r * stride);
+#pragma unroll
+      for (int ch = 0; ch < NQ; ++ch) {
+        vr[r][ch] = xr[q[r] + plan.off[ch]];
+        vi[r][ch] = xi[q[r] + plan.off[ch]];
+      }
     }
 #pragma unroll
-    for (int a = 0; a < D; ++a) {
-      float yr = 0.f;
-      float yi = 0.f;
+    for (int r = 0; r < UNROLL; ++r) apply_unit<K, LOW>(xr, xi, q[r], plan, vr[r], vi[r], m, swap);
+  }
+  if constexpr (UNROLL > 1) {
+    if (u < units) {   // the last unit of a thread with an odd count
+      const unsigned q = plan.base(u);
+      float4 vr[NQ];
+      float4 vi[NQ];
 #pragma unroll
-      for (int c = 0; c < D; ++c) {
-        const float mr = sre[a * D + c];
-        const float mi = sim[a * D + c];
-        yr = fmaf(mr, vr[c], yr);
-        yr = fmaf(-mi, vi[c], yr);
-        yi = fmaf(mr, vi[c], yi);
-        yi = fmaf(mi, vr[c], yi);
+      for (int ch = 0; ch < NQ; ++ch) {
+        vr[ch] = xr[q + plan.off[ch]];
+        vi[ch] = xi[q + plan.off[ch]];
       }
-      xr[off[a]] = yr;
-      xi[off[a]] = yi;
+      apply_unit<K, LOW>(xr, xi, q, plan, vr, vi, m, swap);
     }
   }
 }
 
-template <int K>
-void launch_apply(float* x, const float* mr, const float* mi, int batch, int pstride,
-                  uint64_t ngroups, uint64_t dim, int bit0, int bit1, int bit2,
-                  cudaStream_t s) {
-  // at most 2^20 blocks in all: each sample gets an equal share of them and
-  // its threads walk the rest of its groups
-  const uint64_t cap = uint64_t(1) << 20;
-  uint64_t bps = (ngroups + kThreads - 1) / kThreads;
-  const uint64_t share = cap / uint64_t(batch) > 0 ? cap / uint64_t(batch) : 1;
-  if (bps > share) bps = share;
-  const dim3 grid(static_cast<unsigned>(bps * uint64_t(batch)));
-  if (batch == 1) {
-    planar_apply_kernel<K, false><<<grid, kThreads, 0, s>>>(x, mr, mi, ngroups, dim, 0, 0, bit0,
-                                                            bit1, bit2);
-  } else {
-    planar_apply_kernel<K, true><<<grid, kThreads, 0, s>>>(
-        x, mr, mi, ngroups, dim, static_cast<unsigned>(bps), pstride, bit0, bit1, bit2);
+struct Launch {
+  float* x;
+  const float* mr;
+  const float* mi;
+  int batch, pstride, n, bps, swap;
+  const int* hb;
+  cudaStream_t s;
+
+  template <int K, int LOW>
+  int run() const {
+    const unsigned quads = 1u << (n - 2);
+    const unsigned units = quads >> (K - LOW);
+    const dim3 grid(static_cast<unsigned>(bps) * static_cast<unsigned>(batch));
+    planar_apply_kernel<K, LOW><<<grid, kThreads, 0, s>>>(
+        x, mr, mi, units, quads, static_cast<unsigned>(bps), pstride, hb[0], hb[1], hb[2], swap);
+    return cudaGetLastError();
   }
-}
+};
+
+struct Resident {
+  int* out;
+
+  template <int K, int LOW>
+  int run() const {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, planar_apply_kernel<K, LOW>,
+                                                         kThreads, 0);
+  }
+};
 
 }  // namespace
 
-// x: (batch, 2, 2^n) float32 planes, updated in place (batch 1: one
-// (2, 2^n) state); mre/mim: (2^k, 2^k) float32 planes in sorted-wire order,
-// one per sample pstride floats apart (pstride 0: the same planes for every
-// sample); bit0..bit2: amplitude bits of the sorted wires (unused ones 0).
-// Returns a cudaError_t.
+// x: (batch, 2, 2^n) float32 planes, 16-byte aligned, updated in place
+// (batch 1: one (2, 2^n) state); mre/mim: (2^k, 2^k) float32 planes in
+// sorted-wire order, one per sample pstride floats apart (pstride 0: the
+// same planes for every sample); low, swap, hb0..hb2: the access plan of
+// planar_quad.cuh (the gate's amplitude bits among 0-1, whether it holds bit
+// 1 but not bit 0, its other bits minus 2, descending, unused ones 0); bps:
+// blocks per sample. 2 <= n <= 33. Returns a cudaError_t.
 extern "C" int dq_planar_apply_f32(void* x, const void* mre, const void* mim, int batch,
-                                   int pstride, int n, int k, int bit0, int bit1, int bit2,
-                                   int device, void* stream) {
+                                   int pstride, int n, int k, int low, int swap, int hb0, int hb1,
+                                   int hb2, int bps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (k < 1 || k > 3 || n < k || n > 40 || batch < 1 || pstride < 0) return cudaErrorInvalidValue;
-  float* xs = static_cast<float*>(x);
-  const float* mr = static_cast<const float*>(mre);
-  const float* mi = static_cast<const float*>(mim);
-  const uint64_t dim = uint64_t(1) << n;
-  const uint64_t ngroups = uint64_t(1) << (n - k);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1:
-      launch_apply<1>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
-      break;
-    case 2:
-      launch_apply<2>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
-      break;
-    default:
-      launch_apply<3>(xs, mr, mi, batch, pstride, ngroups, dim, bit0, bit1, bit2, s);
-      break;
-  }
-  return cudaGetLastError();
+  const int hb[3] = {hb0, hb1, hb2};
+  if (dq::bad_plan(n, k, low, swap, hb) || batch < 1 || pstride < 0 || bps < 1 ||
+      bps > (1 << 22) || uint64_t(bps) * uint64_t(batch) >= (uint64_t(1) << 31) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+    return cudaErrorInvalidValue;
+  return dq::quad_dispatch(k, low, Launch{static_cast<float*>(x), static_cast<const float*>(mre),
+                                          static_cast<const float*>(mim), batch, pstride, n, bps,
+                                          swap, hb, static_cast<cudaStream_t>(stream)});
+}
+
+// out: a host int, set to the blocks of the (k, low) instance one SM keeps
+// resident (the wrapper sizes the grid to one wave of them). Returns a
+// cudaError_t.
+extern "C" int dq_planar_apply_blocks_per_sm(int k, int low, void* out, int device, void*) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (k < 1 || k > 3 || low < 0 || low > 2 || low > k) return cudaErrorInvalidValue;
+  return dq::quad_dispatch(k, low, Resident{static_cast<int*>(out)});
 }

@@ -1,5 +1,6 @@
-// Index machinery and the block reduction shared by the per-gate kernels K1
-// (planar_apply.cu), K5 (planar_grad.cu) and K6 (planar_bwd_fused.cu).
+// The index machinery of K6 (planar_bwd_fused.cu) and the block reduction
+// it shares with K5 (planar_grad.cu); K1 and K5 index the state through
+// planar_quad.cuh.
 //
 // A gate on k <= 3 wires splits the 2^n amplitudes into 2^(n - k) groups of
 // D = 2^k amplitudes that differ only in the gate's bits. One thread owns

@@ -14,6 +14,7 @@ version: a CUDA tensor runs the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['build', 'launch', 'check_state', 'check_planes', 'sample_planes', 'source_key']
+__all__ = ['build', 'launch', 'launch_on', 'stream_of', 'sm_count', 'check_state',
+           'check_planes', 'sample_planes', 'source_key']
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / 'csrc'
@@ -37,13 +39,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types before the trailing (device, stream)
 _SIGNATURES = {
-    # x, mre, mim, batch, pstride, n, k, bits[3]
-    'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+    # x, mre, mim, batch, pstride, n, k, low, swap, hb[3], bps
+    'dq_planar_apply_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I),
     'dq_window_apply_f32': (_P, _P, _P, _I),                   # x, mre, mim, n
     # table, nstep, wre, wim, a, b, sms, n
     'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I, _I),
-    # g, x, parts, batch, nblocks, n, k, bits[3]
-    'dq_planar_grad_f32': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+    # g, x, out, parts, count, batch, n, k, low, swap, hb[3], bps
+    'dq_planar_grad_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I),
     # y, g, mre_t, mim_t, parts, batch, pstride, nblocks, n, k, bits[3]
     'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I),
     # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, part, slots, sms, n
@@ -58,6 +60,8 @@ _SIGNATURES = {
     'dq_planar_chain_batched_bwd_f32': (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                                         _I, _I),
     'dq_planar_chain_batched_clusters': (_I, _I, _I, _P),      # n, c, backward, out (host int)
+    'dq_planar_apply_blocks_per_sm': (_I, _I, _P),             # k, low, out (host int)
+    'dq_planar_grad_blocks_per_sm': (_I, _I, _P),              # k, low, out (host int)
 }
 
 _lock = threading.Lock()
@@ -114,6 +118,8 @@ def build() -> Path:
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -127,16 +133,44 @@ def _load():
     return _lib
 
 
+# the current stream's handle as an int: PyTorch's raw accessor (what its
+# own generated kernels call) where the build has it, else the Stream object
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+
+def stream_of(device: torch.device) -> tuple[int, int]:
+    """(device index, handle of its current stream)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if _raw_stream is not None:
+        return index, _raw_stream(index)
+    return index, torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device``'s current stream; tensors go
     as their data pointers. Raises on a non-zero CUDA error code."""
-    lib = _load()
-    cargs = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else int(a) for a in args]
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    rc = getattr(lib, name)(*cargs, index, ctypes.c_void_p(stream))
+    launch_on(name, *stream_of(device), *args)
+
+
+def launch_on(name: str, index: int, stream: int, *args) -> None:
+    """``launch`` on the stream ``stream_of`` gave. Pointers go as plain
+    ints (the argtypes make them void*): a c_void_p per argument costs more
+    host time than the per-gate kernels take on the card."""
+    lib = _lib or _load()
+    rc = getattr(lib, name)(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+                              for a in args], index, stream)
     if rc != 0:
         raise RuntimeError(f'{name}: CUDA error {rc} ({lib.dq_error_string(rc).decode()})')
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 _GRAD_HINT = ('gradients come from planar_chain and planar_pauli_expectation '
@@ -152,15 +186,19 @@ def _no_grad(name: str, *tensors, hint: str = _GRAD_HINT) -> None:
             'Detach the tensor or call under torch.no_grad().')
 
 
-def check_state(x: torch.Tensor, n: int, name: str, batched: bool = False) -> int:
+def check_state(x: torch.Tensor, n: int, name: str, batched: bool = False,
+                aligned: bool = False) -> int:
     """A kernel's planar state: CUDA float32, contiguous, (2, 2^n), or with
-    ``batched`` also a (B, 2, 2^n) stack. Returns the batch count (1 for one
-    state)."""
+    ``batched`` also a (B, 2, 2^n) stack; with ``aligned`` on a 16-byte
+    boundary (the kernels that read float4). Returns the batch count (1 for
+    one state)."""
     _no_grad(name, x)
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: state must be a CUDA tensor, got {x.device}')
     if x.dtype != torch.float32:
         raise TypeError(f'{name}: the CUDA kernel takes float32 planes, got {x.dtype}')
+    if aligned and x.data_ptr() % 16:
+        raise ValueError(f'{name}: state must start on a 16-byte boundary')
     shape = tuple(x.shape)
     if shape == (2, 1 << n) and x.is_contiguous():
         return 1
@@ -189,23 +227,26 @@ def sample_planes(name: str, x: torch.Tensor, batch: int, shape, *planes):
     each ``shape``, one set for every sample, or (batch, *shape), one per
     sample; a (batch, *shape) view with stride 0 over the samples (an
     ``expand``) counts as one set. Returns (float32 contiguous planes,
-    pstride), pstride the floats between two samples' planes (0: one set)."""
+    pstride), pstride the floats between two samples' planes (0: one set).
+    Planes that already are float32 and contiguous are passed as they are."""
     _no_grad(name, *planes)
     shape = tuple(shape)
     out, shared = [], True
     for m in planes:
         if m.device != x.device:
             raise ValueError(f'{name}: matrix planes on {m.device}, state on {x.device}')
-        m = m.to(torch.float32)
-        if x.dim() == 3 and tuple(m.shape) == (batch, *shape):
+        if m.dtype != torch.float32:
+            m = m.to(torch.float32)
+        if x.dim() == 3 and m.shape == (batch, *shape):
             if batch == 1 or m.stride(0) == 0:
                 m = m[0]
             else:
                 shared = False
-        elif tuple(m.shape) != shape:
+        elif m.shape != shape:
             want = shape if x.dim() == 2 else f'{shape} or {(batch, *shape)}'
             raise ValueError(f'{name}: matrix planes must be {want}, got {tuple(m.shape)}')
         out.append(m)
     if shared:
-        return [m.contiguous() for m in out], 0
-    return [m.expand(batch, *shape).contiguous() for m in out], shape[0] * shape[1]
+        return [m if m.is_contiguous() else m.contiguous() for m in out], 0
+    return ([m if m.dim() == 3 and m.is_contiguous() else m.expand(batch, *shape).contiguous()
+             for m in out], shape[0] * shape[1])

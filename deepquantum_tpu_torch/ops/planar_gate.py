@@ -140,11 +140,13 @@ def planar_apply(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, 
         x.copy_(planar_evolve_xla(x, mre, mim, n, ws))
         return x
     from . import _cuda
-    bits = _gate_bits('planar_apply', n, ws)
-    k = len(ws)
-    batch = _cuda.check_state(x, n, 'planar_apply', batched=True)
+    k, low, swap, hb = quad_plan('planar_apply', n, ws)
+    batch = _cuda.check_state(x, n, 'planar_apply', batched=True, aligned=True)
     (mre, mim), pstride = _cuda.sample_planes('planar_apply', x, batch, (1 << k, 1 << k), mre, mim)
-    _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, batch, pstride, n, k, *bits)
+    bps = gate_blocks(n, batch, _cuda.sm_count(x.device),
+                      _resident('dq_planar_apply_blocks_per_sm', x.device, k, low))
+    _cuda.launch('dq_planar_apply_f32', x.device, x, mre, mim, batch, pstride, n, k, low, swap,
+                 *hb, bps)
     if x.dim() == 3:
         planar_apply.batched_launches += 1
     else:
@@ -165,22 +167,60 @@ def _gate_bits(name: str, n: int, ws):
     return [n - 1 - w for w in ws] + [0] * (3 - k)
 
 
+# ------------------------------------------------- K1 / K5: the access plan
+_GATE_THREADS = 256          # threads per block of K1 and K5 (csrc/planar_quad.cuh)
+_QUADS_PER_THREAD = 4        # at least this many float4 per plane per thread
+_MAX_QUBITS = 33             # 32-bit quad indices (a 2^33 state is 64 GB a tensor)
+
+
+@functools.lru_cache(maxsize=None)
+def quad_plan(name: str, n: int, ws):
+    """The 16-byte access plan of K1 and K5 (``csrc/planar_quad.cuh``) for
+    the sorted wires ``ws`` on n qubits: (k, low, swap, hb). ``low`` counts
+    the gate's amplitude bits among 0-1 (a float4 quad holds its partners
+    where low > 0); ``swap`` is 1 where it holds bit 1 but not bit 0 (the
+    kernels swap lanes 1 and 2); ``hb`` are its other bits minus 2, the quad
+    bits of a unit, descending and padded with 0 to three."""
+    bits = _gate_bits(name, n, ws)[:len(ws)]
+    if not 2 <= n <= _MAX_QUBITS:
+        raise ValueError(f'{name}: the CUDA kernel takes 2 <= n <= {_MAX_QUBITS}, got n={n}')
+    low = sum(b < 2 for b in bits)
+    swap = int(low == 1 and bits[-1] == 1)
+    hb = [b - 2 for b in bits if b >= 2]
+    return len(ws), low, swap, tuple(hb + [0] * (3 - len(hb)))
+
+
+@functools.lru_cache(maxsize=None)
+def gate_blocks(n: int, batch: int, sms: int, per_sm: int) -> int:
+    """Blocks per sample of K1 / K5: the grid is sized to the card, not to
+    the groups. One wave of ``per_sm`` resident blocks on each of ``sms``
+    SMs, shared by the batch (a power of two per sample, so a wave is never
+    cut into a second one by rounding up), but no more than leave each
+    thread _QUADS_PER_THREAD float4 per plane; at least one."""
+    want = max(1, per_sm * sms // batch)
+    bps = 1 << (want.bit_length() - 1)
+    return max(1, min(bps, (1 << (n - 2)) // (_GATE_THREADS * _QUADS_PER_THREAD)))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_on(entry: str, index: int, k: int, low: int) -> int:
+    from . import _cuda
+    out = torch.zeros(1, dtype=torch.int32)
+    _cuda.launch_on(entry, index, 0, k, low, out)
+    if int(out.item()) < 1:
+        raise RuntimeError(f'{entry}: the (k={k}, low={low}) kernel fits no block on an SM')
+    return int(out.item())
+
+
+def _resident(entry: str, device: torch.device, k: int, low: int) -> int:
+    """Blocks of one K1 / K5 instance that an SM of ``device``'s card keeps
+    resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers
+    and shared memory decide), asked once per instance and card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _resident_on(entry, index, k, low)
+
+
 # ----------------------------------------------------------------- kernel K5
-_GRAD_THREADS = 256     # threads per block of the reduction kernels (csrc)
-_GRAD_MAX_BLOCKS = 1024
-
-
-def _grad_blocks(n: int, k: int) -> int:
-    """Blocks of the reduction kernels for one state (each sample of a
-    stack gets as many): one thread per 2^k-amplitude group (two at k = 3,
-    which splits the rows), a power of two capped so that each thread walks
-    several groups before the block reduces."""
-    threads = (1 << (n - k)) * (2 if k == 3 else 1)
-    if threads < _GRAD_THREADS:
-        raise ValueError(f'the CUDA reduction kernels need n - k >= 8, got n={n}, k={k}')
-    return min(_GRAD_MAX_BLOCKS, threads // _GRAD_THREADS)
-
-
 def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     """Plain torch twin of the ``planar_grad`` kernel (named after the JAX
     package's XLA twin): matrix-plane cotangents of y = U x from the output
@@ -199,15 +239,34 @@ def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     return dre, dim
 
 
-def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, n: int) -> int:
+def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, n: int,
+                aligned: bool = False) -> int:
     """Two planar states of one kernel call: the same device and batch."""
     from . import _cuda
-    batch = _cuda.check_state(a, n, name, batched=True)
-    if _cuda.check_state(b, n, name, batched=True) != batch or a.dim() != b.dim() \
-            or a.device != b.device:
+    batch = _cuda.check_state(a, n, name, batched=True, aligned=aligned)
+    if _cuda.check_state(b, n, name, batched=True, aligned=aligned) != batch \
+            or a.dim() != b.dim() or a.device != b.device:
         raise ValueError(f'{name}: two states of shapes {tuple(a.shape)}, {tuple(b.shape)} on '
                          f'{a.device}, {b.device}')
     return batch
+
+
+# (device index, stream) -> (partials, arrival counters) of the planar_grad
+# kernel: allocated once and grown, never per call; a launch leaves every
+# counter at 0 again, so launches in order on one stream share them
+_grad_workspaces: dict = {}
+
+
+def _grad_workspace(device: torch.device, index: int, stream: int, floats: int, batch: int):
+    parts, count = _grad_workspaces.get((index, stream), (None, None))
+    if parts is None or parts.numel() < floats or count.numel() < batch:
+        with torch.inference_mode(False):
+            if parts is None or parts.numel() < floats:
+                parts = torch.empty(floats, dtype=torch.float32, device=device)
+            if count is None or count.numel() < batch:
+                count = torch.zeros(batch, dtype=torch.int32, device=device)
+        _grad_workspaces[(index, stream)] = (parts, count)
+    return parts, count
 
 
 def planar_grad(g: torch.Tensor, x: torch.Tensor, n: int, wires):
@@ -215,27 +274,30 @@ def planar_grad(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     cotangent g and the gate's input x, both (2, 2^n); pure reads. Stacks
     (B, 2, 2^n) give (B, 2^k, 2^k) each.
 
-    CUDA tensors launch ``csrc/planar_grad.cu`` (float32 only), which
-    leaves one partial per (sample, block) that is summed here in a fixed
-    order, and raise if the build or the launch fails; CPU tensors take the
-    twin ``planar_grad_xla``."""
+    CUDA tensors launch ``csrc/planar_grad.cu`` (float32 only) once: its
+    blocks sum their partials in a fixed order in the same launch, into the
+    one tensor allocated here. It raises if the build or the launch fails;
+    CPU tensors take the twin ``planar_grad_xla``."""
     ws = tuple(sorted(wires))
     if g.device.type == 'cpu':
         return planar_grad_xla(g, x, n, ws)
     from . import _cuda
-    bits = _gate_bits('planar_grad', n, ws)
-    batch = _check_pair('planar_grad', g, x, n)
-    k = len(ws)
-    nblocks = _grad_blocks(n, k)
-    parts = torch.empty((batch, nblocks, 2, 1 << k, 1 << k), dtype=torch.float32,
-                        device=g.device)
-    _cuda.launch('dq_planar_grad_f32', g.device, g, x, parts, batch, nblocks, n, k, *bits)
-    total = parts.sum(dim=1)
+    k, low, swap, hb = quad_plan('planar_grad', n, ws)
+    batch = _check_pair('planar_grad', g, x, n, aligned=True)
+    kk = 1 << k
+    bps = gate_blocks(n, batch, _cuda.sm_count(g.device),
+                      _resident('dq_planar_grad_blocks_per_sm', g.device, k, low))
+    index, stream = _cuda.stream_of(g.device)
+    parts, count = _grad_workspace(g.device, index, stream, batch * bps * 2 * kk * kk, batch)
+    out = torch.empty(((batch, 2, kk, kk) if g.dim() == 3 else (2, kk, kk)), dtype=torch.float32,
+                      device=g.device)
+    _cuda.launch_on('dq_planar_grad_f32', index, stream, g, x, out, parts, count, batch, n, k,
+                    low, swap, *hb, bps)
     if g.dim() == 3:
         planar_grad.batched_launches += 1
-        return total[:, 0], total[:, 1]
-    planar_grad.launches += 1
-    return total[0, 0], total[0, 1]
+    else:
+        planar_grad.launches += 1
+    return out.unbind(-3)
 
 
 planar_grad.launches = 0
@@ -243,6 +305,21 @@ planar_grad.batched_launches = 0
 
 
 # ----------------------------------------------------------------- kernel K6
+_FUSED_THREADS = 256     # threads per block of csrc/planar_bwd_fused.cu
+_FUSED_MAX_BLOCKS = 1024
+
+
+def _fused_blocks(n: int, k: int) -> int:
+    """Blocks of the planar_bwd_fused kernel for one state (each sample of
+    a stack gets as many): one thread per 2^k-amplitude group (two at
+    k = 3, which splits the rows), a power of two capped so that each thread
+    walks several groups before the block reduces."""
+    threads = (1 << (n - k)) * (2 if k == 3 else 1)
+    if threads < _FUSED_THREADS:
+        raise ValueError(f'the planar_bwd_fused kernel needs n - k >= 8, got n={n}, k={k}')
+    return min(_FUSED_MAX_BLOCKS, threads // _FUSED_THREADS)
+
+
 def planar_bwd_fused_plain(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
                            mim_t: torch.Tensor, n: int, wires):
     """Plain torch twin of the ``planar_bwd_fused`` kernel: one backward gate
@@ -279,7 +356,7 @@ def planar_bwd_fused(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
     k = len(ws)
     (mre_t, mim_t), pstride = _cuda.sample_planes('planar_bwd_fused', y, batch, (1 << k, 1 << k),
                                                   mre_t, mim_t)
-    nblocks = _grad_blocks(n, k)
+    nblocks = _fused_blocks(n, k)
     parts = torch.empty((batch, nblocks, 2, 1 << k, 1 << k), dtype=torch.float32,
                         device=y.device)
     _cuda.launch('dq_planar_bwd_fused_f32', y.device, y, g, mre_t, mim_t, parts, batch, pstride,
