@@ -12,7 +12,8 @@ Phases (each raises on failure, so the run exits non-zero):
    CUDA versions;
 2. build the CUDA kernels from deepquantum_tpu_torch/csrc and print the
    build time and each kernel's ptxas registers and spills (a spill in
-   any instance of planar_apply or planar_grad fails the run);
+   any instance of planar_apply, planar_grad or planar_bwd_fused fails the
+   run; K7's instances again on one line);
 3. hold each of the nine kernels against its plain PyTorch twin on the card
    (K1-K6: float32, unnormalised randn states from a fixed seed; state error =
    max|d| / max|ref| of the state outputs, plane error the same for the
@@ -22,12 +23,14 @@ Phases (each raises on failure, so the run exits non-zero):
    planar_apply, planar_grad, planar_bwd_fused at n=22 on eight wire sets
    (states <= 1e-6 / 1e-5, planes <= 1e-5; planar_apply and planar_grad, and
    their batched forms below, also timed against the one torch.einsum that
-   computes the same, held to 1e-5 of the twin, and with their device time
-   (CUDA events behind a queued sleep kernel) beside the time through the
-   wrapper, at n=22 also with the L2 flushed before each call; planar_grad's
-   dW bitwise equal over two launches, and a profiler window of five calls
-   holding five device operations, all the planar_grad kernel, at n=22 and
-   at n=14, B=100: the sum over blocks ends inside the launch), window_apply at n=24 with a
+   computes the same, held to 1e-5 of the twin; all three with their device
+   time (CUDA events behind a queued sleep kernel) beside the time through
+   the wrapper, at n=22 also with the L2 flushed before each call;
+   planar_grad's and planar_bwd_fused's dW bitwise equal over two launches,
+   and a profiler window of five calls issuing five device operations (host
+   launch calls; the device's records all the kernel's own), at n=22 and at
+   n=14, B=100: the sum over blocks ends inside the launch; the float32 twin of planar_grad <= 1e-6 of its float64
+   run at n=18, B=8 on amplitude bit 0), window_apply at n=24 with a
    random unitary (<= 1e-6; also timed against the one library call that
    computes the same function, a real 256 x 256 block matmul) and at
    n = 12, 13, 16, 20, 24 with a random non-unitary W (<= 1e-6),
@@ -45,7 +48,9 @@ Phases (each raises on failure, so the run exits non-zero):
    (12376, 6), (3, 4), (2, 5), (1000, 14) (<= 1e-10 of the twin, and of a
    numpy Ryser of its own), (1, 20), (4, 20), (1, 22) (<= 1e-8: the terms
    cancel by 1e4 to 1e5; at n=20 also against a long-double numpy Ryser),
-   and n=26 once for time and a finite value; tor_dets_cuda and tor_dets_quads_cuda at
+   and n=26 once for time and a finite value; each bitwise equal over two
+   launches, with its device time beside the wrapper's, and one device
+   operation a call at (12376, 6) and (1, 20); tor_dets_cuda and tor_dets_quads_cuda at
    m = 8, 10, 12, 14 on O = I - (I + M M^T)^-1 and on O plus a non-symmetric
    perturbation (per-subset det and quad <= 1e-9 of the twin, the
    torontonian <= 1e-6, or 1e-15 times its cancellation where that is
@@ -165,6 +170,10 @@ LR = 1e-3
 # to 2^21 products taken in another order than the twin's matmul; the card
 # reads 1.6e-6 to 2.0e-6
 PLANE_BAR = 1e-5
+# the float32 twin of the cotangent reduction against the same in float64 at
+# n=18, B=8 on amplitude bit 0: 1.38e-5 as one matmul over 2^17 positions,
+# summed in blocks of 2^8 (planar_grad_xla) it must stay under this
+TWIN32_BAR = 1e-6
 
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_S = 3.35e12       # device memory
@@ -461,18 +470,20 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-# kernels that must not spill (ptxas -v): K1 and K5 on the float4 plan
-NO_SPILL = ('planar_apply_kernel', 'planar_grad_kernel')
+# kernels that must not spill (ptxas -v): K1, K5 and K6 on the float4 plan,
+# eight instances each
+NO_SPILL = ('planar_apply_kernel', 'planar_grad_kernel', 'planar_bwd_fused_kernel')
 
 
 def build():
     """Build the kernels and print the build time and each kernel's
-    registers and spills; a spill in a NO_SPILL kernel fails the run."""
+    registers and spills; a spill in a NO_SPILL kernel fails the run. K7's
+    instances (one per column capacity NMAX) are printed again on one line."""
     from deepquantum_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     path = _cuda.build()
     print(f'build: {time.perf_counter() - t0:.1f} s -> {path.relative_to(ROOT)}')
-    name, spill, spilled, seen = '?', '', [], set()
+    name, spill, spilled, seen, ryser = '?', '', [], set(), []
     for line in _cuda.build_log.splitlines():
         if 'Compiling entry function' in line:
             name = _kernel_name(line.split("'")[1])
@@ -480,14 +491,20 @@ def build():
             spill = line.strip()
         elif 'Used' in line and 'registers' in line:
             print(f'  nvcc: {name}: {line.split(":", 1)[1].strip()}; {spill}')
+            if name.startswith('ryser_kernel'):
+                regs = re.search(r'Used (\d+) registers', line)
+                ryser.append(f'{name} {regs.group(1) if regs else "?"} registers, {spill}')
             if name.startswith(NO_SPILL):
                 seen.add(name)
                 if re.search(r'[1-9]\d* bytes spill (stores|loads)', spill):
                     spilled.append(name)
         elif 'error' in line.lower():
             print(f'  nvcc: {line.strip()}')
-    if _cuda.build_log and (spilled or len(seen) < 16):
-        raise AssertionError(f'ptxas: {spilled} spill; {len(seen)} of the 16 instances of '
+    if ryser:
+        print(f'K7 instances <NMAX,ways>: {"; ".join(ryser)}')
+    want = 8 * len(NO_SPILL)
+    if _cuda.build_log and (spilled or len(seen) < want):
+        raise AssertionError(f'ptxas: {spilled} spill; {len(seen)} of the {want} instances of '
                              f'{NO_SPILL} reported')
 
 
@@ -659,10 +676,18 @@ def check_gate_kernels(results: dict, rng, rng_g):
         ref = planar_bwd_fused_ref(pg, y, g, mre_t, mim_t, n, wires)
         pe, pd = max(rel_err(a.double(), b) for a, b in zip(got[2:], ref))
         _hold(f'planar_bwd_fused planes wires={wires}', pe, PLANE_BAR)
+        again = pg.planar_bwd_fused(y.clone(), g.clone(), mre_t, mim_t, n, wires)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f'planar_bwd_fused wires={wires}: dW differs between two launches')
         tk, _ = time_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
+        td = _queued_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
+        tc = _cold_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
         tp, _ = time_ms(lambda: pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires))
         note('planar_bwd_fused', wires, e, max(d, pd), pe, tk, tp,
-             bound(4 * state_bytes + 2 * 4 ** k * 4, 3 * apply_flops))
+             bound(4 * state_bytes + 2 * 4 ** k * 4, 3 * apply_flops), None, td, tc)
+        if wires == GATE_WIRE_SETS[-2]:
+            check_one_launch(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires), 5,
+                             f'planar_bwd_fused n={n} wires={wires}', 'planar_bwd_fused_kernel')
 
     for name, a in acc.items():
         states = [v for v in a['errs'] if v is not None]
@@ -749,6 +774,9 @@ def check_batched_kernels(results: dict, rng):
             twin32.append(t32)
             print(f'planar_grad_batched n={n} B={b} wires={wires}: kernel {pe:.2e}, float32 '
                   f'twin {t32:.2e} of the float64 twin')
+            if (n, b, wires) == (18, 8, (17,)):   # its sums in blocks (planar_grad_xla)
+                _hold(f'the float32 twin of planar_grad at n={n}, B={b} on amplitude bit 0', t32,
+                      TWIN32_BAR)
             again = pg.planar_grad(g, x, n, wires)
             if not all(torch.equal(a, r) for a, r in zip(got, again)):
                 raise AssertionError(f'planar_grad_batched n={n} B={b} wires={wires}: dW differs '
@@ -778,6 +806,14 @@ def check_batched_kernels(results: dict, rng):
             ref = planar_bwd_fused_ref(pg, y, g, mre_t, mim_t, n, wires)
             pe, pd = max(rel_err(a.double(), r) for a, r in zip(got[2:], ref))
             _hold(f'planar_bwd_fused_batched planes n={n} B={b} wires={wires}', pe, PLANE_BAR)
+            again = pg.planar_bwd_fused(y.clone(), g.clone(), mre_t, mim_t, n, wires)
+            if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                raise AssertionError(f'planar_bwd_fused_batched n={n} B={b} wires={wires}: dW '
+                                     'differs between two launches')
+            if (n, b) == BATCH_SHAPES[0] and k == 3:
+                check_one_launch(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires), 5,
+                                 f'planar_bwd_fused_batched n={n} B={b} wires={wires}',
+                                 'planar_bwd_fused_kernel')
             tk, _ = time_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
             td = _queued_ms(lambda: pg.planar_bwd_fused(wy, wg_, mre_t, mim_t, n, wires))
             tp, _ = time_ms(lambda: pg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires))
@@ -1372,11 +1408,23 @@ def _cold_ms(fn, reps: int = REPS, sleep_cycles: int = 2_000_000) -> float:
     return float(np.median(times))
 
 
-def check_one_launch(fn, calls: int, label: str, tries: int = 3):
-    """A profiler window of ``calls`` calls of fn holds ``calls`` device
-    operations, every one a planar_grad kernel: the sum over blocks ends in
-    the same launch, with no reduction op after it. An empty window (the
-    profiler saw nothing on the card) is tried again, ``tries`` times."""
+# the host calls through which a device operation is issued
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cudaLaunchCooperativeKernel',
+                'cuLaunchKernel', 'cuLaunchKernelEx', 'cudaMemsetAsync', 'cudaMemcpyAsync',
+                'cudaMemcpy2DAsync')
+
+
+def check_one_launch(fn, calls: int, label: str, kernel: str = 'planar_grad_kernel',
+                     tries: int = 3):
+    """``calls`` calls of fn issue ``calls`` device operations, every one the
+    ``kernel`` named: the sum over blocks ends in the same launch, with no
+    reduction op after it. A profiler window counts the host's launch calls
+    (every device operation is issued through one of LAUNCH_CALLS) and the
+    device's records, which must all be the kernel's and no more than the
+    calls. The device side alone is no count: on the card a window has come
+    back with no record, or one short, of a kernel of a few microseconds
+    while the host had issued every launch. A window with no host launch
+    call at all is tried again, ``tries`` times."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1386,14 +1434,19 @@ def check_one_launch(fn, calls: int, label: str, tries: int = 3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ops = [(ev.key, ev.count) for ev in prof.key_averages()
+        events = prof.key_averages()
+        ops = [(ev.key, ev.count) for ev in events
                if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if ops:
+        launches = [(ev.key, ev.count) for ev in events if ev.key in LAUNCH_CALLS]
+        if launches:
             break
     n_ops = sum(c for _, c in ops)
-    if n_ops != calls or not all('planar_grad_kernel' in key for key, _ in ops):
-        raise AssertionError(f'{label}: {calls} planar_grad calls gave device ops {ops}')
-    print(f'{label}: {calls} calls, {n_ops} device operations: {[k[:72] for k, _ in ops]}')
+    n_launch = sum(c for _, c in launches)
+    if n_launch != calls or n_ops > calls or not all(kernel in key for key, _ in ops):
+        raise AssertionError(f'{label}: {calls} calls gave host launches {launches}, device ops '
+                             f'{ops}')
+    print(f'{label}: {calls} calls, {n_launch} device operations issued ({launches}), '
+          f'{n_ops} recorded on the device: {[k[:72] for k, _ in ops]}')
 
 
 def check_slice(n: int, extra_cnot, expect):
@@ -2039,15 +2092,23 @@ def check_permanent_kernel(results: dict, rng):
         torch.cuda.synchronize()
         if got.dtype != torch.complex128 or tuple(got.shape) != (b,):
             raise AssertionError(f'permanent (B={b}, n={n}): {got.dtype} {tuple(got.shape)}')
+        if not torch.equal(got, pk.permanent_cuda_batch(mats)):
+            raise AssertionError(f'permanent (B={b}, n={n}): differs between two launches')
         tk_ms, _ = time_ms(lambda: pk.permanent_cuda_batch(mats), reps=10 if n >= 22 else REPS)
+        td_ms = _queued_ms(lambda: pk.permanent_cuda_batch(mats), reps=10 if n >= 22 else REPS)
+        if (b, n) in ((12376, 6), (1, 20)):   # path (a)'s and get_amplitude's shapes
+            check_one_launch(lambda: pk.permanent_cuda_batch(mats), 5,
+                             f'permanent_cuda_batch B={b} n={n}', 'ryser_kernel')
         # n complex adds and n complex multiplies per subset (Gray-code Ryser)
         bnd = bound(mats.numel() * mats.element_size() + b * 16, b * (1 << n) * 8 * n, PEAK_FP64_S)
         if n > 22:
             if not torch.isfinite(torch.view_as_real(got)).all():
                 raise AssertionError(f'permanent n={n}: non-finite')
             print(f'permanent_cuda_batch B={b} n={n} {dtype}: value {complex(got[0]):.6e}, '
-                  f'kernel {tk_ms:.4f} ms, bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_by"]})')
-            rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, **bnd))
+                  f'kernel {tk_ms:.4f} ms, device {td_ms:.4f} ms '
+                  f'({bnd["bound_ms"] / td_ms:.0%} of the bound), bound {bnd["bound_ms"]:.4f} ms '
+                  f'({bnd["bound_by"]})')
+            rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, device_ms=td_ms, **bnd))
             continue
         ref = pk.permanent_plain_batch(mats)
         e, d = rel_err(got, ref)
@@ -2066,10 +2127,11 @@ def check_permanent_kernel(results: dict, rng):
         tp_ms, _ = time_ms(lambda: pk.permanent_plain_batch(mats), reps=5, warmup=1)
         print(f'permanent_cuda_batch B={b} n={n} {dtype}: rel err {e:.2e}'
               + (f' (numpy Ryser {e_np:.2e})' if e_np is not None else '')
-              + f', kernel {tk_ms:.4f} ms, twin {tp_ms:.4f} ms, bound {bnd["bound_ms"]:.5f} ms '
-              f'({bnd["bound_by"]})')
-        rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, plain_ms=tp_ms, rel_err=e,
-                         max_abs_err=d, **bnd))
+              + f', kernel {tk_ms:.4f} ms, device {td_ms:.4f} ms '
+              f'({bnd["bound_ms"] / td_ms:.0%} of the bound), twin {tp_ms:.4f} ms, bound '
+              f'{bnd["bound_ms"]:.5f} ms ({bnd["bound_by"]})')
+        rows.append(dict(shape=f'B={b}, n={n}, {dtype}', ms=tk_ms, device_ms=td_ms, plain_ms=tp_ms,
+                         rel_err=e, max_abs_err=d, **bnd))
     # no single PyTorch call computes a permanent: library_ms stays null
     results['permanent_cuda_batch'] = dict(rows[0], plane_rel_err=None, other_shapes=rows[1:])
 

@@ -39,45 +39,14 @@ namespace {
 
 constexpr int kThreads = dq::kQuadThreads;
 
-// the gate's planes, in registers at k <= 2, read from shared memory at k = 3
-template <int K>
-struct Planes {
-  static constexpr int D = 1 << K;
-  static constexpr bool kRegs = K <= 2;
-  float re[kRegs ? D * D : 1];
-  float im[kRegs ? D * D : 1];
-  const float* sre;
-  const float* sim;
-
-  __device__ __forceinline__ Planes(const float* r, const float* i) : sre(r), sim(i) {
-    if constexpr (kRegs) {
-#pragma unroll
-      for (int e = 0; e < D * D; ++e) {
-        re[e] = r[e];
-        im[e] = i[e];
-      }
-    }
-  }
-  __device__ __forceinline__ float mr(int e) const {
-    if constexpr (kRegs) return re[e];
-    return sre[e];
-  }
-  __device__ __forceinline__ float mi(int e) const {
-    if constexpr (kRegs) return im[e];
-    return sim[e];
-  }
-};
-
 // y = M v for every group of one unit, stored quad by quad as it is done
 template <int K, int LOW>
 __device__ __forceinline__ void apply_unit(float4* xr, float4* xi, unsigned q0,
                                            const dq::QuadPlan<K - LOW>& plan,
                                            const float4 (&vr)[1 << (K - LOW)],
                                            const float4 (&vi)[1 << (K - LOW)],
-                                           const Planes<K>& m, bool swap) {
-  constexpr int D = 1 << K;
+                                           const dq::Planes<K>& m, bool swap) {
   constexpr int NQ = 1 << (K - LOW);
-  constexpr int CL = 1 << LOW;
   float ar[NQ][4];
   float ai[NQ][4];
 #pragma unroll
@@ -89,29 +58,7 @@ __device__ __forceinline__ void apply_unit(float4* xr, float4* xi, unsigned q0,
   for (int ah = 0; ah < NQ; ++ah) {
     float yr[4];
     float yi[4];
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int s = LOW == 0 ? l : (LOW == 1 ? l >> 1 : 0);   // the lane's group
-      const int a = (ah << LOW) | (LOW == 0 ? 0 : (LOW == 1 ? (l & 1) : l));
-      float sr = 0.f;
-      float si = 0.f;
-#pragma unroll
-      for (int ch = 0; ch < NQ; ++ch) {
-#pragma unroll
-        for (int cl = 0; cl < CL; ++cl) {
-          const int c = (ch << LOW) | cl;
-          const int lc = dq::quad_lane<LOW>(s, cl);
-          const float mr = m.mr(a * D + c);
-          const float mi = m.mi(a * D + c);
-          sr = fmaf(mr, ar[ch][lc], sr);
-          sr = fmaf(-mi, ai[ch][lc], sr);
-          si = fmaf(mr, ai[ch][lc], si);
-          si = fmaf(mi, ar[ch][lc], si);
-        }
-      }
-      yr[l] = sr;
-      yi[l] = si;
-    }
+    dq::mat_quad<K, LOW>(m, ah, ar, ai, yr, yi);
     xr[q0 + plan.off[ah]] = dq::pack_quad(yr, swap);
     xi[q0 + plan.off[ah]] = dq::pack_quad(yi, swap);
   }
@@ -139,7 +86,7 @@ planar_apply_kernel(float* __restrict__ x, const float* __restrict__ mre,
     sim[e] = pi[e];
   }
   __syncthreads();
-  const Planes<K> m(sre, sim);
+  const dq::Planes<K> m(sre, sim);
   const dq::QuadPlan<K - LOW> plan(hb0, hb1, hb2);
   const bool swap = LOW == 1 && swap_lanes;
   const unsigned stride = bps * kThreads;

@@ -22,18 +22,14 @@
 //   dq_planar_grad_blocks_per_sm), each thread
 //   walking many groups (two units at a time at k = 1) with its 2 x 4^k / SPLIT
 //   partial sums in registers, so the block reduction (warp shuffles, then
-//   shared memory; planar_group.cuh) is paid once per many groups;
-// - the sum across blocks in the same launch: every block writes its
-//   (2, D, D) partial to a workspace, fences, and counts itself in at its
-//   sample's arrival counter; the block that arrives last sums the sample's
-//   partials in a fixed order (slice s of its threads adds blocks s, s + S,
-//   ... in ascending order, eight 16-byte loads in flight a thread, then the
-//   S slices in order), writes the final
-//   planes and sets the counter back to 0 for the next launch. The order does
-//   not depend on which block arrives last, so dW is the same bits from run
-//   to run; float atomics into the planes would not be. The workspace and
-//   the zeroed counters belong to the wrapper (one set per device and
-//   stream, grown when needed); the kernel allocates nothing.
+//   shared memory; planar_reduce.cuh) is paid once per many groups;
+// - the sum across blocks in the same launch (planar_reduce.cuh, shared
+//   with K6): every block writes its (2, D, D) partial to a workspace and
+//   counts itself in at its sample's arrival counter; the block that
+//   arrives last sums the sample's partials in a fixed order, so dW is the
+//   same bits from run to run; float atomics into the planes would not be.
+//   The workspace and the zeroed counters belong to the wrapper; the kernel
+//   allocates nothing.
 // The JAX package sums its kernel's per-block partials outside the kernel
 // because a TPU grid runs in order on one core; here the blocks run in
 // parallel and the sum finishes in the same launch. The TPU kernel's
@@ -43,14 +39,12 @@
 // (B, 2, 2^n) stacks and the planes (B, 2^k, 2^k). The sample is a grid
 // axis of bps consecutive blocks, with its own counter and partial slots.
 
-#include "planar_group.cuh"
 #include "planar_quad.cuh"
+#include "planar_reduce.cuh"
 
 namespace {
 
 constexpr int kThreads = dq::kQuadThreads;
-constexpr int kBatch = 8;   // loads in flight per thread in the last block's sum
-static_assert(kThreads == dq::kGateThreads, "block_reduce_planes sums kGateThreads threads");
 
 // add one unit's groups into a thread's rows of the partial sums
 template <int K, int LOW, int SPLIT>
@@ -111,14 +105,8 @@ planar_grad_kernel(const float* __restrict__ g, const float* __restrict__ x,
   constexpr int NQ = 1 << (K - LOW);
   constexpr int ROWS = D / SPLIT;
   constexpr int NQO = ROWS >> LOW;   // the quads of g that hold a thread's rows
-  constexpr int E = 2 * D * D;
-  constexpr int E4 = E / 4;          // float4 of a partial
-  constexpr int S = kThreads / E4;   // slices of the last block's sum
   constexpr int UNROLL = K == 1 ? 2 : 1;
-  static_assert(NQO >= 1 && kThreads % E4 == 0, "a thread's rows fill whole quads");
-  __shared__ float red[kThreads / 32][E];
-  __shared__ float4 fin[kThreads];
-  __shared__ unsigned arrived;
+  static_assert(NQO >= 1, "a thread's rows fill whole quads");
   const unsigned sample = blockIdx.x / bps;
   const unsigned lb = blockIdx.x - sample * bps;
   const float4* gr = reinterpret_cast<const float4*>(g) + size_t(sample) * 2 * quads;
@@ -179,48 +167,7 @@ planar_grad_kernel(const float* __restrict__ g, const float* __restrict__ x,
     }
   }
 
-  // the block's partial, then the sample's arrival count
-  float* smp = parts + size_t(sample) * bps * E;
-  dq::block_reduce_planes<D, SPLIT>(are, aim, smp + size_t(lb) * E, red);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) arrived = atomicAdd(count + sample, 1u);
-  __syncthreads();
-  if (arrived != bps - 1) return;
-
-  // the last block: the sample's partials in a fixed order. Thread t adds
-  // float4 t % E4 of blocks t / E4, t / E4 + S, ... (S slices), kBatch
-  // independent 16-byte loads in flight; then the slices in order.
-  __threadfence();
-  const int e4 = threadIdx.x % E4;
-  const unsigned sl = threadIdx.x / E4;
-  const float4* p4 = reinterpret_cast<const float4*>(smp) + e4;
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (unsigned b0 = sl; b0 < bps; b0 += kBatch * S) {
-    float4 v[kBatch];
-#pragma unroll
-    for (int r = 0; r < kBatch; ++r) {
-      const unsigned b = b0 + r * S;
-      v[r] = b < bps ? __ldcg(p4 + size_t(b) * E4) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int r = 0; r < kBatch; ++r) {
-      sum.x += v[r].x;
-      sum.y += v[r].y;
-      sum.z += v[r].z;
-      sum.w += v[r].w;
-    }
-  }
-  fin[threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.x < E) {
-    const float* f = reinterpret_cast<const float*>(fin);
-    float t = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < S; ++j) t += f[j * E + threadIdx.x];   // slice j, element e
-    out[size_t(sample) * E + threadIdx.x] = t;
-  }
-  if (threadIdx.x == 0) count[sample] = 0u;
+  dq::sum_planes<D, SPLIT, false>(are, aim, out, parts, count, sample, lb, bps);
 }
 
 struct Launch {

@@ -1,5 +1,5 @@
-// The 16-byte access plan of the per-gate kernels K1 (planar_apply.cu) and
-// K5 (planar_grad.cu).
+// The 16-byte access plan of the per-gate kernels K1 (planar_apply.cu), K5
+// (planar_grad.cu) and K6 (planar_bwd_fused.cu).
 //
 // A float32 plane of 2^n amplitudes is read as 2^(n - 2) aligned float4
 // "quads": amplitude bits 0-1 pick the lane of a quad, bits >= 2 the quad.
@@ -83,6 +83,70 @@ __device__ __forceinline__ void unpack_quad(const float4 q, float (&a)[4], bool 
 
 __device__ __forceinline__ float4 pack_quad(const float (&a)[4], bool swap) {
   return make_float4(a[0], swap ? a[2] : a[1], swap ? a[1] : a[2], a[3]);
+}
+
+// the gate's planes, in registers at k <= 2, read from shared memory at k = 3
+template <int K>
+struct Planes {
+  static constexpr int D = 1 << K;
+  static constexpr bool kRegs = K <= 2;
+  float re[kRegs ? D * D : 1];
+  float im[kRegs ? D * D : 1];
+  const float* sre;
+  const float* sim;
+
+  __device__ __forceinline__ Planes(const float* r, const float* i) : sre(r), sim(i) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int e = 0; e < D * D; ++e) {
+        re[e] = r[e];
+        im[e] = i[e];
+      }
+    }
+  }
+  __device__ __forceinline__ float mr(int e) const {
+    if constexpr (kRegs) return re[e];
+    return sre[e];
+  }
+  __device__ __forceinline__ float mi(int e) const {
+    if constexpr (kRegs) return im[e];
+    return sim[e];
+  }
+};
+
+// rows (ah << LOW) | cl of y = M v for the groups of one unit: quad ah of
+// the result, lane by lane, from the unit's quads v unpacked (K1 and K6)
+template <int K, int LOW>
+__device__ __forceinline__ void mat_quad(const Planes<K>& m, int ah,
+                                         const float (&vr)[1 << (K - LOW)][4],
+                                         const float (&vi)[1 << (K - LOW)][4], float (&yr)[4],
+                                         float (&yi)[4]) {
+  constexpr int D = 1 << K;
+  constexpr int NQ = 1 << (K - LOW);
+  constexpr int CL = 1 << LOW;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const int s = LOW == 0 ? l : (LOW == 1 ? l >> 1 : 0);   // the lane's group
+    const int a = (ah << LOW) | (LOW == 0 ? 0 : (LOW == 1 ? (l & 1) : l));
+    float sr = 0.f;
+    float si = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < NQ; ++ch) {
+#pragma unroll
+      for (int cl = 0; cl < CL; ++cl) {
+        const int c = (ch << LOW) | cl;
+        const int lc = quad_lane<LOW>(s, cl);
+        const float mr = m.mr(a * D + c);
+        const float mi = m.mi(a * D + c);
+        sr = fmaf(mr, vr[ch][lc], sr);
+        sr = fmaf(-mi, vi[ch][lc], sr);
+        si = fmaf(mr, vi[ch][lc], si);
+        si = fmaf(mi, vr[ch][lc], si);
+      }
+    }
+    yr[l] = sr;
+    yi[l] = si;
+  }
 }
 
 // f.template run<K, LOW>() of the kernel instance for (k, low); the entry

@@ -46,11 +46,13 @@ _SIGNATURES = {
     'dq_window_chain_fwd_f32': (_P, _I, _P, _P, _P, _P, _I, _I),
     # g, x, out, parts, count, batch, n, k, low, swap, hb[3], bps
     'dq_planar_grad_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I),
-    # y, g, mre_t, mim_t, parts, batch, pstride, nblocks, n, k, bits[3]
-    'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I),
+    # y, g, mre_t, mim_t, out, parts, count, batch, pstride, n, k, low, swap, hb[3], bps
+    'dq_planar_bwd_fused_f32': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I),
     # table, nstep, wre_t, wim_t, ya, yb, ga, gb, dwre, dwim, part, slots, sms, n
     'dq_window_chain_bwd_f32': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I),
-    'dq_permanent_ryser': (_P, _I, _P, _I, _I, _I),            # mats, is_c64, parts, b, n, level
+    # mats, is_c64, out, out_c64, parts, count, b, n, level, ways
+    'dq_permanent_ryser': (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I),
     # o_mat, gamma (or null), is_c64, idx, det, quad (or null), batch, m
     'dq_tor_lu': (_P, _P, _I, _P, _P, _P, _I, _I),
     # table, nstep, ps_re, ps_im, sh_re, sh_im, pstride, x, y, batch, n, c
@@ -62,6 +64,8 @@ _SIGNATURES = {
     'dq_planar_chain_batched_clusters': (_I, _I, _I, _P),      # n, c, backward, out (host int)
     'dq_planar_apply_blocks_per_sm': (_I, _I, _P),             # k, low, out (host int)
     'dq_planar_grad_blocks_per_sm': (_I, _I, _P),              # k, low, out (host int)
+    'dq_planar_bwd_fused_blocks_per_sm': (_I, _I, _P),         # k, low, out (host int)
+    'dq_permanent_blocks_per_sm': (_I, _P),                    # n, out (host int)
 }
 
 _lock = threading.Lock()

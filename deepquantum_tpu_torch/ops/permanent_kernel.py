@@ -13,12 +13,13 @@ here is a float64, whatever the input type (complex64 or complex128), and
 none of the plane-splitting machinery is carried over.
 
 The sweep walks the 2^n subsets in Gray-code order, so a step changes the n
-column sums by one row (n complex adds) and multiplies them up (n complex
-multiplies). A thread owns a run of 2^L consecutive Gray-code indices of one
-matrix; ``plan`` picks L so that both a stack of many small matrices and one
-large matrix fill the card. The threads' partial sums go to a scratch tensor
-that ``torch.sum`` adds in a fixed order: no float atomics, so the result
-does not change from run to run.
+column sums by one row (n complex adds) and multiplies them up (n - 1
+complex multiplies). A matrix's subsets are 2^rb runs of 2^L steps, and a
+thread walks ``ways`` runs side by side; ``plan`` picks L so that the stack
+fills a few waves of the card: one or two threads a matrix where the stack
+is large, many threads and blocks to a matrix where it is small. The launch
+sums each matrix's runs in a fixed order and writes the (B,) result: one
+device operation a call, no float atomics, the same bits from run to run.
 
 Gradients: on a CUDA tensor the wrapper is a ``torch.autograd.Function``
 whose forward launches the kernel and whose backward is the derivative of
@@ -31,37 +32,67 @@ from __future__ import annotations
 import torch
 
 from ..config import cdtype
-from .planar_gate import _first_order_only
+from .planar_gate import _first_order_only, workspace
 
 __all__ = ['permanent_cuda_batch', 'permanent_plain_batch', 'plan', 'MIN_N', 'MAX_N']
 
 MIN_N = 4            # below: closed forms (photonic/qmath.py)
 MAX_N = 26
 THREADS = 128        # threads of a block, as in csrc/permanent_ryser.cu
-_TARGET_THREADS = 1 << 17
-_SMEM_BYTES = 48 * 1024
+_WAVES = 4           # waves of the resident threads a launch may take
+_SMEM_BYTES = 96 * 1024   # shared memory a block's matrices may take (the kernel's kSmemMax)
+# the kernel's instances: (NMAX, runs a thread walks); n takes the first NMAX >= n
+_NMAX_WAYS = ((8, 4), (12, 2), (16, 2), (20, 2), (26, 1))
 _TWIN_BYTES = 1 << 28    # the twin's (B, chunk, n) complex128 intermediate
 
 
-def plan(b: int, n: int) -> tuple[int, int]:
-    """(L, partials per matrix) of the kernel's launch for a (b, n, n) stack.
+def ways_of(n: int) -> int:
+    """Runs a thread of the kernel instance for n walks side by side."""
+    return next(w for nmax, w in _NMAX_WAYS if n <= nmax)
 
-    A thread sweeps 2^L subsets. L aims at about 2^17 threads in all, stays
-    at or above 4 (below that the start-up sum of a run outweighs its steps)
-    and at or below 16, and shrinks until the matrices that one block's
-    threads touch fit 48 KB of shared memory as complex128. A matrix has
-    2^(n - L) runs; a warp that lies inside one matrix (32 or more runs)
-    adds its lanes' sums first, so it leaves one partial, else a thread
-    leaves one."""
+
+def smem_stride(n: int) -> int:
+    """complex128 words between two matrices in the kernel's shared memory:
+    n^2 made odd, so that threads on different matrices read different banks."""
+    return (n * n) | 1
+
+
+def plan(b: int, n: int, resident: int) -> tuple[int, int, int]:
+    """(L, ways, threads per matrix) of the kernel's launch for a (b, n, n)
+    stack on a card that keeps ``resident`` threads of the instance.
+
+    A matrix's 2^n subsets are 2^rb runs of 2^L steps (rb + L = n), ``ways``
+    runs a thread, so 2^rb / ways threads a matrix (a power of two). rb
+    starts at the least that gives a thread its ``ways`` runs and grows
+    while the stack's threads stay within _WAVES waves of ``resident`` and
+    a run's steps stay at least twice the rb row additions its start-up may
+    take, and also while the matrices that one block of THREADS threads
+    takes would not fit _SMEM_BYTES as complex128. (tools/perm_sweep.py on
+    an H100: one wave leaves SMs with one block beside SMs with two, 1.61
+    ms at (1, 26) against 1.12 over four waves; shorter runs lose to their
+    start-up sums.)"""
     if not MIN_N <= n <= MAX_N:
         raise ValueError(f'permanent kernel: {MIN_N} <= n <= {MAX_N}, got n = {n}')
-    want = max(1, (b << n) // _TARGET_THREADS)
-    level = max(min(want.bit_length() - 1, 16), 4)
-    level = min(level, n)
-    while level > 0 and max(1, THREADS >> (n - level)) * n * n * 16 > _SMEM_BYTES:
-        level -= 1
-    runs = 1 << (n - level)
-    return level, (runs // 32 if runs >= 32 else runs)
+    ways = ways_of(n)
+    rb = ways.bit_length() - 1
+    while rb < n:
+        tpm = (1 << rb) // ways
+        mats = min(THREADS // tpm, b) if tpm <= THREADS else 1
+        if mats * smem_stride(n) * 16 > _SMEM_BYTES or \
+                (b * tpm * 2 <= _WAVES * resident and 1 << (n - rb - 1) >= 2 * (rb + 1)):
+            rb += 1
+            continue
+        break
+    return n - rb, ways, (1 << rb) // ways
+
+
+def _resident_threads(device: torch.device, n: int) -> int:
+    """Threads of the instance for n that the card keeps resident: blocks an
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) x SMs x THREADS."""
+    from . import _cuda
+    from .planar_gate import resident_on
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return resident_on('dq_permanent_blocks_per_sm', index, n) * _cuda.sm_count(device) * THREADS
 
 
 def permanent_plain_batch(mats: torch.Tensor) -> torch.Tensor:
@@ -99,15 +130,21 @@ def _launch(mats: torch.Tensor) -> torch.Tensor:
     if mats.dtype not in (torch.complex64, torch.complex128):
         raise TypeError(f'permanent_cuda_batch: complex64 or complex128, got {mats.dtype}')
     b, n, _ = mats.shape
-    level, nparts = plan(b, n)
+    if not MIN_N <= n <= MAX_N:
+        raise ValueError(f'permanent kernel: {MIN_N} <= n <= {MAX_N}, got n = {n}')
     if b == 0:
         return torch.zeros(0, dtype=cdtype(), device=mats.device)
+    level, ways, tpm = plan(b, n, _resident_threads(mats.device, n))
     mats = mats.contiguous()
-    parts = torch.empty((b, nparts), dtype=torch.complex128, device=mats.device)
-    _cuda.launch('dq_permanent_ryser', mats.device, mats, int(mats.dtype == torch.complex64),
-                 parts, b, n, level)
+    out = torch.empty(b, dtype=cdtype(), device=mats.device)
+    index, stream = _cuda.stream_of(mats.device)
+    parts = count = 0
+    if tpm > THREADS:   # a matrix spans blocks: partials and counters
+        parts, count = workspace(mats.device, index, stream, 4 * b * (tpm // THREADS), b)
+    _cuda.launch_on('dq_permanent_ryser', index, stream, mats, int(mats.dtype == torch.complex64),
+                    out, int(out.dtype == torch.complex64), parts, count, b, n, level, ways)
     permanent_cuda_batch.launches += 1
-    return parts.sum(dim=1).to(cdtype())
+    return out
 
 
 class _Permanents(torch.autograd.Function):

@@ -167,15 +167,15 @@ def _gate_bits(name: str, n: int, ws):
     return [n - 1 - w for w in ws] + [0] * (3 - k)
 
 
-# ------------------------------------------------- K1 / K5: the access plan
-_GATE_THREADS = 256          # threads per block of K1 and K5 (csrc/planar_quad.cuh)
+# -------------------------------------------- K1 / K5 / K6: the access plan
+_GATE_THREADS = 256          # threads per block of K1, K5, K6 (csrc/planar_quad.cuh)
 _QUADS_PER_THREAD = 4        # at least this many float4 per plane per thread
 _MAX_QUBITS = 33             # 32-bit quad indices (a 2^33 state is 64 GB a tensor)
 
 
 @functools.lru_cache(maxsize=None)
 def quad_plan(name: str, n: int, ws):
-    """The 16-byte access plan of K1 and K5 (``csrc/planar_quad.cuh``) for
+    """The 16-byte access plan of K1, K5 and K6 (``csrc/planar_quad.cuh``) for
     the sorted wires ``ws`` on n qubits: (k, low, swap, hb). ``low`` counts
     the gate's amplitude bits among 0-1 (a float4 quad holds its partners
     where low > 0); ``swap`` is 1 where it holds bit 1 but not bit 0 (the
@@ -192,7 +192,7 @@ def quad_plan(name: str, n: int, ws):
 
 @functools.lru_cache(maxsize=None)
 def gate_blocks(n: int, batch: int, sms: int, per_sm: int) -> int:
-    """Blocks per sample of K1 / K5: the grid is sized to the card, not to
+    """Blocks per sample of K1 / K5 / K6: the grid is sized to the card, not to
     the groups. One wave of ``per_sm`` resident blocks on each of ``sms``
     SMs, shared by the batch (a power of two per sample, so a wave is never
     cut into a second one by rounding up), but no more than leave each
@@ -203,24 +203,30 @@ def gate_blocks(n: int, batch: int, sms: int, per_sm: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_on(entry: str, index: int, k: int, low: int) -> int:
+def resident_on(entry: str, index: int, *args: int) -> int:
+    """Blocks of one kernel instance that an SM of card ``index`` keeps
+    resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers
+    and shared memory decide), asked once per instance and card through the
+    entry point ``entry(*args, out)``."""
     from . import _cuda
     out = torch.zeros(1, dtype=torch.int32)
-    _cuda.launch_on(entry, index, 0, k, low, out)
+    _cuda.launch_on(entry, index, 0, *args, out)
     if int(out.item()) < 1:
-        raise RuntimeError(f'{entry}: the (k={k}, low={low}) kernel fits no block on an SM')
+        raise RuntimeError(f'{entry}: the instance for {args} fits no block on an SM')
     return int(out.item())
 
 
 def _resident(entry: str, device: torch.device, k: int, low: int) -> int:
-    """Blocks of one K1 / K5 instance that an SM of ``device``'s card keeps
-    resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers
-    and shared memory decide), asked once per instance and card."""
+    """Blocks of one K1 / K5 / K6 instance (k, low) resident on an SM of
+    ``device``'s card."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _resident_on(entry, index, k, low)
+    return resident_on(entry, index, k, low)
 
 
 # ----------------------------------------------------------------- kernel K5
+_TWIN_BLOCK = 1 << 8    # positions a partial of the twin's reduction sums
+
+
 def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     """Plain torch twin of the ``planar_grad`` kernel (named after the JAX
     package's XLA twin): matrix-plane cotangents of y = U x from the output
@@ -228,14 +234,26 @@ def planar_grad_xla(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     dRe[i, j] = sum_m gr_i[m] xr_j[m] + gi_i[m] xi_j[m],
     dIm[i, j] = sum_m gi_i[m] xr_j[m] - gr_i[m] xi_j[m],
     over the 2^(n-k) non-gate positions m, rows/columns in sorted-wire order;
-    (B, K, K) each for (B, 2, 2^n) stacks."""
+    (B, K, K) each for (B, 2, 2^n) stacks.
+
+    The sum runs in blocks: one matmul gives the partials over blocks of
+    _TWIN_BLOCK positions, then the partials are summed. A single float32
+    matmul over all 2^(n-k) positions may add them one after another, and
+    such a sum drifts with the square root of its length (1.4e-5 of the
+    float64 sum at n=18 on amplitude bit 0); in blocks of 2^8 it stays
+    under 1e-6."""
     ws = sorted(wires)
     gv, _ = _combo_view(g, n, ws)
     xv, _ = _combo_view(x, n, ws)
-    gr, gi = gv[..., 0, :, :], gv[..., 1, :, :]
-    xr_t, xi_t = xv[..., 0, :, :].transpose(-1, -2), xv[..., 1, :, :].transpose(-1, -2)
-    dre = gr @ xr_t + gi @ xi_t
-    dim = gi @ xr_t - gr @ xi_t
+    m = gv.shape[-1]
+    blk = min(m, _TWIN_BLOCK)
+    shape = tuple(gv.shape[:-1]) + (m // blk, blk)           # (..., 2, K, nb, blk)
+    gv = gv.reshape(shape).transpose(-3, -2)                  # (..., 2, nb, K, blk)
+    xv = xv.reshape(shape).transpose(-3, -2)
+    gr, gi = gv[..., 0, :, :, :], gv[..., 1, :, :, :]
+    xr_t, xi_t = xv[..., 0, :, :, :].transpose(-1, -2), xv[..., 1, :, :, :].transpose(-1, -2)
+    dre = (gr @ xr_t + gi @ xi_t).sum(-3)
+    dim = (gi @ xr_t - gr @ xi_t).sum(-3)
     return dre, dim
 
 
@@ -251,21 +269,24 @@ def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor, n: int,
     return batch
 
 
-# (device index, stream) -> (partials, arrival counters) of the planar_grad
-# kernel: allocated once and grown, never per call; a launch leaves every
-# counter at 0 again, so launches in order on one stream share them
-_grad_workspaces: dict = {}
+# (device index, stream) -> (partials, arrival counters) of the kernels that
+# finish their sum over blocks inside the launch (K5, K6, K7): allocated once
+# and grown, never per call; a launch leaves every counter at 0 again, so
+# launches in order on one stream share them
+_workspaces: dict = {}
 
 
-def _grad_workspace(device: torch.device, index: int, stream: int, floats: int, batch: int):
-    parts, count = _grad_workspaces.get((index, stream), (None, None))
+def workspace(device: torch.device, index: int, stream: int, floats: int, batch: int):
+    """(float32 partials of at least ``floats``, int32 counters of at least
+    ``batch``, all 0) for launches on ``stream`` of card ``index``."""
+    parts, count = _workspaces.get((index, stream), (None, None))
     if parts is None or parts.numel() < floats or count.numel() < batch:
         with torch.inference_mode(False):
             if parts is None or parts.numel() < floats:
                 parts = torch.empty(floats, dtype=torch.float32, device=device)
             if count is None or count.numel() < batch:
                 count = torch.zeros(batch, dtype=torch.int32, device=device)
-        _grad_workspaces[(index, stream)] = (parts, count)
+        _workspaces[(index, stream)] = (parts, count)
     return parts, count
 
 
@@ -288,7 +309,7 @@ def planar_grad(g: torch.Tensor, x: torch.Tensor, n: int, wires):
     bps = gate_blocks(n, batch, _cuda.sm_count(g.device),
                       _resident('dq_planar_grad_blocks_per_sm', g.device, k, low))
     index, stream = _cuda.stream_of(g.device)
-    parts, count = _grad_workspace(g.device, index, stream, batch * bps * 2 * kk * kk, batch)
+    parts, count = workspace(g.device, index, stream, batch * bps * 2 * kk * kk, batch)
     out = torch.empty(((batch, 2, kk, kk) if g.dim() == 3 else (2, kk, kk)), dtype=torch.float32,
                       device=g.device)
     _cuda.launch_on('dq_planar_grad_f32', index, stream, g, x, out, parts, count, batch, n, k,
@@ -305,21 +326,6 @@ planar_grad.batched_launches = 0
 
 
 # ----------------------------------------------------------------- kernel K6
-_FUSED_THREADS = 256     # threads per block of csrc/planar_bwd_fused.cu
-_FUSED_MAX_BLOCKS = 1024
-
-
-def _fused_blocks(n: int, k: int) -> int:
-    """Blocks of the planar_bwd_fused kernel for one state (each sample of
-    a stack gets as many): one thread per 2^k-amplitude group (two at
-    k = 3, which splits the rows), a power of two capped so that each thread
-    walks several groups before the block reduces."""
-    threads = (1 << (n - k)) * (2 if k == 3 else 1)
-    if threads < _FUSED_THREADS:
-        raise ValueError(f'the planar_bwd_fused kernel needs n - k >= 8, got n={n}, k={k}')
-    return min(_FUSED_MAX_BLOCKS, threads // _FUSED_THREADS)
-
-
 def planar_bwd_fused_plain(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
                            mim_t: torch.Tensor, n: int, wires):
     """Plain torch twin of the ``planar_bwd_fused`` kernel: one backward gate
@@ -349,24 +355,26 @@ def planar_bwd_fused(y: torch.Tensor, g: torch.Tensor, mre_t: torch.Tensor,
         g.copy_(g2)
         return y, g, dre, dim
     from . import _cuda
-    bits = _gate_bits('planar_bwd_fused', n, ws)
-    batch = _check_pair('planar_bwd_fused', y, g, n)
+    k, low, swap, hb = quad_plan('planar_bwd_fused', n, ws)
+    batch = _check_pair('planar_bwd_fused', y, g, n, aligned=True)
     if y.data_ptr() == g.data_ptr():
         raise ValueError('planar_bwd_fused: y and g must be two tensors on one device')
-    k = len(ws)
-    (mre_t, mim_t), pstride = _cuda.sample_planes('planar_bwd_fused', y, batch, (1 << k, 1 << k),
+    kk = 1 << k
+    (mre_t, mim_t), pstride = _cuda.sample_planes('planar_bwd_fused', y, batch, (kk, kk),
                                                   mre_t, mim_t)
-    nblocks = _fused_blocks(n, k)
-    parts = torch.empty((batch, nblocks, 2, 1 << k, 1 << k), dtype=torch.float32,
-                        device=y.device)
-    _cuda.launch('dq_planar_bwd_fused_f32', y.device, y, g, mre_t, mim_t, parts, batch, pstride,
-                 nblocks, n, k, *bits)
-    total = parts.sum(dim=1)
+    bps = gate_blocks(n, batch, _cuda.sm_count(y.device),
+                      _resident('dq_planar_bwd_fused_blocks_per_sm', y.device, k, low))
+    index, stream = _cuda.stream_of(y.device)
+    parts, count = workspace(y.device, index, stream, batch * bps * 2 * kk * kk, batch)
+    out = torch.empty(((batch, 2, kk, kk) if y.dim() == 3 else (2, kk, kk)), dtype=torch.float32,
+                      device=y.device)
+    _cuda.launch_on('dq_planar_bwd_fused_f32', index, stream, y, g, mre_t, mim_t, out, parts,
+                    count, batch, pstride, n, k, low, swap, *hb, bps)
     if y.dim() == 3:
         planar_bwd_fused.batched_launches += 1
-        return y, g, total[:, 0], total[:, 1]
-    planar_bwd_fused.launches += 1
-    return y, g, total[0, 0], total[0, 1]
+    else:
+        planar_bwd_fused.launches += 1
+    return (y, g, *out.unbind(-3))
 
 
 planar_bwd_fused.launches = 0

@@ -293,12 +293,18 @@ def test_planar_grad_kernel_matches_twin(n, wires, card):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize('n,wires', GATE_CASES)
+# K6 on the float4 plan: every (k, low) variant, down to n = 2 (the per-thread
+# kernel it replaces took n - k >= 8 only), and the n=22 wire sets
+@pytest.mark.parametrize('n,wires', GATE_CASES + [(10, (0, 1, 2)), (10, (7, 8, 9)), (10, (1, 8)),
+                                                  (10, (0, 7, 8)), (9, (4, 7, 8)), (2, (0,)),
+                                                  (2, (0, 1)), (3, (0, 1, 2)), (5, (1,)),
+                                                  (6, (0, 3, 5))] + GATE_WIRE_SETS_22)
 def test_planar_bwd_fused_kernel_matches_twin(n, wires, card):
     rng = np.random.default_rng(n + 3 * sum(wires))
     u = _haar(1 << len(wires), rng)
     mre_t, mim_t = _planes(u.conj().T, card)
     y, g = _state(n, rng, card), _state(n, rng, card)
+    y0, g0 = y.clone(), g.clone()
     want = tpg.planar_bwd_fused_plain(y, g, mre_t, mim_t, n, wires)
     before = tpg.planar_bwd_fused.launches
     got = tpg.planar_bwd_fused(y, g, mre_t, mim_t, n, wires)
@@ -308,6 +314,9 @@ def test_planar_bwd_fused_kernel_matches_twin(n, wires, card):
     torch.testing.assert_close(g, want[1], atol=2e-6, rtol=0)
     _plane_close(got[2], want[2])
     _plane_close(got[3], want[3])
+    # the sum over blocks ends in the launch in a fixed order
+    again = tpg.planar_bwd_fused(y0, g0, mre_t, mim_t, n, wires)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize('n', [14, 16, 19])
@@ -816,6 +825,21 @@ def test_permanent_kernel_matches_twin(card128, b, n, dtype):
     ref = pk.permanent_plain_batch(mats)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-10
     # run to run the same bits: no float atomics
+    assert torch.equal(got, pk.permanent_cuda_batch(mats))
+
+
+@pytest.mark.parametrize('b,n', [(300, 6), (5, 13), (1, 16), (3, 11)])
+def test_permanent_kernel_writes_complex64(card, b, n):
+    """At the complex64 policy the launch writes complex64 itself: a whole
+    matrix a thread, a few lanes, a block and several blocks a matrix."""
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
+    rng = np.random.default_rng(b + n)
+    mats = torch.as_tensor(np.stack([_haar(n, rng) for _ in range(b)]), device=card).to(
+        torch.complex64)
+    got = pk.permanent_cuda_batch(mats)
+    assert got.dtype == torch.complex64 and got.shape == (b,)
+    ref = pk.permanent_plain_batch(mats.to(torch.complex128)).to(torch.complex128)
+    assert ((got.to(torch.complex128) - ref).abs().max() / ref.abs().max()).item() <= 1e-6
     assert torch.equal(got, pk.permanent_cuda_batch(mats))
 
 

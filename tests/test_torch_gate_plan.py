@@ -1,18 +1,21 @@
-"""The access plan of the per-gate kernels K1 and K5, mirrored on the CPU.
+"""The access plan of the per-gate kernels K1, K5 and K6, mirrored on the CPU.
 
-``csrc/planar_apply.cu`` (K1) and ``csrc/planar_grad.cu`` (K5) read the
-state as float4 quads (``csrc/planar_quad.cuh``): a thread owns units of
-2^(k - low) quads per plane, each holding 4 / 2^low whole groups, and walks
-them in a grid-stride loop over a grid that ``planar_gate.gate_blocks``
-sizes to the card. The kernels run only on the card; these tests walk a
-Python mirror of the same index arithmetic (the grid, the units each thread
-takes, the lanes and the lane swap of the bit-1 variant, K5's split rows and
-its last block's fixed-order sum) with the plan that ``planar_gate.quad_plan``
-hands the kernels, and check that
+``csrc/planar_apply.cu`` (K1), ``csrc/planar_grad.cu`` (K5) and
+``csrc/planar_bwd_fused.cu`` (K6) read the state as float4 quads
+(``csrc/planar_quad.cuh``): a thread owns units of 2^(k - low) quads per
+plane, each holding 4 / 2^low whole groups, and walks them in a grid-stride
+loop over a grid that ``planar_gate.gate_blocks`` sizes to the card. The
+kernels run only on the card; these tests walk a Python mirror of the same
+index arithmetic (the grid, the units each thread takes, the lanes and the
+lane swap of the bit-1 variant, K5's split rows, K6's split columns and the
+last block's fixed-order sum of ``csrc/planar_reduce.cuh``) with the plan
+that ``planar_gate.quad_plan`` hands the kernels, and check that
 
 - every amplitude of every sample is taken exactly once (K5 at k = 3: by
-  both threads of a pair, each for its own rows), and each group's 2^k
-  partners come in sorted-wire order, the order of the gate's planes;
+  both threads of a pair, each for its own rows; K6 at k = 3: loaded by
+  every thread of its unit and stored by the one that owns its quad), and
+  each group's 2^k partners come in sorted-wire order, the order of the
+  gate's planes;
 - walked in float64, the mirror gives the twins' results (to 1e-12);
 - the grid: a power of two per sample, no more than one wave of the
   resident blocks, every thread at least 4 quads per plane where the state
@@ -35,6 +38,11 @@ SMS = 132
 # blocks an SM keeps resident: the card reports them per kernel instance
 # (registers decide: 1 at k = 3, 2-4 below); the walks take each
 RESIDENT = (1, 2, 4)
+
+
+def _k6_split(k, low):
+    """Threads that share a unit of K6 (csrc/planar_bwd_fused.cu split_of)."""
+    return 1 if k < 3 else (2 if low == 2 else 4)
 
 
 def _insert_zeros(u, hb):
@@ -109,6 +117,8 @@ def test_walk_covers_every_amplitude_once_in_wire_order(n, ws, batch):
     k = len(ws)
     walks = [(per_sm, 1, 2 if k <= 2 else 1) for per_sm in RESIDENT]          # K1
     walks += [(per_sm, 2 if k == 3 else 1, 2 if k == 1 else 1) for per_sm in RESIDENT]  # K5
+    low = tpg.quad_plan('mirror', n, ws)[1]
+    walks += [(per_sm, _k6_split(k, low), 2 if k == 1 else 1) for per_sm in RESIDENT]  # K6
     for per_sm, split, unroll in walks:
         bps, plan, thread, sub, unit = _walk(n, ws, batch, per_sm, split, unroll)
         # blocks to samples: sample = blockIdx // bps owns bps consecutive blocks
@@ -160,6 +170,130 @@ def test_mirror_walk_in_float64_gives_the_twins(n, ws, batch):
     wr, wi = tpg.planar_grad_xla(torch.as_tensor(g), torch.as_tensor(x), n, ws)
     np.testing.assert_allclose(dw.real, wr.numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(dw.imag, wi.numpy(), rtol=0, atol=1e-12)
+
+
+def _own_quads(n, plan, unit, sub, split):
+    """(visits, quads of a thread's own share, 4) amplitude indices that K6
+    stores: quads sub * NQO ... of each visited unit, whole float4."""
+    k, low, _, hb = plan
+    h = k - low
+    nqo = ((1 << k) // split) >> low
+    base = _insert_zeros(unit, hb[:h])
+    out = np.empty((len(unit), nqo, 4), dtype=np.int64)
+    for mq in range(nqo):
+        ch = sub * nqo + mq
+        off = sum(((ch >> (h - 1 - j)) & 1) << hb[j] for j in range(h))
+        out[:, mq] = ((base + off) * 4)[:, None] + np.arange(4)[None, :]
+    return out
+
+
+@pytest.mark.parametrize('n,ws', CASES)
+def test_k6_stores_every_amplitude_once_by_its_owner(n, ws):
+    """K6 loads a whole unit into each of its SPLIT threads and each stores
+    only its own quads (x into y, g' into g, the same offsets): every
+    amplitude of both states is stored exactly once, by the thread whose
+    columns hold it, after the unit's threads have loaded it."""
+    k = len(ws)
+    plan = tpg.quad_plan('mirror', n, ws)
+    split = _k6_split(k, plan[1])
+    for per_sm in RESIDENT:
+        _, plan, thread, sub, unit = _walk(n, ws, 3, per_sm, split, 2 if k == 1 else 1)
+        stored = np.zeros(1 << n, dtype=np.int64)
+        for s_ in range(split):
+            own = _own_quads(n, plan, unit[sub == s_], s_, split)
+            np.add.at(stored, own.ravel(), 1)
+            # the stored amplitudes are the gate indices of the share's columns
+            cols = (1 << k) // split
+            amps = _groups(n, plan, unit[sub == s_])[..., s_ * cols:(s_ + 1) * cols]
+            assert np.array_equal(np.sort(own.ravel()), np.sort(amps.ravel()))
+        assert (stored == 1).all()
+        # the threads of a unit are neighbours in one warp: the same units, in step
+        first = thread - sub
+        assert ((first % 32) + split <= 32).all()
+        for s_ in range(1, split):
+            assert np.array_equal(unit[sub == s_], unit[sub == 0])
+
+
+@pytest.mark.parametrize('n,ws,batch', [(10, (0, 5, 9), 3), (10, (8, 9), 1), (12, (1, 10), 3),
+                                        (10, (7, 8, 9), 2), (10, (3,), 3), (10, (0, 1, 8), 1),
+                                        (9, (0, 1, 2), 2)])
+def test_k6_mirror_walk_in_float64_gives_the_twin(n, ws, batch):
+    """x = M y and g' = M g for each share's own columns, the raw g's rows
+    against those columns added to the planes, unit by unit as the threads
+    walk them: the twin's four results."""
+    rng = np.random.default_rng(7 * n + sum(ws))
+    k = len(ws)
+    d = 1 << k
+    y = rng.standard_normal((batch, 2, 1 << n))
+    g = rng.standard_normal((batch, 2, 1 << n))
+    m = rng.standard_normal((batch, d, d)) + 1j * rng.standard_normal((batch, d, d))
+    plan = tpg.quad_plan('mirror', n, ws)
+    split = _k6_split(k, plan[1])
+    cols = d // split
+    _, plan, _, sub, unit = _walk(n, ws, batch, 2, split, 2 if k == 1 else 1)
+    yc, gc = y[:, 0] + 1j * y[:, 1], g[:, 0] + 1j * g[:, 1]
+    x_out, g_out = yc.copy(), gc.copy()
+    dw = np.zeros((batch, d, d), dtype=complex)
+    for s_ in range(split):
+        amps = _groups(n, plan, unit[sub == s_]).reshape(-1, d)       # (groups, 2^k)
+        c = slice(s_ * cols, (s_ + 1) * cols)
+        x_own = np.einsum('bac,bgc->bga', m[:, c], yc[:, amps])
+        x_out[:, amps[:, c]] = x_own
+        g_out[:, amps[:, c]] = np.einsum('bac,bgc->bga', m[:, c], gc[:, amps])
+        dw[:, :, c] += np.einsum('bgi,bgj->bij', gc[:, amps], np.conj(x_own))
+    want = tpg.planar_bwd_fused_plain(torch.as_tensor(y), torch.as_tensor(g),
+                                      torch.as_tensor(m.real), torch.as_tensor(m.imag), n, ws)
+    np.testing.assert_allclose(np.stack([x_out.real, x_out.imag], 1), want[0].numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(np.stack([g_out.real, g_out.imag], 1), want[1].numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(dw.real, want[2].numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(dw.imag, want[3].numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize('k,split,by_col', [(1, 1, False), (2, 1, False), (3, 2, False),
+                                            (1, 1, True), (2, 1, True), (3, 2, True),
+                                            (3, 4, True)])
+def test_block_partial_places_every_share_once(k, split, by_col):
+    """planar_reduce.cuh plane_index: lane `sub` < SPLIT writes element e of
+    its partial at (row, column) of the planes; K5 splits rows, K6 columns.
+    Every element of the (D, D) planes is written by exactly one (sub, e)."""
+    d = 1 << k
+    part = d // split
+    seen = np.zeros(d * d, dtype=int)
+    for sub in range(split):
+        for e in range(part * d):
+            if by_col:
+                ij = (e // part) * d + sub * part + e % part
+            else:
+                ij = (sub * part + e // d) * d + e % d
+            seen[ij] += 1
+    assert (seen == 1).all()
+
+
+def test_twin_reduction_sums_in_blocks_to_1e6():
+    """planar_grad_xla sums its 2^(n-k) products in blocks of _TWIN_BLOCK
+    positions and then the partials: at n=18 on amplitude bit 0, where one
+    float32 sum of 2^17 products drifts to ~1e-5 of the float64 sum, it
+    stays within 1e-6 of the same twin run in float64."""
+    rng = np.random.default_rng(18)
+    n, b, ws = 18, 2, (17,)
+    g = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32))
+    x = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32))
+    got = tpg.planar_grad_xla(g, x, n, ws)
+    ref = tpg.planar_grad_xla(g.double(), x.double(), n, ws)
+    scale = max(r.abs().max().item() for r in ref)
+    err = max((a.double() - r).abs().max().item() for a, r in zip(got, ref)) / scale
+    assert got[0].dtype == torch.float32 and got[0].shape == (b, 2, 2)
+    assert err <= 1e-6
+    # the blocks: 2^17 positions in partials of _TWIN_BLOCK, a float32 serial
+    # sum inside each (the worst order a matmul may take) stays under the bar
+    # dRe[i, i]'s products: amplitude 2m + i of g against the same of x
+    gx = (g[:, 0].double() * x[:, 0].double() + g[:, 1].double() * x[:, 1].double()).numpy()
+    prods = gx.reshape(b, -1, 2).transpose(0, 2, 1).astype(np.float32)   # (B, i, positions)
+    blocks = np.cumsum(prods.reshape(b, 2, -1, tpg._TWIN_BLOCK), -1, dtype=np.float32)[..., -1]
+    worst = np.abs(blocks.sum(-1, dtype=np.float32) - prods.astype(np.float64).sum(-1)).max()
+    assert worst / np.abs(prods.astype(np.float64).sum(-1)).max() <= 1e-6
 
 
 @pytest.mark.parametrize('k', [1, 2, 3])
@@ -241,16 +375,17 @@ def test_sample_planes_passes_float32_contiguous_planes_as_they_are():
 
 
 def test_grad_workspace_is_kept_and_grown():
+    """The workspace K5, K6 and K7 share per (device, stream)."""
     dev = torch.device('cpu')
     key = (-1, 12345)
-    tpg._grad_workspaces.pop(key, None)
+    tpg._workspaces.pop(key, None)
     try:
-        p1, c1 = tpg._grad_workspace(dev, *key, 64, 3)
-        p2, c2 = tpg._grad_workspace(dev, *key, 32, 2)
+        p1, c1 = tpg.workspace(dev, *key, 64, 3)
+        p2, c2 = tpg.workspace(dev, *key, 32, 2)
         assert p2 is p1 and c2 is c1 and int(c1.abs().sum()) == 0
-        p3, c3 = tpg._grad_workspace(dev, *key, 128, 3)
+        p3, c3 = tpg.workspace(dev, *key, 128, 3)
         assert p3.numel() == 128 and c3 is c1
-        _, c4 = tpg._grad_workspace(dev, *key, 16, 8)
+        _, c4 = tpg.workspace(dev, *key, 16, 8)
         assert c4.numel() == 8 and int(c4.abs().sum()) == 0
     finally:
-        tpg._grad_workspaces.pop(key, None)
+        tpg._workspaces.pop(key, None)

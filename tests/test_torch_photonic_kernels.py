@@ -120,16 +120,21 @@ def test_permanent_twin_chunks_and_policy():
 @pytest.mark.parametrize('b,n', [(12376, 6), (3, 4), (2, 5), (1000, 14), (4, 20), (1, 22),
                                   (1, 26), (10 ** 6, 10), (1, 16)])
 def test_permanent_launch_plan(b, n):
-    """Every stack gets runs of 2^L subsets that tile 2^n, a block's matrices
-    fit 48 KB of shared memory, and the partials match the kernel's layout."""
-    level, nparts = pk.plan(b, n)
-    assert 0 <= level <= min(n, 16)
-    runs = 1 << (n - level)
-    assert nparts == (runs // 32 if runs >= 32 else runs)
-    per_block = max(1, pk.THREADS // runs)
-    assert per_block * n * n * 16 <= 48 * 1024
-    if b * runs >= 1 << 18:
-        assert level >= 4 or per_block * 2 * n * n * 16 > 48 * 1024
+    """Every stack gets runs of 2^L subsets that tile 2^n (ways runs a
+    thread, a power of two of threads a matrix), a block's matrices fit its
+    shared memory as complex128, and the stack's threads a few waves of a
+    card that keeps two blocks on each of its 132 SMs resident."""
+    resident = 2 * 132 * pk.THREADS
+    level, ways, tpm = pk.plan(b, n, resident)
+    assert 0 <= level <= n and ways == pk.ways_of(n)
+    assert tpm * ways << level == 1 << n and tpm & (tpm - 1) == 0
+    per_block = min(b, pk.THREADS // tpm) if tpm <= pk.THREADS else 1
+    assert per_block * pk.smem_stride(n) * 16 <= pk._SMEM_BYTES
+    if b * tpm > pk._WAVES * resident:   # only the shared memory asks for that many
+        half = tpm // 2
+        assert half >= 1 and min(b, pk.THREADS // half) * pk.smem_stride(n) * 16 > pk._SMEM_BYTES
+    elif tpm > 1:   # a run's steps at least twice its start-up's row additions
+        assert 1 << level >= 2 * (n - level)
 
 
 def test_permanent_twin_is_differentiable():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the per-gate kernels K1 / K5 and the two paths that launch them, for
-one tree of the PyTorch port, so that two trees can be compared in turns.
+"""Time the per-gate kernels K1 / K5 / K6, the permanent K7 and the paths
+that launch them, for one tree of the PyTorch port, so that two trees can be
+compared in turns.
 
     python3 tools/gate_turns.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -12,13 +13,19 @@ its kernels there, and measures on one CUDA card, with this checkout's
   wire sets: time through the wrapper (CUDA events around one call from an
   idle card, ``time_ms``), device time (events behind a queued sleep,
   ``_queued_ms``) and device time with the L2 flushed (``_cold_ms``);
-- K1b / K5b on (B, 2, 2^n) stacks at (n, B) = (14, 100), (18, 8), (20, 8)
-  on chip_smoke's wire sets: wrapper and device time;
+- K6 ``planar_bwd_fused`` at n=22 on the same wire sets: wrapper, device
+  and cold device time, and beside it the three-launch step it replaces
+  (K1 on y, K5, K1 on g; ``three_ms``, ``three_cold_ms``);
+- K1b / K5b / K6b on (B, 2, 2^n) stacks at (n, B) = (14, 100), (18, 8),
+  (20, 8) on chip_smoke's wire sets: wrapper and device time, and the
+  three-launch step's device time beside K6b's;
+- K7 ``permanent_cuda_batch`` at every row of chip_smoke's PERM_SHAPES
+  (Haar unitaries): wrapper and device time;
 - the n=22 + cnot(0, 11) grad step, 2 layers (chip_smoke's
   ``check_step_backward`` circuit, default backward) and the batched QML
-  step at n=18, B=8 (``check_batched_qml_wide``'s): the median step, the
-  launches per step and one profiler window's device time per step and
-  that of the port's kernels.
+  step at n=18, B=8 (``check_batched_qml_wide``'s), default and with
+  ``fused_bwd``: the median step, the launches per step and one profiler
+  window's device time per step and that of the port's kernels.
 
 Prints the card line and one JSON line; ``--out`` also writes the JSON. To
 compare two trees, run both in one call on one card in turns (A, B, B, A):
@@ -54,6 +61,14 @@ def _load(root: Path):
     return dqt, chip_smoke
 
 
+def _three(pg, y, g, mre_t, mim_t, n, wires):
+    """The backward gate step as three launches: x = U^H y, the planes from
+    g and x, g' = U^H g (the default route's walk)."""
+    pg.planar_apply(y, mre_t, mim_t, n, wires)
+    pg.planar_grad(g, y, n, wires)
+    pg.planar_apply(g, mre_t, mim_t, n, wires)
+
+
 def _gate_rows(cs, pg, rng):
     import torch
     dev = torch.device('cuda')
@@ -64,12 +79,20 @@ def _gate_rows(cs, pg, rng):
     for wires in cs.GATE_WIRE_SETS:
         u = cs._haar(1 << len(wires), rng)
         mre, mim = cs._planes(u, dev)
+        mre_t, mim_t = mre.t().contiguous(), (-mim.t()).contiguous()
         work = x.clone()
+        wy, wg = x.clone(), g.clone()
         for name, fn in (('planar_apply', lambda: pg.planar_apply(work, mre, mim, n, wires)),
-                         ('planar_grad', lambda: pg.planar_grad(g, x, n, wires))):
-            out.setdefault(name, []).append(dict(
-                wires=list(wires), ms=cs.time_ms(fn)[0], device_ms=cs._queued_ms(fn),
-                cold_ms=cs._cold_ms(fn)))
+                         ('planar_grad', lambda: pg.planar_grad(g, x, n, wires)),
+                         ('planar_bwd_fused',
+                          lambda: pg.planar_bwd_fused(wy, wg, mre_t, mim_t, n, wires))):
+            row = dict(wires=list(wires), ms=cs.time_ms(fn)[0], device_ms=cs._queued_ms(fn),
+                       cold_ms=cs._cold_ms(fn))
+            if name == 'planar_bwd_fused':
+                three = lambda: _three(pg, wy, wg, mre_t, mim_t, n, wires)
+                row.update(three_ms=cs._queued_ms(three), three_cold_ms=cs._cold_ms(three))
+            out.setdefault(name, []).append(row)
+    del x, g, work, wy, wg
     for shape in ((14, 100), (18, 8), (20, 8)):
         n, b = shape
         xb = torch.as_tensor(rng.standard_normal((b, 2, 1 << n), dtype=np.float32), device=dev)
@@ -79,13 +102,34 @@ def _gate_rows(cs, pg, rng):
             us = np.stack([cs._haar(k, rng) for _ in range(b)])
             mre = torch.as_tensor(us.real, dtype=torch.float32, device=dev)
             mim = torch.as_tensor(us.imag, dtype=torch.float32, device=dev)
+            mre_t, mim_t = mre.transpose(1, 2).contiguous(), (-mim.transpose(1, 2)).contiguous()
             work = xb.clone()
+            wy, wg = xb.clone(), gb.clone()
             for name, fn in (('planar_apply_batched',
                               lambda: pg.planar_apply(work, mre, mim, n, wires)),
-                             ('planar_grad_batched', lambda: pg.planar_grad(gb, xb, n, wires))):
-                out.setdefault(f'{name} ({n}, {b})', []).append(dict(
-                    wires=list(wires), ms=cs.time_ms(fn)[0], device_ms=cs._queued_ms(fn)))
-        del xb, gb, work
+                             ('planar_grad_batched', lambda: pg.planar_grad(gb, xb, n, wires)),
+                             ('planar_bwd_fused_batched',
+                              lambda: pg.planar_bwd_fused(wy, wg, mre_t, mim_t, n, wires))):
+                row = dict(wires=list(wires), ms=cs.time_ms(fn)[0], device_ms=cs._queued_ms(fn))
+                if name == 'planar_bwd_fused_batched':
+                    row['three_ms'] = cs._queued_ms(
+                        lambda: _three(pg, wy, wg, mre_t, mim_t, n, wires))
+                out.setdefault(f'{name} ({n}, {b})', []).append(row)
+        del xb, gb, work, wy, wg
+    return out
+
+
+def _perm_rows(cs, pk, rng):
+    """K7 at chip_smoke's PERM_SHAPES: wrapper and device time a row."""
+    import torch
+    out = {}
+    for b, n, dtype in cs.PERM_SHAPES:
+        mats = torch.as_tensor(np.stack([cs._haar(n, rng) for _ in range(b)]),
+                               device='cuda').to(getattr(torch, dtype))
+        reps = 10 if n >= 22 else cs.REPS
+        fn = lambda: pk.permanent_cuda_batch(mats)
+        out[f'permanent_cuda_batch ({b}, {n}, {dtype})'] = [dict(
+            ms=cs.time_ms(fn, reps=reps)[0], device_ms=cs._queued_ms(fn, reps=reps))]
     return out
 
 
@@ -116,6 +160,7 @@ def main() -> int:
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     from deepquantum_tpu_torch.ops import _cuda
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
     from deepquantum_tpu_torch.ops import planar_gate as pg
     t0 = time.perf_counter()
     _cuda.build()
@@ -124,14 +169,21 @@ def main() -> int:
     rng = np.random.default_rng(cs.SEED + 9)
     with torch.no_grad():
         rows = _gate_rows(cs, pg, rng)
+        dqt.set_dtype('complex128')
+        rows.update(_perm_rows(cs, pk, np.random.default_rng(cs.SEED + 2)))
+        dqt.set_dtype('complex64')
 
     cir = cs.bench_circuit(22, None, (0, 11), 2)
     p = cir.params.requires_grad_()
     grad22 = _step(cs, lambda: cs.grad_step(cir, p), reps=5)
     del cir, p
-    cir = cs.qml_circuit(None, 18)
-    leaves = cs._qml_leaves(cir, cir.device, False, 8)
-    qml18 = _step(cs, lambda: cs.qml_step(cir, leaves, False), reps=10)
+    qml18 = {}
+    for fused in (False, True):
+        cir = cs.qml_circuit(None, 18)
+        cir.fused_bwd = fused
+        leaves = cs._qml_leaves(cir, cir.device, False, 8)
+        qml18['fused_bwd' if fused else 'default'] = _step(
+            cs, lambda: cs.qml_step(cir, leaves, False), reps=10)
 
     out = dict(label=args.label, root=str(root), card=smi, build_s=build_s,
                mean={name: {key: float(np.mean([r[key] for r in rs]))
@@ -140,8 +192,8 @@ def main() -> int:
                rows=rows, grad_step_n22=grad22, qml_step_n18_b8=qml18)
     for name, m in out['mean'].items():
         print(f'{args.label} {name}: ' + ', '.join(f'{k} {v:.4f}' for k, v in m.items()))
-    for key in ('grad_step_n22', 'qml_step_n18_b8'):
-        r = out[key]
+    for key, r in (('grad_step_n22', grad22), *((f'qml_step_n18_b8 {k}', v)
+                                                  for k, v in qml18.items())):
         print(f'{args.label} {key}: step {r["step_ms"]:.3f} ms, device '
               f'{r["device_ms_per_step"]:.3f} ms a step, launches {r["launches"]}')
     text = json.dumps(out)
