@@ -119,6 +119,26 @@ Phases (each raises on failure, so the run exits non-zero):
    from a profiler window; then the same ansatz at n=18, B=8, outside the
    chain's range: the per-step batched planar_apply and planar_grad
    (planar_bwd_fused with fused_bwd), no chain kernel, against complex128;
+7c. noisy circuits (density matrices): bench_suite.py::bench_denmat's grad
+   step (n=12, rho on 24 planar wires, 3 layers of rx, rz and a CNOT ring,
+   depolarizing(0, 0.01) per layer as a superoperator on K1, X string on
+   all wires) and the same at n=8 (16 wires): loss and gradient against
+   the complex128 einsum route on the card (<= 1e-5, <= 1e-4), launches
+   per step, peak memory, the medians of 10 steps on the kernel and twin
+   routes in turns and the device's busy share; the batched noisy QML step
+   (tests/test_planar.py's circuit, n=8, B=16: the batched chain and the
+   per-sample superoperator on K1b / K5b) held the same way. In phase 3
+   (check_superop_kernels) K1 / K5 on the depolarizing superoperator on
+   (0, 12) at 24 wires and K1b / K5b on random non-unitary 4 x 4
+   per-sample stacks at (16, 2, 2^16), against the twins (states 1e-6,
+   planes PLANE_BAR), rows under ``superop``;
+7d. QubitCircuit.hessian at bench_hessian's cell n=14, 1 layer (42 x 42):
+   symmetric (1e-5) and <= 1e-4 of the complex128 einsum route's, the time
+   of one call, its launches (the second-order walk on K1, K5 and K2) and
+   the busy share of its gradient plus one column;
+7e. measure with 10^6 shots from the n=18 served state and the n=12 noisy
+   rho on a seeded generator of the card: a chi-square against the
+   probabilities, no zero-probability outcome, the time of the call;
 8. boson sampling at complex128: Clements(12 modes, 6 photons) with seeded
    angles gives 12376 probabilities from ONE permanent_cuda_batch launch
    (sum 1 within 1e-6, twin route within 1e-8), then get_amplitude of the
@@ -1927,6 +1947,335 @@ def check_batched_qml_wide(n: int = 18, batch: int = 8):
     return main_counts
 
 
+# --------------------------------------------------- noisy circuits (den_mat)
+DM_LAYERS, DM_THETA = 3, 0.01         # bench_suite.py::bench_denmat
+DM_STEPS = 10
+DMQ_N, DMQ_B = 8, 16                   # the batched noisy QML step
+MEASURE_SHOTS = 10 ** 6
+
+
+def noisy_circuit(n: int, device=None):
+    """bench_denmat's circuit (benchmarks/bench_suite.py:761-815): a density
+    matrix on n qubits, DM_LAYERS x (rx, rz on every wire; CNOT ring;
+    depolarizing(0, inputs=0.01)), X string on all wires; init_para(SEED).
+    With no device it lands on the card."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(n, den_mat=True, device=device)
+    for _ in range(DM_LAYERS):
+        for i in range(n):
+            cir.rx(i)
+            cir.rz(i)
+        cir.cnot_ring()
+        cir.depolarizing(0, inputs=DM_THETA)
+    cir.observable(list(range(n)), basis='x' * n)
+    cir.init_para(SEED)
+    return cir
+
+
+def noisy_qml_circuit(device=None, n: int = DMQ_N):
+    """tests/test_planar.py's batched density-matrix circuit: ry(encode) on
+    every wire, rz on every wire, a CNOT ring, depolarizing(0, inputs=0.02),
+    rx on every wire; Z on wire 0 and X Z on wires 1, 2."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(n, den_mat=True, device=device)
+    for i in range(n):
+        cir.ry(i, encode=True)
+    for i in range(n):
+        cir.rz(i)
+    cir.cnot_ring()
+    cir.depolarizing(0, inputs=0.02)
+    for i in range(n):
+        cir.rx(i)
+    cir.observable(0)
+    cir.observable([1, 2], basis='xz')
+    cir.init_para(SEED)
+    return cir
+
+
+def _noisy_qml_step(cir, p, data):
+    """The batched noisy step: expectation(data, params=p) (B, 2), the mean
+    as the loss, backward. Returns (loss, gradient); p is not updated."""
+    loss = cir.expectation(data=data, params=p).mean()
+    loss.backward()
+    grad, p.grad = p.grad, None
+    return loss.detach(), grad
+
+
+def _in_turns(step, reps: int) -> dict:
+    """Medians of ``step`` on the kernel and twin routes, timed in turns
+    (kernel, twin, twin, kernel), ``reps`` steps each in all."""
+    times = {'kernel': [], 'twin': []}
+    for r in ('kernel', 'twin', 'twin', 'kernel'):
+        reset_counts()
+        with (twin_route() if r == 'twin' else contextlib.nullcontext()):
+            times[r] += time_ms(step, reps=reps // 2, warmup=0 if times[r] else 1)[1]
+        if r == 'twin' and sum(read_counts().values()) != 0:
+            raise AssertionError('the twin route launched a kernel')
+    return {r: float(np.median(v)) for r, v in times.items()}
+
+
+def check_noisy_step(card: str, n: int):
+    """The noisy grad step (bench_denmat's circuit, rho a 2n-wire planar
+    state; three depolarizing superoperators between the chain's segments)
+    through the public API on the card: loss and gradient against the
+    complex128 einsum route on the card (<= 1e-5, <= 1e-4), the launches of
+    one step, the medians of DM_STEPS steps on the kernel and twin routes
+    in turns, and the device's busy share from a profiler window."""
+    import torch
+    dqt = _pkg()[0]
+    label = f'noisy n={n} (rho on {2 * n} wires), {DM_LAYERS} layers'
+    dqt.set_dtype('complex128')
+    try:
+        ref = noisy_circuit(n, 'cuda')
+        if ref._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        ref_loss, ref_grad = grad_step(ref, ref.params.requires_grad_(), update=False)
+        ref_loss = ref_loss.item()
+        del ref
+        torch.cuda.empty_cache()
+    finally:
+        dqt.set_dtype('complex64')
+    cir = noisy_circuit(n)
+    if cir.device.type != 'cuda' or not cir._planar_ok():
+        raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
+    p = cir.params.requires_grad_()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grad = grad_step(cir, p, update=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts()
+    d_loss = abs(loss.item() - ref_loss)
+    d_grad = (grad.double() - ref_grad).abs().max().item()
+    print(f'{label}: launches per grad step {counts}, loss {loss.item():.8f} (complex128 '
+          f'{ref_loss:.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e} (max|grad| '
+          f'{ref_grad.abs().max().item():.3e}), peak device memory of the step {peak:.2f} GiB')
+    if not (torch.isfinite(grad).all() and d_loss <= 1e-5 and d_grad <= 1e-4):
+        raise AssertionError(f'{label}: differs from the complex128 route')
+    if counts['planar_apply'] < 2 * DM_LAYERS:
+        raise AssertionError(f'{label}: the superoperators did not run on K1: {counts}')
+    t = _in_turns(lambda: grad_step(cir, p, update=False), DM_STEPS)
+    dev = _device_profile(lambda: grad_step(cir, p, update=False), 1)
+    busy = dev['device_ms_per_step'] / t['kernel']
+    print(f'{label}: grad step median over {DM_STEPS} (in turns: kernel, twin, twin, kernel): '
+          f'kernel route {t["kernel"]:.3f} ms, twin route {t["twin"]:.3f} ms; device '
+          f'{dev["device_ms_per_step"]:.3f} ms per step ({dev["device_ops_per_step"]:.0f} device '
+          f'ops, busy {busy:.1%}), top '
+          f'{[(k["name"][:40], round(k["ms_per_step"], 4)) for k in dev["top_kernels"][:4]]} '
+          f'[{card}]')
+    return counts, dict(step_ms=t['kernel'], twin_step_ms=t['twin'], device_busy_share=busy,
+                        peak_gib=peak)
+
+
+def check_noisy_qml(card: str, n: int = DMQ_N, batch: int = DMQ_B):
+    """The batched noisy QML step: noisy_qml_circuit at n=8 on a batch of 16
+    rho (16-wire planar states, per-sample planes; the depolarizing
+    superoperator per sample on K1b / K5b), data from default_rng(SEED):
+    loss and gradient against the complex128 einsum route, launches, the
+    medians in turns with the twin route and the busy share."""
+    import torch
+    dqt = _pkg()[0]
+    label = f'noisy QML n={n} (rho on {2 * n} wires), B={batch}'
+    data = torch.as_tensor(np.random.default_rng(SEED).random((batch, n)), device='cuda')
+    dqt.set_dtype('complex128')
+    try:
+        ref = noisy_qml_circuit('cuda', n)
+        if ref._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        ref_loss, ref_grad = _noisy_qml_step(ref, ref.params.requires_grad_(), data.double())
+        ref_loss = ref_loss.item()
+    finally:
+        dqt.set_dtype('complex64')
+    cir = noisy_qml_circuit(None, n)
+    if cir.device.type != 'cuda' or not cir._planar_ok():
+        raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
+    p, data = cir.params.requires_grad_(), data.float()
+    reset_counts()
+    loss, grad = _noisy_qml_step(cir, p, data)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    d_loss = abs(loss.item() - ref_loss)
+    d_grad = (grad.double() - ref_grad).abs().max().item()
+    print(f'{label}: launches per step {counts}, loss {loss.item():.8f} (complex128 '
+          f'{ref_loss:.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e}')
+    if not (torch.isfinite(grad).all() and d_loss <= 1e-5 and d_grad <= 1e-4):
+        raise AssertionError(f'{label}: differs from the complex128 route')
+    if counts['planar_apply_batched'] < 1:
+        raise AssertionError(f'{label}: the superoperator did not run on K1b: {counts}')
+    t = _in_turns(lambda: _noisy_qml_step(cir, p, data), DM_STEPS)
+    dev = _device_profile(lambda: _noisy_qml_step(cir, p, data), 2)
+    busy = dev['device_ms_per_step'] / t['kernel']
+    print(f'{label}: step median over {DM_STEPS} (in turns): kernel route {t["kernel"]:.3f} ms, '
+          f'twin route {t["twin"]:.3f} ms; device {dev["device_ms_per_step"]:.3f} ms per step '
+          f'(busy {busy:.1%}) [{card}]')
+    return counts, dict(step_ms=t['kernel'], twin_step_ms=t['twin'], device_busy_share=busy)
+
+
+def _superop_planes(kraus: np.ndarray) -> np.ndarray:
+    """sum_k K (x) conj(K) of a (..., K, 2, 2) Kraus set: (..., 4, 4) on the
+    wire pair (w, w + n)."""
+    sop = np.einsum('...zab,...zcd->...acbd', kraus, kraus.conj())
+    return sop.reshape(*sop.shape[:-4], 4, 4)
+
+
+def check_superop_kernels(results: dict, rng):
+    """K1 / K5 on the non-unitary maps of density matrices: the
+    depolarizing superoperator (theta 0.3) on the wire pair (0, 12) of a
+    24-wire planar rho, and K1b / K5b on a (16, 2, 2^16) stack with random
+    non-unitary 4 x 4 per-sample planes on (0, 8) and (3, 11); states
+    <= 1e-6 of max|ref| against the twin, planes <= PLANE_BAR against the
+    twin run in float64; kernel, twin and device times and the bound. Rows
+    under ``superop`` of planar_apply(_batched) and planar_grad(_batched)."""
+    import torch
+    pg = _pkg()[1]
+    dev = torch.device('cuda')
+    p = np.sin(0.3) ** 2
+    paulis = np.array([[[1, 0], [0, 1]], [[0, 1], [1, 0]], [[0, -1j], [1j, 0]], [[1, 0], [0, -1]]])
+    dep = np.sqrt([1 - p, p / 3, p / 3, p / 3])[:, None, None] * paulis
+    cases = [(24, None, (0, 12), _superop_planes(dep))]
+    for wires in ((0, 8), (3, 11)):
+        cases.append((16, DMQ_B, wires, rng.standard_normal((DMQ_B, 4, 4))
+                      + 1j * rng.standard_normal((DMQ_B, 4, 4))))
+    for n, batch, wires, sop in cases:
+        shape = (2, 1 << n) if batch is None else (batch, 2, 1 << n)
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+        g = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+        mre, mim = _planes(sop, dev)
+        suffix = '' if batch is None else '_batched'
+        label = f'n={n}' + ('' if batch is None else f', B={batch}') + f', wires={wires}'
+        nbytes = 2 * x.numel() * 4
+        flops = x.numel() // 2 // 4 * 8 * 16
+        ref = pg.planar_evolve_xla(x, mre, mim, n, wires)
+        y = pg.planar_apply(x.clone(), mre, mim, n, wires)
+        torch.cuda.synchronize()
+        e, d = rel_err(y, ref)
+        _hold(f'planar_apply{suffix} superop {label}', e, 1e-6)
+        work = x.clone()
+        row = dict(shape=label, rel_err=e, max_abs_err=d,
+                   ms=time_ms(lambda: pg.planar_apply(work, mre, mim, n, wires))[0],
+                   device_ms=_queued_ms(lambda: pg.planar_apply(work, mre, mim, n, wires)),
+                   plain_ms=time_ms(lambda: pg.planar_evolve_xla(x, mre, mim, n, wires))[0],
+                   **bound(nbytes, flops))
+        results[f'planar_apply{suffix}'].setdefault('superop', []).append(row)
+        print(f'planar_apply{suffix} non-unitary superop {label}: {row}')
+        ref, _ = planar_grad_ref(pg, g, x, n, wires)
+        got = pg.planar_grad(g, x, n, wires)
+        torch.cuda.synchronize()
+        pe, pd = max(rel_err(a.double(), b) for a, b in zip(got, ref))
+        _hold(f'planar_grad{suffix} superop {label}', pe, PLANE_BAR)
+        row = dict(shape=label, plane_rel_err=pe, max_abs_err=pd,
+                   ms=time_ms(lambda: pg.planar_grad(g, x, n, wires))[0],
+                   device_ms=_queued_ms(lambda: pg.planar_grad(g, x, n, wires)),
+                   plain_ms=time_ms(lambda: pg.planar_grad_xla(g, x, n, wires))[0],
+                   **bound(nbytes + 2 * mre.numel() * 4, flops))
+        results[f'planar_grad{suffix}'].setdefault('superop', []).append(row)
+        print(f'planar_grad{suffix} non-unitary superop {label}: {row}')
+
+
+def check_hessian(card: str, n: int = 14):
+    """QubitCircuit.hessian at bench_suite.py::bench_hessian's grid cell n=14,
+    1 layer (_build_vqe: 42 parameters, X string on all wires): symmetric
+    (<= 1e-5) and <= 1e-4 of the complex128 einsum route's Hessian; the
+    time of one call and the launches it made, and the busy share of the
+    gradient plus one column (a profiler window)."""
+    import torch
+    dqt = _pkg()[0]
+    label = f'hessian n={n}, 1 layer'
+    cir = bench_circuit(n, layers=1)
+    if cir.device.type != 'cuda' or not cir._planar_ok():
+        raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
+    p = cir.params
+    reset_counts()
+    h, ms = _one_call_ms(lambda: cir.hessian(params=p))
+    counts = read_counts()
+
+    def column():
+        # the gradient with create_graph and one reverse pass: a profiler
+        # window over the whole call costs minutes of host time
+        q = p.detach().clone().requires_grad_()
+        g, = torch.autograd.grad(cir.expectation(params=q)[0], q, create_graph=True)
+        torch.autograd.grad(g[0], q)
+
+    dev = _device_profile(column, 1)
+    busy = dev['device_ms_per_step'] / _one_call_ms(column)[1]
+    dqt.set_dtype('complex128')
+    try:
+        ref_cir = bench_circuit(n, 'cuda', layers=1)
+        if ref_cir._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        ref, ref_ms = _one_call_ms(lambda: ref_cir.hessian(params=p.double()))
+    finally:
+        dqt.set_dtype('complex64')
+    d_sym = (h - h.T).abs().max().item()
+    d_ref = (h.double() - ref).abs().max().item()
+    print(f'{label}: {tuple(h.shape)}, launches {counts}, max|H - H^T| {d_sym:.2e}, max|d| to '
+          f'complex128 {d_ref:.2e} (max|H| {ref.abs().max().item():.3e}); one call {ms:.1f} ms '
+          f'(complex128 einsum route {ref_ms:.1f} ms); the gradient and one column: device '
+          f'{dev["device_ms_per_step"]:.1f} ms, busy {busy:.1%} [{card}]')
+    if tuple(h.shape) != (p.numel(), p.numel()) or not (d_sym <= 1e-5 and d_ref <= 1e-4):
+        raise AssertionError(f'{label}: not symmetric or differs from the complex128 route')
+    if counts['window_apply'] < 1:
+        raise AssertionError(f'{label}: the second-order walk did not run on K2: {counts}')
+    return counts, dict(ms=ms, complex128_ms=ref_ms, device_busy_share=busy)
+
+
+def _one_call_ms(fn):
+    """(fn(), its time in ms between two CUDA events, the host's work
+    included)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _chi2(counts: dict, probs: np.ndarray, shots: int):
+    """Pearson's chi-square over the outcomes with an expected count >= 5
+    (the rest pooled into one cell), its degrees of freedom, and the bound
+    dof + 6 sqrt(2 dof) (about six standard deviations)."""
+    exp = shots * probs / probs.sum()
+    obs = np.zeros(len(probs))
+    for k, v in counts.items():
+        obs[int(k, 2)] = v
+    big = exp >= 5
+    stat = float(np.sum((obs[big] - exp[big]) ** 2 / exp[big]))
+    if (~big).any() and exp[~big].sum() > 0:
+        stat += float((obs[~big].sum() - exp[~big].sum()) ** 2 / exp[~big].sum())
+    dof = max(int(big.sum()) + int((~big).any()) - 1, 1)
+    return stat, dof, dof + 6 * np.sqrt(2 * dof)
+
+
+def check_measure(card: str):
+    """measure() with 10^6 shots from the n=18 served state (the bench
+    ansatz, 5 layers) and from the n=12 noisy rho (its diagonal), on a
+    generator of the card seeded with SEED: counts sum to the shots, no
+    zero-probability outcome, a chi-square against the state's
+    probabilities; the time of the call."""
+    import torch
+    out = {}
+    for label, cir in (('n=18 state', bench_circuit(18)), ('n=12 rho', noisy_circuit(12))):
+        with torch.inference_mode():
+            state = cir.forward()
+            probs = (state.diagonal().real if cir.den_mat else state[:, 0].abs() ** 2)
+            probs = probs.double().cpu().numpy()
+            gen = torch.Generator(device='cuda').manual_seed(SEED)
+            counts, ms = _one_call_ms(lambda: cir.measure(shots=MEASURE_SHOTS, generator=gen))
+        stat, dof, bar = _chi2(counts, probs, MEASURE_SHOTS)
+        zero = [k for k in counts if probs[int(k, 2)] <= 0]
+        print(f'measure {label}: {MEASURE_SHOTS} shots in {ms:.1f} ms, {len(counts)} outcomes, '
+              f'chi-square {stat:.1f} on {dof} dof (bound {bar:.1f}) [{card}]')
+        if sum(counts.values()) != MEASURE_SHOTS or zero or not stat <= bar:
+            raise AssertionError(f'measure {label}: counts {sum(counts.values())}, '
+                                 f'zero-probability outcomes {zero[:3]}, chi-square {stat} > '
+                                 f'{bar}')
+        out[label] = dict(ms=ms, chi2=stat, dof=dof)
+    return out
+
+
 # ------------------------------------------------------ photonic gradients
 def _rel_close(name: str, got, ref, bar: float) -> float:
     e = ((got - ref).abs().max() / ref.abs().max()).item()
@@ -2829,12 +3178,26 @@ def main() -> int:
     # the photonic phases draw from a generator of their own, so that K1-K6
     # see the inputs they always saw
     rng_p = np.random.default_rng(SEED + 2)
+    seconds: dict = {}       # wall seconds of each phase
+
+    @contextlib.contextmanager
+    def phase(label: str):
+        t0 = time.perf_counter()
+        yield
+        seconds[label] = round(time.perf_counter() - t0, 1)
+
     with torch.no_grad():
-        check_gate_kernels(results, rng, rng_g)
-        check_batched_kernels(results, np.random.default_rng(SEED + 5))
-        check_batched_chain(results, np.random.default_rng(SEED + 8))
-        check_window_kernels(results, rng, rng_g)
-        with complex128():
+        with phase('gate_kernels'):
+            check_gate_kernels(results, rng, rng_g)
+        with phase('batched_kernels'):
+            check_batched_kernels(results, np.random.default_rng(SEED + 5))
+        with phase('superop_kernels'):
+            check_superop_kernels(results, np.random.default_rng(SEED + 9))
+        with phase('batched_chain'):
+            check_batched_chain(results, np.random.default_rng(SEED + 8))
+        with phase('window_kernels'):
+            check_window_kernels(results, rng, rng_g)
+        with complex128(), phase('photonic_kernels'):
             check_permanent_kernel(results, rng_p)
             check_tor_kernels(results, rng_p)
             check_tor_batched(results, np.random.default_rng(SEED + 7))
@@ -2857,16 +3220,36 @@ def main() -> int:
         for name, c in counts.items():
             main_path[name] += c
 
-    for n, extra, expect in [(18, None, n18), (24, None, n24), (22, (0, 11), n22)]:
-        add(check_slice(n, extra, expect)[0])
-    add(check_training()[0])
-    for counts in check_step_backward():
+    with phase('slices'):
+        for n, extra, expect in [(18, None, n18), (24, None, n24), (22, (0, 11), n22)]:
+            add(check_slice(n, extra, expect)[0])
+    with phase('training'):
+        add(check_training()[0])
+    with phase('step_backward'):
+        for counts in check_step_backward():
+            add(counts)
+    with phase('batched_qml'):
+        add(check_batched_qml(smi)[0])
+        add(check_batched_qml_wide())
+    noisy = {}
+    for n in (12, 8):
+        with phase(f'noisy_n{n}'):
+            counts, noisy[f'n={n}'] = check_noisy_step(smi, n)
+            add(counts)
+    with phase('noisy_qml'):
+        counts, noisy['qml'] = check_noisy_qml(smi)
         add(counts)
-    add(check_batched_qml(smi)[0])
-    add(check_batched_qml_wide())
-    add(check_boson_sampling(smi, rng_p))
-    add(check_gbs(smi, rng_p))
-    add(check_photonic_gradients(smi, np.random.default_rng(SEED + 6)))
+    with phase('hessian'):
+        counts, noisy['hessian'] = check_hessian(smi)
+        add(counts)
+    with phase('measure'):
+        noisy['measure'] = check_measure(smi)
+    print(f'noisy circuits, hessian, measure: {json.dumps(noisy)}')
+    with phase('photonic_paths'):
+        add(check_boson_sampling(smi, rng_p))
+        add(check_gbs(smi, rng_p))
+        add(check_photonic_gradients(smi, np.random.default_rng(SEED + 6)))
+    print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:
             raise AssertionError(f'{name} was not launched on the main paths')
@@ -2892,7 +3275,7 @@ def main() -> int:
                                                  'non_unitary_rel_err', 'depth',
                                                  'shared_planes_ms', 'shared_planes_rel_err',
                                                  'per_step_ms', 'per_step_device_ms', 'per_step',
-                                                 'pack_ms', 'cluster', 'clusters')
+                                                 'pack_ms', 'cluster', 'clusters', 'superop')
                                if k in r}))
     # computed, not measured: the window body's alternative bounds from the
     # inputs as bound_ms is, and the chains' barriers from their step tables

@@ -16,6 +16,12 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     p = cir.params.requires_grad_()             # training
     cir.expectation(params=p)[0].backward()     # fills p.grad
 
+    h = cir.hessian()                           # (P, P), reverse over reverse
+    counts = cir.measure(shots=1000, generator=torch.Generator('cuda').manual_seed(0))
+
+    noisy = dqt.QubitCircuit(12, den_mat=True)  # rho (2^n, 2^n), the Kraus channels
+    noisy.rxlayer(); noisy.cnot_ring(); noisy.depolarizing(0, inputs=0.01)
+
     qml = dqt.QubitCircuit(14, reupload=True)   # data-encoded QML, a batch at once
     qml.rylayer(encode=True)
     ...

@@ -24,7 +24,18 @@ routes with the batch as a leading axis: the planar engine's per-gate
 kernels run it as a grid axis (windows and the one-launch chain refuse
 batched planes, as in the JAX package), the einsum engine as an einsum
 axis. Gradients follow the route: the planar engine's chain has an adjoint
-backward over its own kernels, the einsum engine is plain autograd.
+backward over its own kernels, the einsum engine is plain autograd. Both
+differentiate again (``hessian``: reverse over reverse).
+
+Noisy circuits (``den_mat=True``): the state is a density matrix rho
+(2^n, 2^n), and the seven Kraus channels (``bit_flip`` ... ``gen_amp_damp``)
+act on it. On the planar engine (complex64, 2n >= 10) rho is a 2n-wire
+planar state: a gate U runs as U on its wires and conj(U) on the wires + n
+in one chain, and each channel ends the chain and runs as its 4^k
+superoperator on (w, w + n) (``planar_superop``, one K1 launch, an
+input-residual backward); a batch of data gives a batch of rho, each with
+its own matrices. ``measure`` and ``expectation(shots=)`` sample a state,
+a batch or rho's diagonal from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ import torch
 from .config import cdtype, rdtype, resolve_device
 from .gate import GATE_REGISTRY, GateOp
 from .ops import gates as G
-from .ops.apply import controlled_matrix, evolve_state, evolve_state_controlled, permute_matrix_wires
-from .ops.qmath import expectation_pauli
+from .ops.apply import (controlled_matrix, evolve_den_mat, evolve_den_mat_controlled, evolve_state,
+                        evolve_state_controlled, permute_matrix_wires)
+from .ops.qmath import expectation_pauli, measure as qmeasure, sample2expval
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable']
@@ -63,11 +75,13 @@ class Observable:
             raise ValueError('The number of wires is not equal to the number of bases')
         self.basis = basis
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, den_mat: bool = False) -> torch.Tensor:
         """Apply the Pauli string to a state tensor (2,)*n, or to each state
-        of a batch (B, 2, ..., 2)."""
+        of a batch (B, 2, ..., 2); with ``den_mat`` left-multiply a
+        density-matrix tensor (2,)*2n (for tr(O rho))."""
+        n = 2 * self.nqubit if den_mat else self.nqubit
         for wire, b in zip(self.wires, self.basis):
-            x = evolve_state(x, _PAULI_FNS[b](x.device), self.nqubit, [wire[0]])
+            x = evolve_state(x, _PAULI_FNS[b](x.device), n, [wire[0]])
         return x
 
 
@@ -110,11 +124,13 @@ class QubitCircuit:
         nqubit: number of qubits.
         init_state: 'zeros' | 'equal' | 'ghz'/'GHZ'/'entangle' | array | QubitState.
         name: optional label.
+        den_mat: density-matrix simulation (noisy circuits with channels).
         device: where states, parameters and matrices live (default: the
             config's default device, which is the CUDA card unless
             ``set_device`` chose another). 'cuda' without CUDA raises.
         reupload: data re-uploading for encoders (data shorter than ndata
             wraps around).
+        shots: default measurement shots.
     """
 
     #: max combined wire support of one fused gate group (the JAX package's
@@ -126,11 +142,15 @@ class QubitCircuit:
     fused_bwd: bool = False
 
     def __init__(self, nqubit: int, init_state: Any = 'zeros', name: str | None = None,
-                 device=None, reupload: bool = False) -> None:
+                 den_mat: bool = False, device=None, reupload: bool = False,
+                 shots: int = 1024) -> None:
         self.nqubit = nqubit
         self.name = name
+        self.den_mat = den_mat
         self.device = resolve_device(device)
         self.reupload = reupload
+        self.shots = shots
+        self.wires_measure: list[int] = []
         self.operators: list[GateOp] = []
         self.observables: list[Observable] = []
         self.encoders: list[GateOp] = []
@@ -149,9 +169,11 @@ class QubitCircuit:
         if isinstance(init_state, QubitState):
             if init_state.nqubit != self.nqubit:
                 raise ValueError('init_state has another number of qubits')
+            self.den_mat = init_state.den_mat
             self.init_state = init_state
         else:
-            self.init_state = QubitState(self.nqubit, init_state, device=self.device)
+            self.init_state = QubitState(self.nqubit, init_state, den_mat=self.den_mat,
+                                         device=self.device)
 
     # ------------------------------------------------------------- parameters
     @property
@@ -398,20 +420,23 @@ class QubitCircuit:
         return mat, list(wires)
 
     def _planar_ok(self) -> bool:
-        """Route through the planar engine? complex64, n >= 10, and every
-        fused-plan entry a plain unitary on <= 3 wires."""
-        key = ('planar_ok', self._version, self.fuse_max_support, cdtype())
+        """Route through the planar engine? complex64, n >= 10 (a density
+        matrix: 2n >= 10), and every fused-plan entry a plain unitary on
+        <= 3 wires or, for a density matrix, a channel."""
+        key = ('planar_ok', self._version, self.fuse_max_support, cdtype(), self.den_mat)
         ok = self._cache.get(key)
         if ok is None:
-            ok = self.nqubit >= 10 and cdtype() == torch.complex64
+            eff_n = 2 * self.nqubit if self.den_mat else self.nqubit
+            ok = eff_n >= 10 and cdtype() == torch.complex64
             if ok:
                 for entry in self._fused_plan():
                     if entry[0] == 'group':
                         ok = len(entry[2]) <= 3
                     else:
                         op = entry[1]
-                        ok = (op.kind == 'gate' and not op.condition
-                              and len(set(op.wires) | set(op.controls)) <= 3)
+                        ok = ((self.den_mat and op.kind == 'channel')
+                              or (op.kind == 'gate' and not op.condition
+                                  and len(set(op.wires) | set(op.controls)) <= 3))
                     if not ok:
                         break
             self._cache[key] = ok
@@ -467,20 +492,90 @@ class QubitCircuit:
                          fused_bwd=self.fused_bwd)
         return from_planar(p)
 
+    def _sim_planar_dm(self, full_params: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+        """Density matrices on the planar engine: rho, flat (4^n,) or a batch
+        (B, 4^n) complex with (B, P) parameters, runs as a 2n-wire planar
+        state. Each gate U on wires w is U on w and conj(U) on w + n in ONE
+        chain (row and column steps commute); a channel ends the chain and
+        runs as its 4^k superoperator sum_k K (x) conj(K) on (w, w + n)
+        (``planar_superop``: K1 on a non-unitary map, its input kept for the
+        backward), per sample for a batch. A channel on more than one wire
+        (4^k > 8 rows) runs its Kraus sum on the einsum route. Returns the
+        same shape as ``states``."""
+        from .ops.planar_gate import (_sorted_mat_planes, from_planar, planar_chain,
+                                      planar_superop, schedule_planar_seq, to_planar,
+                                      to_planar_batched)
+        n, nn = self.nqubit, 2 * self.nqubit
+        bsz = states.shape[0] if states.dim() == 2 else None
+        p = to_planar(states) if bsz is None else to_planar_batched(states)
+        mres, mims, wseq = [], [], []
+
+        def flush(p):
+            if mres:
+                seq = schedule_planar_seq(tuple(mres), tuple(mims), tuple(wseq), nn)
+                p = planar_chain(p, *seq[:2], nn, seq[2], fused_bwd=self.fused_bwd)
+                mres.clear()
+                mims.clear()
+                wseq.clear()
+            return p
+
+        def add(mat, wires):
+            if bsz is not None and mat.dim() == 2:
+                mat = mat.expand(bsz, *mat.shape)
+            mre, mim = _sorted_mat_planes(mat, wires)
+            mres.append(mre)
+            mims.append(mim)
+            wseq.append(tuple(sorted(wires)))
+
+        for entry in self._fused_plan():
+            if entry[0] == 'op' and entry[1].kind == 'channel':
+                op = entry[1]
+                p = flush(p)
+                kraus = op.matrix(full_params).to(cdtype())
+                k = len(op.wires)
+                if 2 * k <= 3:
+                    sop = torch.einsum('...zab,...zcd->...acbd', kraus, kraus.conj())
+                    swires = list(op.wires) + [w + n for w in op.wires]
+                    sre, sim = _sorted_mat_planes(sop.reshape(*sop.shape[:-4], 4 ** k, 4 ** k),
+                                                  swires)
+                    p = planar_superop(p, sre, sim, nn, swires)
+                else:
+                    lead = [] if bsz is None else [bsz]
+                    rho = self._apply_op(op, full_params, from_planar(p).reshape(lead + [2] * nn))
+                    p = to_planar(rho) if bsz is None else to_planar_batched(rho.reshape(bsz, -1))
+                continue
+            mat, wires = self._op_matrix(entry, full_params)
+            add(mat, wires)
+            add(mat.conj(), [w + n for w in wires])
+        return from_planar(flush(p))
+
+    def _apply_op(self, op: GateOp, full_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One op on the einsum route: a gate on a state or a density matrix,
+        a channel's Kraus sum on a density matrix."""
+        n = self.nqubit
+        if op.kind == 'channel':
+            kraus = op.matrix(full_params).to(cdtype())
+            return sum(evolve_den_mat(x, kraus[..., z, :, :], n, list(op.wires))
+                       for z in range(kraus.shape[-3]))
+        evolve = evolve_den_mat_controlled if self.den_mat else evolve_state_controlled
+        return evolve(x, op.matrix(full_params), n, list(op.wires), list(op.controls))
+
     def _sim_tensor(self, full_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Simulation over a state tensor (2,)*n, or a batch (B, 2, ..., 2)
-        with (B, P) parameters on the einsum route."""
+        """Simulation over a state tensor (2,)*n (a density matrix (2,)*2n),
+        or a batch (B, 2, ..., 2) with (B, P) parameters on the einsum
+        route."""
         n = self.nqubit
         if self._planar_ok() and full_params.dim() == 1:
+            if self.den_mat:
+                return self._sim_planar_dm(full_params, x.reshape(-1)).reshape(x.shape)
             return self._sim_planar(full_params, x)
+        evolve = evolve_den_mat if self.den_mat else evolve_state
         for entry in self._fused_plan():
             if entry[0] == 'op':
-                op = entry[1]
-                x = evolve_state_controlled(x, op.matrix(full_params), n,
-                                            list(op.wires), list(op.controls))
+                x = self._apply_op(entry[1], full_params, x)
             else:
                 mat, wires = self._fused_matrix(entry, full_params)
-                x = evolve_state(x, mat, n, list(wires))
+                x = evolve(x, mat, n, list(wires))
         return x
 
     # --------------------------------------------------------------- forward
@@ -492,9 +587,9 @@ class QubitCircuit:
 
         data: optional (ndata,) or (B, ndata) encoder data (ignored when the
         circuit has no encoders). One state gives shape (2^n, 1), a batch
-        (B, 2^n, 1).
+        (B, 2^n, 1); a density matrix (2^n, 2^n), a batch (B, 2^n, 2^n).
         state: optional initial state (tensor, array or QubitState), one
-        state shared by the batch or (B, 2^n) states; defaults to
+        state shared by the batch or one per sample; defaults to
         init_state.
         params: optional trainable-parameter vector.
         """
@@ -504,7 +599,9 @@ class QubitCircuit:
             state = state.state
         state = torch.as_tensor(state).to(device=self.device, dtype=cdtype())
         n = self.nqubit
-        dim = 2 ** n
+        nw = 2 * n if self.den_mat else n         # the state tensor's wires
+        size = 1 << nw
+        shape = (2 ** n, 2 ** n) if self.den_mat else (2 ** n, 1)
         if self.ndata == 0:
             data = None
         if data is not None:
@@ -512,20 +609,21 @@ class QubitCircuit:
         if data is None or data.dim() == 1:
             didx = None if data is None else self._data_indices(data.shape[-1])
             full = self._full_params(params, data, didx)
-            x = self._sim_tensor(full, state.reshape([2] * n))
-            self.state = x.reshape(dim, 1)
+            x = self._sim_tensor(full, state.reshape([2] * nw))
+            self.state = x.reshape(shape)
             return self.state
         bsz = data.shape[0]
         fulls = self._full_params(params, data, self._data_indices(data.shape[-1]))
-        if state.numel() == dim:
-            states = state.reshape(1, dim).expand(bsz, dim)
+        if state.numel() == size:
+            states = state.reshape(1, size).expand(bsz, size)
         else:
-            states = state.reshape(bsz, dim)
+            states = state.reshape(bsz, size)
         if self._planar_ok():
-            out = self._sim_planar_batched(fulls, states)
+            sim = self._sim_planar_dm if self.den_mat else self._sim_planar_batched
+            out = sim(fulls, states)
         else:
-            out = self._sim_tensor(fulls, states.reshape([bsz] + [2] * n))
-        self.state = out.reshape(bsz, dim, 1)
+            out = self._sim_tensor(fulls, states.reshape([bsz] + [2] * nw))
+        self.state = out.reshape(bsz, *shape)
         return self.state
 
     # ------------------------------------------------------------ observables
@@ -538,8 +636,10 @@ class QubitCircuit:
         outside inference mode so that a later autograd-tracked call may
         use it). For a batch of ``bsz`` states the planes are expanded to
         (bsz, K, K) views, as the JAX package broadcasts them: windows stand
-        aside and the kernels read one set of planes for every sample."""
-        key = ('obs', tuple(map(tuple, obs.wires)), obs.basis, self.device, bsz)
+        aside and the kernels read one set of planes for every sample. For a
+        density matrix the blocks act on the row wires of the 2n-wire
+        planar rho and the sequence is scheduled on 2n wires."""
+        key = ('obs', tuple(map(tuple, obs.wires)), obs.basis, self.device, bsz, self.den_mat)
         seq = self._cache.get(key)
         if seq is None:
             with torch.inference_mode(False), torch.no_grad():
@@ -558,26 +658,48 @@ class QubitCircuit:
             mres.append(mre)
             mims.append(mim)
             wseq.append(wires)
-        return schedule_planar_seq(tuple(mres), tuple(mims), tuple(wseq), self.nqubit)
+        nn = 2 * self.nqubit if self.den_mat else self.nqubit
+        return schedule_planar_seq(tuple(mres), tuple(mims), tuple(wseq), nn)
 
-    def expectation(self, data=None, state=None, params=None, shots: int | None = None):
+    def expectation(self, data=None, state=None, params=None, shots: int | None = None,
+                    generator: torch.Generator | None = None):
         """Expectation values of all observables, shape (n_observables,), or
         (B, n_observables) for a batch of states.
 
         With no arguments, uses the stored final state; with
-        data/state/params, runs forward first."""
+        data/state/params, runs forward first. With ``shots``, each value is
+        estimated from that many samples in the observable's basis (drawn
+        from ``generator`` when given)."""
         if not self.observables:
             raise ValueError('There is no observable')
-        if shots is not None:
-            raise NotImplementedError('shot sampling is not ported yet (ROADMAP queue 1)')
         if data is not None or params is not None or state is not None or self.state is None:
             s = self.forward(data, state, params)
         else:
             s = self.state
+        if shots is not None:
+            return self._expectation_shots(s, shots, generator)
         n = self.nqubit
         bsz = s.shape[0] if s.dim() == 3 else None
         vals = []
-        if self._planar_ok():
+        if self.den_mat:
+            dim = 2 ** n
+            lead = () if bsz is None else (bsz,)
+            if self._planar_ok():
+                from .ops.planar_gate import planar_chain, to_planar, to_planar_batched
+                # tr(O rho): the Pauli blocks on the row wires of the planar
+                # rho (one chain), then the real plane's diagonal
+                xp = to_planar(s) if bsz is None else to_planar_batched(s.reshape(bsz, -1))
+                for obs in self.observables:
+                    mres, mims, wseq = self._obs_seq(obs, bsz)
+                    y = planar_chain(xp, mres, mims, 2 * n, wseq)
+                    vals.append(y[..., 0, :].reshape(*lead, dim, dim)
+                                .diagonal(dim1=-2, dim2=-1).sum(-1))
+            else:
+                x = s.reshape(list(lead) + [2] * (2 * n))
+                for obs in self.observables:
+                    ox = obs.apply(x, den_mat=True).reshape(*lead, dim, dim)
+                    vals.append(ox.diagonal(dim1=-2, dim2=-1).sum(-1).real)
+        elif self._planar_ok():
             from .ops.planar_gate import planar_pauli_expectation, to_planar, to_planar_batched
             xp = to_planar(s) if bsz is None else to_planar_batched(s.reshape(bsz, -1))
             for obs in self.observables:
@@ -588,6 +710,66 @@ class QubitCircuit:
             for obs in self.observables:
                 vals.append(expectation_pauli(x, obs.apply(x), n))
         return torch.stack(vals, dim=-1)
+
+    def hessian(self, params=None, data=None, obs_index: int = 0) -> torch.Tensor:
+        """Full Hessian (P, P) of ``expectation()[obs_index]`` in the
+        trainable parameters (at ``params``, default the stored ones), in
+        the rdtype: reverse over reverse, one gradient with
+        ``create_graph=True``, then one reverse pass per basis column. On
+        the planar engine the first backward walks every step through the
+        differentiable kernel Functions (K1, K5, K2), so every pass of the
+        second runs on the kernels; the one-launch chains serve only
+        first-order passes."""
+        p = self.params if params is None else torch.as_tensor(params, device=self.device)
+        p = p.detach().to(rdtype()).reshape(-1).requires_grad_()
+        with torch.enable_grad():
+            f = self.expectation(data=data, params=p)[obs_index]
+            grad, = torch.autograd.grad(f, p, create_graph=True)
+            eye = torch.eye(p.numel(), dtype=grad.dtype, device=grad.device)
+            rows = [torch.autograd.grad(grad, p, grad_outputs=eye[i], retain_graph=True,
+                                        allow_unused=True)[0] for i in range(p.numel())]
+        return torch.stack([torch.zeros_like(p) if r is None else r for r in rows]).detach()
+
+    def _expectation_shots(self, state: torch.Tensor, shots: int, generator=None):
+        """Each observable estimated from ``shots`` samples: rotate into its
+        basis (h for x; sdg, h for y), measure its wires, take the parity."""
+        batched = state.dim() == 3
+        out = []
+        for obs in self.observables:
+            cir_basis = QubitCircuit(self.nqubit, den_mat=self.den_mat, device=self.device)
+            for wire, basis in zip(obs.wires, obs.basis):
+                if basis == 'x':
+                    cir_basis.h(wire[0])
+                elif basis == 'y':
+                    cir_basis.sdg(wire[0])
+                    cir_basis.h(wire[0])
+            wires = sum(obs.wires, [])
+            vals = []
+            for s in (state if batched else [state]):
+                cir_basis.forward(state=s)
+                vals.append(sample2expval(cir_basis.measure(shots=shots, wires=wires,
+                                                            generator=generator)))
+            out.append(vals)
+        vals = torch.tensor(out, dtype=rdtype(), device=self.device)      # (n_obs, B)
+        return vals.T if batched else vals[:, 0]
+
+    # ------------------------------------------------------------ measurement
+    def measure(self, shots: int | None = None, with_prob: bool = False, wires=None,
+                generator: torch.Generator | None = None):
+        """Sample the stored final state (a batch, or rho's diagonal) in the
+        computational basis: {bitstring: count}, a list of dicts for a
+        batch, or with ``with_prob`` {bitstring: (count, probability)}.
+        ``wires`` (default all) are measured; ``generator`` (on the
+        circuit's device) fixes the draw. None before the first forward."""
+        if shots is None:
+            shots = self.shots
+        else:
+            self.shots = shots
+        self.wires_measure = _flat_wires(list(range(self.nqubit)) if wires is None else wires)
+        if self.state is None:
+            return None
+        return qmeasure(self.state, shots=shots, with_prob=with_prob, wires=self.wires_measure,
+                        den_mat=self.den_mat, generator=generator)
 
     # ------------------------------------------------------------- gate sugar
     def u3(self, wires, inputs=None, controls=None, encode=False):
@@ -696,6 +878,57 @@ class QubitCircuit:
             pairs = [(wires[i], wires[(i + step) % nw]) for i in range(nw)]
         for c, t in pairs:
             self.cnot(c, t)
+
+    # channels (density matrices only)
+    def bit_flip(self, wires, inputs=None, encode=False):
+        self._add_channel('BitFlip', wires, inputs, encode)
+
+    def phase_flip(self, wires, inputs=None, encode=False):
+        self._add_channel('PhaseFlip', wires, inputs, encode)
+
+    def depolarizing(self, wires, inputs=None, encode=False):
+        self._add_channel('Depolarizing', wires, inputs, encode)
+
+    def pauli(self, wires, inputs=None, encode=False):
+        self._add_channel('Pauli', wires, inputs, encode)
+
+    def amp_damp(self, wires, inputs=None, encode=False):
+        self._add_channel('AmplitudeDamping', wires, inputs, encode)
+
+    def phase_damp(self, wires, inputs=None, encode=False):
+        self._add_channel('PhaseDamping', wires, inputs, encode)
+
+    def gen_amp_damp(self, wires, inputs=None, encode=False):
+        self._add_channel('GeneralizedAmplitudeDamping', wires, inputs, encode)
+
+    def _add_channel(self, name: str, wires, inputs, encode: bool) -> GateOp:
+        """Append a Kraus channel; its thetas (prob = sin^2 theta) are fixed
+        values (random in [0, pi) when not given), or data with ``encode``."""
+        if not self.den_mat:
+            raise ValueError('Channels act on density matrices; build the circuit with '
+                             'den_mat=True')
+        from .channel import CHANNEL_REGISTRY
+        reg = CHANNEL_REGISTRY[name]
+        npara = reg['npara']
+        wires = tuple(_flat_wires(wires))
+        if inputs is None:
+            values = [float(np.random.rand() * np.pi) for _ in range(npara)]
+        else:
+            values = _float64(inputs)
+            if len(values) != npara:
+                raise ValueError(f'{name} expects {npara} parameters')
+        pidx = self._new_params(values, encode, requires_grad=False)
+        op = GateOp(name=name, wires=wires, matrix_fn=reg['fn'], pidx=pidx, npara=npara,
+                    kind='channel', requires_grad=False)
+        self.operators.append(op)
+        if encode:
+            self.encoders.append(op)
+            self._enc_pidx.extend(pidx)
+            self.ndata += npara
+        else:
+            self.npara += npara
+        self._touch()
+        return op
 
     def barrier(self, wires=None):
         self.operators.append(GateOp(name='Barrier', wires=tuple(self._layer_wires(wires)),

@@ -23,11 +23,13 @@ __all__ = ['GateOp', 'GATE_REGISTRY']
 
 @dataclasses.dataclass
 class GateOp:
-    """One operation in the circuit IR (kind 'gate' or 'barrier' in the port)."""
+    """One operation in the circuit IR: kind 'gate' (a unitary), 'channel'
+    (a Kraus set, density matrices only) or 'barrier'."""
     name: str
     wires: tuple
     controls: tuple = ()
-    matrix_fn: Callable | None = None      # (params, device) -> (2^k, 2^k) unitary
+    matrix_fn: Callable | None = None      # (params, device) -> (2^k, 2^k) unitary, or a
+    #                                        channel's (K, 2^k, 2^k) Kraus set
     static_matrix: Any = None              # fixed matrix when matrix_fn is None
     pidx: tuple = ()                       # indices into the full parameter vector
     npara: int = 0
@@ -39,7 +41,8 @@ class GateOp:
     def matrix(self, full_params: torch.Tensor) -> torch.Tensor:
         """Local unitary on ``full_params``' device: (2^k, 2^k) from a (P,)
         full-parameter vector, a (B, 2^k, 2^k) stack from a (B, P) batch of
-        them (a fixed gate stays one (2^k, 2^k) matrix)."""
+        them (a fixed gate stays one (2^k, 2^k) matrix). A channel gives its
+        Kraus set, (K, 2^k, 2^k) or (B, K, 2^k, 2^k)."""
         device = full_params.device
         if self.matrix_fn is None:
             mat = torch.as_tensor(np.asarray(self.static_matrix), device=device).to(cdtype())

@@ -28,24 +28,34 @@ def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -
 def from_jax(cir, device=None):
     """Build the port's QubitCircuit from a deepquantum_tpu QubitCircuit.
 
-    Reads ``nqubit``, ``reupload``, the init state, ``operators`` (name,
-    wires, controls, pidx, npara, static_matrix, inv), ``encoders``,
-    ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``npara``, ``ndata`` and
-    ``observables``. Gates are mapped by name through the port's
-    GATE_REGISTRY; a gate it cannot map (a latent, hamiltonian or projection
-    gate, a channel, a measurement) raises NotImplementedError."""
+    Reads ``nqubit``, ``den_mat``, ``reupload``, ``shots``, the init state,
+    ``operators`` (name, wires, controls, pidx, npara, static_matrix, inv),
+    ``encoders``, ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``npara``,
+    ``ndata`` and ``observables``. Gates are mapped by name through the
+    port's GATE_REGISTRY, Kraus channels (with their parameter slots, data
+    slots for encoded ones) through its CHANNEL_REGISTRY; an op it cannot
+    map (a latent, hamiltonian or projection gate, a measurement, a reset)
+    raises NotImplementedError."""
+    from .channel import CHANNEL_REGISTRY
     from .circuit import Observable, QubitCircuit
 
     init = cir.init_state
-    if getattr(cir, 'den_mat', False) or getattr(cir, 'mps', False):
-        raise NotImplementedError('from_jax: density-matrix and MPS circuits are not ported yet')
+    if getattr(cir, 'mps', False):
+        raise NotImplementedError('from_jax: MPS circuits are not ported yet')
     kind = getattr(init, 'kind', None)
     state = kind if kind is not None else np.asarray(init.state)
     out = QubitCircuit(cir.nqubit, init_state=state, name=getattr(cir, 'name', None),
-                       device=device, reupload=bool(getattr(cir, 'reupload', False)))
+                       den_mat=bool(getattr(cir, 'den_mat', False)), device=device,
+                       reupload=bool(getattr(cir, 'reupload', False)),
+                       shots=int(getattr(cir, 'shots', 1024)))
     for op in cir.operators:
         if op.kind == 'barrier':
             out.barrier(list(op.wires))
+            continue
+        if op.kind == 'channel' and op.name in CHANNEL_REGISTRY:
+            out.operators.append(GateOp(
+                name=op.name, wires=tuple(op.wires), matrix_fn=CHANNEL_REGISTRY[op.name]['fn'],
+                pidx=tuple(op.pidx), npara=op.npara, kind='channel', requires_grad=False))
             continue
         if op.kind != 'gate' or op.condition:
             raise NotImplementedError(f'from_jax: cannot map {op.kind} op {op.name}')

@@ -7,6 +7,8 @@ for complex128, for n < 10 and for anything the planar engine does not take.
 A batch of states is a (B, 2, ..., 2) tensor with (B, d^k, d^k) matrices
 (or one matrix for every sample): the batch axes lead, the einsum carries
 them as its ellipsis.
+A density matrix of n qudits is a (d,)*2n tensor, the row qudits first:
+U rho U^dagger is U on the row wires and conj(U) on the column wires.
 The JAX package's tail expansion (``_expand_tail``) exists only to dodge TPU
 tile padding and is not carried over.
 """
@@ -17,7 +19,8 @@ import string
 
 import torch
 
-__all__ = ['evolve_state', 'evolve_state_controlled', 'controlled_matrix', 'permute_matrix_wires']
+__all__ = ['evolve_state', 'evolve_state_controlled', 'evolve_den_mat', 'evolve_den_mat_controlled',
+           'controlled_matrix', 'permute_matrix_wires']
 
 _LETTERS = string.ascii_lowercase + string.ascii_uppercase
 
@@ -103,3 +106,22 @@ def evolve_state_controlled(state: torch.Tensor, matrix: torch.Tensor, nqudit: i
         return evolve_state(state, matrix, nqudit, list(wires), qudit)
     u = controlled_matrix(matrix, len(controls), qudit)
     return evolve_state(state, u, nqudit, controls + list(wires), qudit)
+
+
+def evolve_den_mat(state: torch.Tensor, matrix: torch.Tensor, nqudit: int, wires,
+                   qudit: int = 2) -> torch.Tensor:
+    """rho -> U rho U^dagger on a (d,)*2n density-matrix tensor (leading
+    batch axes as ``evolve_state``)."""
+    wires = list(wires)
+    state = evolve_state(state, matrix, 2 * nqudit, wires, qudit)
+    return evolve_state(state, matrix.conj(), 2 * nqudit, [w + nqudit for w in wires], qudit)
+
+
+def evolve_den_mat_controlled(state: torch.Tensor, matrix: torch.Tensor, nqudit: int, wires,
+                              controls, qudit: int = 2) -> torch.Tensor:
+    """A controlled gate on a density matrix."""
+    controls = list(controls)
+    if not controls:
+        return evolve_den_mat(state, matrix, nqudit, wires, qudit)
+    u = controlled_matrix(matrix, len(controls), qudit)
+    return evolve_den_mat(state, u, nqudit, controls + list(wires), qudit)

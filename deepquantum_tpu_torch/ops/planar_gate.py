@@ -23,9 +23,17 @@ the forward keeps only the final state, and the backward walks the steps in
 reverse, recovering each step's input with U^H, reducing the matrix
 cotangent (``planar_grad``, ``csrc/planar_grad.cu``) and carrying the state
 cotangent on with U^H; ``planar_bwd_fused`` (``csrc/planar_bwd_fused.cu``)
-does the three in one pass. Both are first order only (second order raises).
-The kernel wrappers themselves are not differentiable: called directly with
-a tensor that requires grad, on the card, they raise.
+does the three in one pass. A non-unitary map (a Kraus channel's
+superoperator, ``planar_superop``) keeps its input instead of un-applying.
+
+Second derivatives (``create_graph=True``, ``QubitCircuit.hessian``): when
+a backward is itself recorded, the chain walks its steps through three
+Functions whose backward is written in the same three Functions, so reverse
+mode composes to any order (``_ApplyD`` on K1, ``_GradD`` on K5,
+``_WinApplyD`` on K2); the one-launch chains and ``planar_bwd_fused`` stand
+aside in that walk, and the first-order route is unchanged. The kernel
+wrappers themselves are not differentiable: called directly with a tensor
+that requires grad, on the card, they raise.
 
 The relabel scheduler (``schedule_rotations``) and its costs are ported line
 for line so that the port's step lists equal the JAX package's; they were
@@ -47,7 +55,8 @@ import torch
 
 __all__ = ['planar_apply', 'planar_evolve_xla', 'planar_grad', 'planar_grad_xla',
            'planar_bwd_fused', 'planar_bwd_fused_plain', 'planar_chain',
-           'planar_pauli_expectation', 'schedule_planar_seq', 'schedule_rotations',
+           'planar_pauli_expectation', 'planar_superop', 'schedule_planar_seq',
+           'schedule_rotations',
            'to_planar', 'to_planar_batched', 'from_planar']
 
 _T_BITS = 7            # TPU lane block (scheduler geometry only)
@@ -652,9 +661,9 @@ def _flat_planes(mres, mims, wires_seq):
 def _first_order_only(backward):
     """Refuse a backward that is itself being recorded (create_graph=True).
     This stands in place of ``once_differentiable``, which only guards
-    cotangents that require grad: the adjoint backward (and the photonic
-    kernels' backward through their twins) also depends on saved inputs, so
-    a second derivative through it would silently miss those terms."""
+    cotangents that require grad: the photonic kernels' backward through
+    their twins also depends on saved inputs, so a second derivative through
+    it would silently miss those terms."""
     @functools.wraps(backward)
     def guarded(ctx, *grads):
         if torch.is_grad_enabled():
@@ -662,6 +671,133 @@ def _first_order_only(backward):
                                'cannot be differentiated again (create_graph=True)')
         return backward(ctx, *grads)
     return guarded
+
+
+# ------------------------------------------- reverse-differentiable kernels
+# The three Functions below close the derivative algebra over the kernels
+# (C: the (K, K) cotangent planes; no unitarity is assumed, M^H is the real
+# Jacobian's transpose of the plane algebra):
+#
+#     VJP of apply(x, M):   dx = apply(g, M^H),   dM = grad(g, x)
+#     VJP of grad(g, x):    dg = apply(x, C),     dx = apply(g, C^H)
+#
+# Each backward calls the Functions again, so a backward run under
+# create_graph=True is itself differentiable, to any order.
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """t as a kernel argument: contiguous and on a 16-byte boundary."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _batch_sum(d: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """A (K, K) plane shared by a batch of states gets the batch's sum."""
+    return (d if d.dim() == m.dim() else d.sum(0)).to(m.dtype)
+
+
+class _ApplyD(torch.autograd.Function):
+    """y = M x on a k <= 3 wire group through K1 (``planar_apply``), out of
+    place, for any linear M. It keeps its INPUT as the residual, so it is
+    also the Function of ``planar_superop``: a non-unitary map must not be
+    un-applied by inversion. Planes are (K, K) or (B, K, K) in sorted-wire
+    order; ws sorted."""
+
+    @staticmethod
+    def forward(ctx, x, mre, mim, n, ws):
+        ctx.save_for_backward(x, mre, mim)
+        ctx.spec = (n, ws)
+        return planar_apply(x.clone(memory_format=torch.contiguous_format), mre, mim, n, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mre, mim = ctx.saved_tensors
+        n, ws = ctx.spec
+        dx = dre = dim = None
+        if ctx.needs_input_grad[0]:
+            dx = _ApplyD.apply(g, *_conj_t(mre, mim), n, ws)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dre, dim = _GradD.apply(g, x, n, ws)
+            dre, dim = _batch_sum(dre, mre), _batch_sum(dim, mim)
+        return dx, dre, dim, None, None
+
+
+class _GradD(torch.autograd.Function):
+    """The cotangent planes (dRe, dIm) of y = M x from g and x through K5
+    (``planar_grad``), differentiable in g and x."""
+
+    @staticmethod
+    def forward(ctx, g, x, n, ws):
+        ctx.save_for_backward(g, x)
+        ctx.spec = (n, ws)
+        return tuple(planar_grad(_fresh(g), _fresh(x), n, ws))
+
+    @staticmethod
+    def backward(ctx, cr, ci):
+        g, x = ctx.saved_tensors
+        n, ws = ctx.spec
+        dg = _ApplyD.apply(x, cr, ci, n, ws) if ctx.needs_input_grad[0] else None
+        dx = _ApplyD.apply(g, *_conj_t(cr, ci), n, ws) if ctx.needs_input_grad[1] else None
+        return dg, dx, None, None
+
+
+class _WinApplyD(torch.autograd.Function):
+    """y = W x on the top w wires through K2 (``window_apply``), out of
+    place; dW comes from ``window_grad`` (plain matmuls, differentiable)."""
+
+    @staticmethod
+    def forward(ctx, x, mre, mim, n, w):
+        from .window_gate import window_apply
+        ctx.save_for_backward(x, mre, mim)
+        ctx.spec = (n, w)
+        return window_apply(x.clone(memory_format=torch.contiguous_format), mre, mim, n, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .window_gate import window_grad
+        x, mre, mim = ctx.saved_tensors
+        n, w = ctx.spec
+        dx = _WinApplyD.apply(g, *_conj_t(mre, mim), n, w)
+        dre, dim = window_grad(g, x, n, w)
+        return dx, dre, dim, None, None
+
+
+def _chain_diff(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
+    """The chain's forward as recorded steps (``_ApplyD``, ``_WinApplyD``
+    and differentiable relabels), for a backward under create_graph."""
+    for mre, mim, ws in zip(mres, mims, wires_seq):
+        if ws[0] == 'rot':
+            x = _rotate_planar(x, ws[1], n)
+        elif ws[0] == 'win':
+            x = _WinApplyD.apply(x, mre, mim, n, ws[1])
+        else:
+            x = _ApplyD.apply(x, mre, mim, n, ws)
+    return x
+
+
+def _steps_backward_diff(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq):
+    """The adjoint walk out of place through the differentiable Functions
+    (a backward under create_graph): returns (g_in, dres, dims) as
+    ``_chain_backward``. It keeps one state per step for the next order."""
+    from .window_gate import window_grad
+    dres = [None] * len(wires_seq)
+    dims = [None] * len(wires_seq)
+    for i in range(len(wires_seq) - 1, -1, -1):
+        ws = wires_seq[i]
+        if ws[0] == 'rot':
+            y = _rotate_planar(y, -ws[1], n)
+            g = _rotate_planar(g, -ws[1], n)
+            continue
+        mre_t, mim_t = _conj_t(mres[i], mims[i])
+        if ws[0] == 'win':
+            x = _WinApplyD.apply(y, mre_t, mim_t, n, ws[1])
+            dres[i], dims[i] = window_grad(g, x, n, ws[1])
+            g = _WinApplyD.apply(g, mre_t, mim_t, n, ws[1])
+        else:
+            x = _ApplyD.apply(y, mre_t, mim_t, n, ws)
+            dres[i], dims[i] = _GradD.apply(g, x, n, ws)
+            g = _ApplyD.apply(g, mre_t, mim_t, n, ws)
+        y = x
+    return g, dres, dims
 
 
 class _PlanarChain(torch.autograd.Function):
@@ -678,15 +814,18 @@ class _PlanarChain(torch.autograd.Function):
         return y
 
     @staticmethod
-    @_first_order_only
     def backward(ctx, g):
         n, wires_seq, fused_bwd = ctx.spec
         y, *planes = ctx.saved_tensors
         mres, mims = _split_planes(planes, wires_seq)
-        g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd, ctx.chain)
-        # a (K, K) plane shared by a batch of states gets the batch's sum
-        dplanes = [(d if d.dim() == m.dim() else d.sum(0)).to(m.dtype)
-                   for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
+        if torch.is_grad_enabled():
+            # create_graph: the recorded walk; the one-launch chains and K6
+            # have no derivative of their own and stand aside
+            g_in, dres, dims = _steps_backward_diff(y, g, mres, mims, n, wires_seq)
+        else:
+            g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd,
+                                               ctx.chain)
+        dplanes = [_batch_sum(d, m) for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
         return (g_in, None, None, None, *dplanes)
 
 
@@ -694,7 +833,7 @@ def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq,
                  fused_bwd: bool = False) -> torch.Tensor:
     """Apply a scheduled sequence of unitaries to the planar state x and
     return the final state (x is not modified). Differentiable in x and in
-    every matrix plane, first order only.
+    every matrix plane, to any order.
 
     The forward stores only the FINAL state. The backward walks the steps in
     reverse: it un-applies each unitary to recover its input (U^H y), reduces
@@ -703,36 +842,55 @@ def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq,
     ONE launch (ops/chain_kernel.py); a batched gate chain at 8 <= n <= 17
     (the backward n <= 16) likewise (ops/planar_chain_batched.py); otherwise
     each step runs its own kernels, a gate step as three launches or, with
-    ``fused_bwd``, as the single ``planar_bwd_fused``. The recurrence is
-    exact for unitary steps."""
+    ``fused_bwd``, as the single ``planar_bwd_fused``. A backward under
+    create_graph walks every step through the differentiable Functions
+    instead. The recurrence is exact for unitary steps only: a non-unitary
+    map goes through ``planar_superop``."""
     wires_seq = tuple(wires_seq)
     return _PlanarChain.apply(x, n, wires_seq, bool(fused_bwd),
                               *_flat_planes(mres, mims, wires_seq))
 
 
+def planar_superop(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
+    """Apply a general (non-unitary) map on k <= 3 sorted wires (planes in
+    sorted-wire order, (K, K) or per sample (B, K, K)) to the planar state
+    x and return a new state; one K1 launch. Its backward keeps the input
+    as the residual: K5 for the planes (when they need a gradient) and K1
+    with M^H for the state, to any order. A density matrix's Kraus channel
+    runs as its 4^k superoperator sum_k K (x) conj(K) on the wire pair
+    (w, w + n) this way."""
+    return _ApplyD.apply(x, mre, mim, n, tuple(sorted(wires)))
+
+
 class _PauliExpectation(torch.autograd.Function):
-    """planar_pauli_expectation: keeps Px; d/dx = 2 g Px, no matrix
-    cotangent (the observable is constant)."""
+    """planar_pauli_expectation: keeps x and Px; d/dx = 2 g Px, no matrix
+    cotangent (the observable is constant). Under create_graph Px is
+    recomputed through the differentiable chain, so that the next order
+    sees d(Px)/dx."""
 
     @staticmethod
     def forward(ctx, x, n, wires_seq, *planes):
         mres, mims = _split_planes(planes, wires_seq)
         chain = _batched_chain(x, mres, mims, n, wires_seq)
         ox = _chain_forward(x, mres, mims, n, wires_seq, chain)
-        ctx.save_for_backward(ox)
+        ctx.save_for_backward(x, ox, *planes)
+        ctx.spec = (n, wires_seq)
         return torch.sum(x[..., 0, :] * ox[..., 0, :] + x[..., 1, :] * ox[..., 1, :], dim=-1)
 
     @staticmethod
-    @_first_order_only
     def backward(ctx, g):
-        ox, = ctx.saved_tensors
-        return (2.0 * g[..., None, None] * ox, None, None, *[None] * (len(ctx.needs_input_grad) - 3))
+        x, ox, *planes = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            n, wires_seq = ctx.spec
+            ox = _chain_diff(x, *_split_planes(planes, wires_seq), n, wires_seq)
+        return (2.0 * g[..., None, None] * ox, None, None, *[None] * len(planes))
 
 
 def planar_pauli_expectation(x: torch.Tensor, mres, mims, n: int, wires_seq) -> torch.Tensor:
     """Re<x|P|x> for a Hermitian Pauli string P given as a scheduled chain of
     constant k <= 3 wire blocks (relabels close back to the identity
-    labeling, so Px ends aligned with x). Differentiable in x, first order
-    only: the forward keeps Px and the backward is one elementwise pass."""
+    labeling, so Px ends aligned with x). Differentiable in x to any order:
+    the forward keeps Px and the first-order backward is one elementwise
+    pass."""
     wires_seq = tuple(wires_seq)
     return _PauliExpectation.apply(x, n, wires_seq, *_flat_planes(mres, mims, wires_seq))

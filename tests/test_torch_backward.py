@@ -352,12 +352,27 @@ def test_fallback_gate_step_inside_a_window_plan(jax128):
     np.testing.assert_allclose(grad, want_grad, atol=1e-4)
 
 
-def test_second_order_raises(jax128):
+def test_second_order_raises(jax128, monkeypatch):
+    """create_graph=True through planar_chain and planar_pauli_expectation
+    gives a gradient that is itself differentiable (a Hessian row of the
+    complex128 route's); the photonic kernel Functions (here K7, its launch
+    stood in for by the twin on the CPU) still raise."""
+    from deepquantum_tpu_torch.ops import permanent_kernel as tpk
     tcir = dqt.from_jax(bench(10, 1))
-    p = dqt.params_from_numpy(tcir.params.numpy(), requires_grad=True)
-    loss = tcir.expectation(params=p)[0]
+    rows = []
+    for dtype in ('complex64', 'complex128'):
+        dqt.set_dtype(dtype)
+        tcir._touch()
+        p = tcir.params.requires_grad_()
+        g, = torch.autograd.grad(tcir.expectation(params=p)[0], p, create_graph=True)
+        assert g.requires_grad
+        rows.append(torch.autograd.grad(g[3], p)[0].double().numpy())
+    np.testing.assert_allclose(rows[0], rows[1], atol=1e-4)
+
+    monkeypatch.setattr(tpk, '_launch', tpk.permanent_plain_batch)
+    m = torch.randn(2, 4, 4, dtype=torch.complex128, requires_grad=True)
     with pytest.raises(RuntimeError, match='first order only'):
-        torch.autograd.grad(loss, p, create_graph=True)
+        torch.autograd.grad(tpk._Permanents.apply(m).sum().real, m, create_graph=True)
 
 
 def test_three_sgd_steps_match_jax(jax128):

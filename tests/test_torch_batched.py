@@ -237,12 +237,37 @@ def test_fused_backward_equals_the_default_route():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
-def test_second_order_through_the_batch_raises():
+def test_second_order_through_the_batch_raises(monkeypatch):
+    """A second derivative through the batched planar chain (its backward
+    recorded step by step through K1b / K5b) is a Hessian-vector product
+    equal to the complex128 route's; the batched torontonian Function (K8b,
+    its launch stood in for by the twin on the CPU) is first order only and
+    still raises under create_graph."""
+    from deepquantum_tpu_torch.photonic import tor_kernel as ttk
+    from deepquantum_tpu_torch.photonic import torontonian_ as tt
     cir = dqt.from_jax(_qml(dq, 10, 1))
-    p = cir.params.requires_grad_()
-    loss = cir.expectation(data=torch.rand(B, 10), params=p).sum()
+    data = torch.rand(B, 10, generator=torch.Generator().manual_seed(5))
+    v = torch.linspace(-1, 1, cir.params.numel(), dtype=torch.float64)
+    hvps = []
+    for dtype in ('complex64', 'complex128'):
+        dqt.set_dtype(dtype)
+        cir._touch()
+        p = cir.params.requires_grad_()
+        g, = torch.autograd.grad(cir.expectation(data=data, params=p).sum(), p,
+                                 create_graph=True)
+        hvp, = torch.autograd.grad(g @ v.to(g.dtype), p)
+        hvps.append(hvp.double())
+    np.testing.assert_allclose(hvps[0].numpy(), hvps[1].numpy(), atol=1e-5)
+
+    monkeypatch.setattr(ttk, '_launch', lambda name, o, gamma, *sc: (ttk.tor_dets_plain(o, *sc)[0],
+                                                                       None))
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((B, 8, 8))
+    o = torch.tensor(np.eye(8) - np.linalg.inv(np.eye(8) + a @ a.transpose(0, 2, 1)),
+                     dtype=torch.complex128, requires_grad=True)
+    dets = ttk._TorDets.apply(o, *tt._padded_tor_indices(4, o.device))
     with pytest.raises(RuntimeError, match='first order only'):
-        torch.autograd.grad(loss, p, create_graph=True)
+        torch.autograd.grad(dets.sum().real, o, create_graph=True)
 
 
 # ------------------------------------------------------------ parameter API

@@ -447,11 +447,90 @@ def test_training_step_matches_complex128(card):
 
 
 def test_second_order_raises_on_the_card(card):
-    cir = _bench(16, 1)
-    p = cir.params.requires_grad_()
-    loss = cir.expectation(params=p)[0]
+    """create_graph=True through the planar Functions differentiates again
+    on the card: a Hessian row at n=16 (the one-launch chain forward, the
+    recorded walk on K2 / K1 / K5 backward) equals the complex128 route's;
+    the photonic kernel Functions (here K7) still raise."""
+    from deepquantum_tpu_torch.ops import permanent_kernel as pk
+    rows = []
+    for dtype in ('complex64', 'complex128'):
+        dqt.set_dtype(dtype)
+        cir = _bench(16, 1)
+        assert cir._planar_ok() == (dtype == 'complex64')
+        p = cir.params.requires_grad_()
+        g, = torch.autograd.grad(cir.expectation(params=p)[0], p, create_graph=True)
+        rows.append(torch.autograd.grad(g[5], p)[0].double())
+    assert (rows[0] - rows[1]).abs().max().item() <= 1e-4
+    mats = torch.randn(2, 5, 5, dtype=torch.complex128, device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match='first order only'):
-        torch.autograd.grad(loss, p, create_graph=True)
+        torch.autograd.grad(pk.permanent_cuda_batch(mats).sum().real, mats, create_graph=True)
+
+
+@pytest.mark.parametrize('batch', [None, 8])
+def test_planar_superop_matches_twin(batch, card):
+    """planar_superop on a non-unitary map: forward K1 (K1b), backward K1
+    with M^H for the state and K5 (K5b) for the planes, against the same on
+    CPU copies (the twins)."""
+    n, wires = 12, (2, 8)
+    rng = np.random.default_rng(31)
+    shape = (2, 1 << n) if batch is None else (batch, 2, 1 << n)
+    pshape = (4, 4) if batch is None else (batch, 4, 4)
+    host = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+            for s in (shape, pshape, pshape, shape)]
+    outs = []
+    for device in (card, torch.device('cpu')):
+        x, mre, mim, c = [t.to(device).requires_grad_(i < 3) for i, t in enumerate(host)]
+        counts = (tpg.planar_apply.launches + tpg.planar_apply.batched_launches,
+                  tpg.planar_grad.launches + tpg.planar_grad.batched_launches)
+        y = tpg.planar_superop(x, mre, mim, n, wires)
+        grads = torch.autograd.grad((y * c).sum(), (x, mre, mim))
+        if device.type == 'cuda':
+            assert (tpg.planar_apply.launches + tpg.planar_apply.batched_launches,
+                    tpg.planar_grad.launches + tpg.planar_grad.batched_launches) == \
+                (counts[0] + 2, counts[1] + 1)
+        outs.append([t.detach().cpu() for t in (y, *grads)])
+    for i, (got, want) in enumerate(zip(*outs)):
+        bar = (2e-6 if i < 2 else 1e-5) * want.abs().max().item()
+        torch.testing.assert_close(got, want, atol=bar, rtol=0)
+
+
+def test_second_order_walk_matches_twin(card, twin_route):
+    """The recorded walk (_ApplyD on K1, _GradD on K5, _WinApplyD on K2) at
+    n=12: a Hessian-vector product of a chain of a window, gates and
+    relabels, in the state and every plane, against the same on the twins
+    on the card."""
+    n = 12
+    rng = np.random.default_rng(41)
+    wseq = (('win', 7), (2,), ('rot', 5), (0, 9), (4, 5, 11), ('rot', 7), (1, 6))
+    host = [_planes(_haar(1 << (7 if ws[0] == 'win' else len(ws)), rng), 'cpu')
+            for ws in wseq if ws[0] != 'rot']
+    x0 = torch.as_tensor(rng.standard_normal((2, 1 << n)), dtype=torch.float32)
+    c0 = torch.as_tensor(rng.standard_normal((2, 1 << n)), dtype=torch.float32)
+    vs = [torch.as_tensor(rng.standard_normal(m.shape), dtype=torch.float32)
+          for pair in host for m in pair]
+
+    def hvp():
+        planes = [m.to(card).requires_grad_() for pair in host for m in pair]
+        x = x0.to(card).requires_grad_()
+        it = iter(planes)
+        mres, mims = [], []
+        for ws in wseq:
+            pair = (None, None) if ws[0] == 'rot' else (next(it), next(it))
+            mres.append(pair[0])
+            mims.append(pair[1])
+        y = tpg.planar_chain(x, mres, mims, n, wseq)
+        g = torch.autograd.grad((y * c0.to(card)).sum(), planes, create_graph=True)
+        dot = sum((a * v.to(card)).sum() for a, v in zip(g, vs))
+        return [t.cpu() for t in torch.autograd.grad(dot, [x] + planes)]
+
+    before = (tpg.planar_apply.launches, tpg.planar_grad.launches, twg.window_apply.launches)
+    got = hvp()
+    after = (tpg.planar_apply.launches, tpg.planar_grad.launches, twg.window_apply.launches)
+    assert all(a > b for a, b in zip(after, before))
+    twin_route()
+    want = hvp()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=0)
 
 
 def test_direct_wrapper_call_refuses_gradients(card):
