@@ -160,6 +160,38 @@ Phases (each raises on failure, so the run exits non-zero):
    batched calls), displaced through tor_dets_quads_cuda, and d P / d
    angles of three Clements(12, 6 photons) probabilities through one
    permanent_cuda_batch launch, each <= 1e-8 of the twin route's autograd;
+9c. QuantumFourierTransform(24) on |x> (x from the seed): 24 h, 276 cp, 12
+   swap on K2 windows and K1; the state against the analytic transform
+   (numpy complex128) and the complex128 route (<= 1e-5), QFT^-1 back to
+   |x> (<= 1e-5), launches, medians of the kernel and twin routes;
+9d. the QCNN training step at n=18 (QuantumConvolutionalNeuralNetwork(18,
+   3): 18 -> 9 -> 5 -> 3 wires, 42 shared trainable parameters, the
+   latent gate's 64 fixed on 3 wires as in the JAX package, Z on wire 0):
+   loss and gradient against complex128 (<= 1e-5 / <= 1e-4), three SGD
+   steps on the kernel and twin routes (<= 1e-5), launches, medians in
+   turns, busy share;
+9e. make_adjoint_expectation at bench_gradient_adjoint's cell n=18, 5
+   layers (the planar chain's adjoint backward: K3 / K4) against the
+   complex128 einsum route with plain autograd, phase 6's reference
+   (<= 1e-5 / <= 1e-4); its einsum-route Function at n=14 in
+   complex128 against autograd (<= 1e-10); make_layered_vqe(18, 5) against
+   the circuit it mirrors (<= 1e-5 / <= 1e-4);
+9f. conditional gates at n=20 (h on wires 0-9, x(10 + i) conditioned on
+   wire i, the bench layers on 10-19; the einsum route): the state against
+   complex128 (<= 1e-5), defer_measure from a seeded card generator (norm
+   1 within 1e-5, its probability get_prob's within 1e-5), post_select the
+   same state; the time of each call;
+9g. MPS at n=100, chi=64, 8 layers of rx, rz, rx and a CNOT chain (the
+   bond truncates at 64): <Z0> and its gradient at complex64 against
+   complex128 on the card (<= 1e-4, <= 1e-3 of max|g|), the norm (<= 1e-4),
+   10^4 shots of wire 0 within 5 sigma, the 100-qubit GHZ state's two
+   strings by a chi-square, exactness at n=16, 5 layers, chi=256 against
+   the kernel state vector (state, <Z0> <= 1e-5, gradient <= 1e-4); times,
+   SVD / QR calls a step, and the busy share of one layer's value and
+   gradient at full bond (the last layer, from the first seven's MPS: a
+   profiler window over the whole step costs ~150 s). In phase 3 check_superop_kernels
+   also times the one torch.einsum of K1 / K5 / K1b / K5b's superoperator
+   rows (library_ms);
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -1542,10 +1574,21 @@ def grad_step(cir, p, update: bool = True):
     return loss.detach(), grad
 
 
+_REFERENCES: dict = {}
+
+
 def _reference_grad(n: int, extra_cnot, layers: int, sgd_steps: int = 0):
     """Loss and gradient on the port's complex128 einsum route with plain
     autograd on the card, then the losses of ``sgd_steps`` SGD steps (each
-    step's loss, and the loss after the last update)."""
+    step's loss, and the loss after the last update). Made once per
+    arguments: phases 6 and 9e hold the same circuit to it."""
+    key = (n, extra_cnot, layers, sgd_steps)
+    if key not in _REFERENCES:
+        _REFERENCES[key] = _reference_grad_uncached(n, extra_cnot, layers, sgd_steps)
+    return _REFERENCES[key]
+
+
+def _reference_grad_uncached(n: int, extra_cnot, layers: int, sgd_steps: int):
     import torch
     dqt = _pkg()[0]
     dqt.set_dtype('complex128')
@@ -2124,8 +2167,10 @@ def check_superop_kernels(results: dict, rng):
     24-wire planar rho, and K1b / K5b on a (16, 2, 2^16) stack with random
     non-unitary 4 x 4 per-sample planes on (0, 8) and (3, 11); states
     <= 1e-6 of max|ref| against the twin, planes <= PLANE_BAR against the
-    twin run in float64; kernel, twin and device times and the bound. Rows
-    under ``superop`` of planar_apply(_batched) and planar_grad(_batched)."""
+    twin run in float64; kernel, twin and device times, the bound, and the
+    one torch.einsum that computes the same (library_ms, held to 1e-5 of
+    the twin as for the unitary rows). Rows under ``superop`` of
+    planar_apply(_batched) and planar_grad(_batched)."""
     import torch
     pg = _pkg()[1]
     dev = torch.device('cuda')
@@ -2155,6 +2200,8 @@ def check_superop_kernels(results: dict, rng):
                    ms=time_ms(lambda: pg.planar_apply(work, mre, mim, n, wires))[0],
                    device_ms=_queued_ms(lambda: pg.planar_apply(work, mre, mim, n, wires)),
                    plain_ms=time_ms(lambda: pg.planar_evolve_xla(x, mre, mim, n, wires))[0],
+                   library_ms=library_apply_ms(x, mre, mim, n, wires, ref,
+                                               f'planar_apply{suffix} superop {label}'),
                    **bound(nbytes, flops))
         results[f'planar_apply{suffix}'].setdefault('superop', []).append(row)
         print(f'planar_apply{suffix} non-unitary superop {label}: {row}')
@@ -2167,6 +2214,8 @@ def check_superop_kernels(results: dict, rng):
                    ms=time_ms(lambda: pg.planar_grad(g, x, n, wires))[0],
                    device_ms=_queued_ms(lambda: pg.planar_grad(g, x, n, wires)),
                    plain_ms=time_ms(lambda: pg.planar_grad_xla(g, x, n, wires))[0],
+                   library_ms=library_grad_ms(g, x, n, wires, ref,
+                                              f'planar_grad{suffix} superop {label}'),
                    **bound(nbytes + 2 * mre.numel() * 4, flops))
         results[f'planar_grad{suffix}'].setdefault('superop', []).append(row)
         print(f'planar_grad{suffix} non-unitary superop {label}: {row}')
@@ -2866,6 +2915,466 @@ def check_gbs(card: str, rng):
 
 
 # ----------------------------------------------------------------- profile
+# ------------------------------------------- the rest of the qubit engine
+QFT_N = 24
+QCNN_N, QCNN_LAYERS = 18, 3
+ADJ_N = 18
+COND_N = 20
+MPS_N, MPS_CHI, MPS_LAYERS, MPS_SHOTS = 100, 64, 8, 10 ** 4
+MPS_EXACT_N, MPS_EXACT_LAYERS, MPS_EXACT_CHI = 16, 5, 256
+
+
+def _models():
+    _pkg()
+    from deepquantum_tpu_torch import adjoint, models, mps
+    return models, adjoint, mps
+
+
+def check_qft(card: str, reps: int = 10):
+    """QuantumFourierTransform(24) on a basis state |x> (x from the seed):
+    24 h, 276 cp and 12 swap on the planar route (K2 windows, K1 for the
+    leftover groups). The state against the analytic transform
+    sum_j exp(2 pi i j x / N) / sqrt(N) |j> (numpy complex128, the wire order
+    tests/test_torch_ansatz.py pins against the JAX package) and against
+    the port's complex128 route on the card (<= 1e-5); then QFT^-1 returns
+    |x> (<= 1e-5). Launches per kernel and the forward's medians on the
+    kernel and twin routes."""
+    import torch
+    dqt = _pkg()[0]
+    models = _models()[0]
+    n, dim = QFT_N, 1 << QFT_N
+    x = int(np.random.default_rng(SEED + 10).integers(dim))
+    label = f'QFT n={n}, |x={x}>'
+    qft = models.QuantumFourierTransform(n)
+    if qft.device.type != 'cuda' or not qft._planar_ok():
+        raise AssertionError(f'{label}: device {qft.device}, planar {qft._planar_ok()}')
+    names = [op.name for op in qft.operators]
+    if (names.count('Hadamard'), names.count('PhaseShift'), names.count('Swap')) != (
+            n, n * (n - 1) // 2, n // 2):
+        raise AssertionError(f'{label}: gate counts {len(names)}')
+    ket = torch.zeros(dim, dtype=torch.complex64, device='cuda')
+    ket[x] = 1
+    with torch.inference_mode():
+        reset_counts()
+        out = qft.forward(state=ket).reshape(-1).clone()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        back = qft.inverse().forward(state=out).reshape(-1)
+        d_back = (back - ket).abs().max().item()
+    if counts['window_apply'] <= 0:
+        raise AssertionError(f'{label}: window_apply was not launched: {counts}')
+    j = np.arange(dim, dtype=np.float64)
+    want = np.exp(2j * np.pi * ((j * x) % dim) / dim) / np.sqrt(dim)
+    d_exact = float(np.abs(out.cpu().numpy().astype(np.complex128) - want).max())
+    del want, j
+    dqt.set_dtype('complex128')
+    try:
+        ref_cir = models.QuantumFourierTransform(n)
+        if ref_cir._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        with torch.inference_mode():
+            ref = ref_cir.forward(state=ket.to(torch.complex128)).reshape(-1)
+            d_ref = (out.to(torch.complex128) - ref).abs().max().item()
+        del ref
+    finally:
+        dqt.set_dtype('complex64')
+    print(f'{label}: launches {counts}; max|d| to the analytic QFT {d_exact:.2e}, to complex128 '
+          f'{d_ref:.2e}; QFT^-1 QFT |x> max|d| {d_back:.2e}')
+    if not (d_exact <= 1e-5 and d_ref <= 1e-5 and d_back <= 1e-5):
+        raise AssertionError(f'{label}: differs from the analytic transform or complex128')
+    with torch.inference_mode():
+        step = (lambda: qft.forward(state=ket))
+        t = _in_turns(step, reps)
+    print(f'{label}: forward median over {reps} (in turns): kernel route {t["kernel"]:.3f} ms, '
+          f'twin route {t["twin"]:.3f} ms [{card}]')
+    return counts, dict(forward_ms=t['kernel'], twin_forward_ms=t['twin'], err_exact=d_exact,
+                        err_complex128=d_ref, err_inverse=d_back)
+
+
+def qcnn_circuit(device=None):
+    """QuantumConvolutionalNeuralNetwork(18, nlayer=3): wires 18 -> 9 -> 5
+    -> 3, the latent gate on 3 wires; Z on wire 0; parameters from numpy's
+    generator seeded with SEED (the construction draws them)."""
+    models = _models()[0]
+    np.random.seed(SEED)
+    cir = models.QuantumConvolutionalNeuralNetwork(QCNN_N, QCNN_LAYERS, device=device)
+    cir.observable(0)
+    return cir
+
+
+def check_qcnn(card: str, reps: int = 10):
+    """The QCNN training step at n=18: expectation, backward, SGD, with the
+    shared parameters (42 trainable). Loss and gradient against the complex128
+    route (<= 1e-5 / <= 1e-4); three SGD steps on the kernel and twin
+    routes (<= 1e-5 apart); launches, medians in turns, busy share."""
+    import torch
+    dqt = _pkg()[0]
+    label = f'QCNN n={QCNN_N}, {QCNN_LAYERS} layers'
+    cir = qcnn_circuit()
+    if cir.device.type != 'cuda' or not cir._planar_ok():
+        raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}')
+    p0 = cir.params
+    p = p0.clone().requires_grad_()
+    reset_counts()
+    loss, grad = grad_step(cir, p, update=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dqt.set_dtype('complex128')
+    try:
+        ref = qcnn_circuit('cuda')
+        if ref._planar_ok():
+            raise AssertionError('the complex128 reference must take the einsum route')
+        ref_loss, ref_grad = grad_step(ref, ref.params.requires_grad_(), update=False)
+    finally:
+        dqt.set_dtype('complex64')
+    d_loss = abs(loss.item() - ref_loss.item())
+    d_grad = (grad.double() - ref_grad).abs().max().item()
+    print(f'{label}: {p0.numel()} parameters, launches per step {counts}, loss {loss.item():.8f} '
+          f'(complex128 {ref_loss.item():.8f}), |d loss| {d_loss:.2e}, max|d grad| {d_grad:.2e} '
+          f'(max|grad| {ref_grad.abs().max().item():.3e})')
+    if not (torch.isfinite(grad).all() and d_loss <= 1e-5 and d_grad <= 1e-4):
+        raise AssertionError(f'{label}: differs from the complex128 route')
+    losses = {}
+    for route in ('kernel', 'twin'):
+        p = p0.clone().requires_grad_()
+        with (twin_route() if route == 'twin' else contextlib.nullcontext()):
+            losses[route] = [grad_step(cir, p)[0].item() for _ in range(3)]
+    d_sgd = max(abs(a - b) for a, b in zip(losses['kernel'], losses['twin']))
+    print(f'{label}: 3 SGD steps, kernel route {[round(v, 8) for v in losses["kernel"]]}, '
+          f'max |d| to the twin route {d_sgd:.2e}')
+    if not d_sgd <= 1e-5:
+        raise AssertionError(f'{label}: the SGD losses of the kernel and twin routes differ')
+    p = p0.clone().requires_grad_()
+    t = _in_turns(lambda: grad_step(cir, p, update=False), reps)
+    dev = _device_profile(lambda: grad_step(cir, p, update=False), 1)
+    busy = dev['device_ms_per_step'] / t['kernel']
+    print(f'{label}: step median over {reps} (in turns): kernel route {t["kernel"]:.3f} ms, twin '
+          f'route {t["twin"]:.3f} ms; device {dev["device_ms_per_step"]:.3f} ms a step '
+          f'({dev["device_ops_per_step"]:.0f} device ops, busy {busy:.1%}) [{card}]')
+    return counts, dict(step_ms=t['kernel'], twin_step_ms=t['twin'], device_busy_share=busy,
+                        err_loss=d_loss, err_grad=d_grad)
+
+
+def check_adjoint(card: str, reps: int = 10):
+    """make_adjoint_expectation at bench_suite.py::bench_gradient_adjoint's
+    cell n=18, 5 layers (the bench ansatz): on the planar route it rides
+    the circuit's planar chain, whose backward un-applies each window (K3 /
+    K4); value and gradient against the port's complex128 einsum route
+    with plain autograd (<= 1e-5 / <= 1e-4; phase 6's reference), K4
+    launched once, the median step. The einsum-route Function at n=14 in
+    complex128 against plain autograd (<= 1e-10), and make_layered_vqe(18,
+    5) against the QubitCircuit it mirrors (<= 1e-5 / <= 1e-4)."""
+    import torch
+    dqt = _pkg()[0]
+    models, adjoint, _ = _models()
+    label = f'adjoint n={ADJ_N}, {LAYERS} layers'
+    cir = bench_circuit(ADJ_N)
+    fn = adjoint.make_adjoint_expectation(cir)
+    p = cir.params.requires_grad_()
+    reset_counts()
+    e = fn(p)
+    e.backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    g = p.grad
+    ref_loss, ref_grad, _ = _reference_grad(ADJ_N, None, LAYERS, sgd_steps=3)
+    d_e, d_g = abs(e.item() - ref_loss), (g.double() - ref_grad).abs().max().item()
+    print(f'{label}: launches {counts}, |d value| {d_e:.2e}, max|d grad| {d_g:.2e} (max|grad| '
+          f'{ref_grad.abs().max().item():.3e}) against the complex128 einsum route')
+    if not (d_e <= 1e-5 and d_g <= 1e-4) or counts['window_chain_bwd'] != 1:
+        raise AssertionError(f'{label}: differs from the complex128 route, or K4 not launched '
+                             'once')
+
+    def step():
+        p.grad = None
+        fn(p).backward()
+
+    t, _ = time_ms(step, reps=reps, warmup=1)
+    dqt.set_dtype('complex128')
+    try:
+        small = bench_circuit(14, 'cuda')
+        sfn = adjoint.make_adjoint_expectation(small)
+        ps = small.params.requires_grad_()
+        es = sfn(ps)
+        es.backward()
+        qs = small.params.requires_grad_()
+        rs = small.expectation(params=qs)[0]
+        rs.backward()
+        d_small = max(abs(es.item() - rs.item()), (ps.grad - qs.grad).abs().max().item())
+        t_small, _ = time_ms(lambda: sfn(ps).backward(), reps=3, warmup=1)
+    finally:
+        dqt.set_dtype('complex64')
+    print(f'adjoint einsum-route Function n=14, complex128: max|d| to autograd {d_small:.2e}, '
+          f'value and gradient {t_small:.1f} ms')
+    if not d_small <= 1e-10:
+        raise AssertionError('the einsum-route adjoint differs from autograd')
+    np.random.seed(SEED)
+    lfn, lp = models.make_layered_vqe(ADJ_N, LAYERS)
+    mirror = bench_circuit(ADJ_N)
+    lp = lp.requires_grad_()
+    le = lfn(lp)
+    le.backward()
+    mq = lp.detach().reshape(-1).clone().requires_grad_()
+    me = mirror.expectation(params=mq)[0]
+    me.backward()
+    d_l = abs(le.item() - me.item())
+    d_lg = (lp.grad.reshape(-1) - mq.grad).abs().max().item()
+    print(f'make_layered_vqe({ADJ_N}, {LAYERS}): |d value| {d_l:.2e}, max|d grad| {d_lg:.2e} '
+          f'against the bench circuit; adjoint step median over {reps}: {t:.3f} ms [{card}]')
+    if not (d_l <= 1e-5 and d_lg <= 1e-4):
+        raise AssertionError('make_layered_vqe differs from the circuit it mirrors')
+    return counts, dict(step_ms=t, einsum_n14_ms=t_small, err_einsum=d_small)
+
+
+def conditional_circuit(device=None):
+    """n=20: h on wires 0-9, x(10 + i) conditioned on wire i, then the bench
+    layers (rx, rz, rx, CNOT ring) on wires 10-19."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(COND_N, device=device)
+    half = COND_N // 2
+    for i in range(half):
+        cir.h(i)
+    for i in range(half):
+        cir.x(half + i, controls=i, condition=True)
+    for _ in range(LAYERS):
+        for w in range(half, COND_N):
+            cir.rx(w)
+            cir.rz(w)
+            cir.rx(w)
+        cir.cnot_ring(minmax=[half, COND_N - 1])
+    cir.init_para(SEED)
+    return cir
+
+
+def check_conditional(card: str):
+    """The conditional circuit at n=20 on the einsum route: the state
+    against complex128 (<= 1e-5); defer_measure(with_prob=True) from a
+    seeded card generator gives a state of norm 1 (<= 1e-5) whose
+    probability is get_prob(bits, wires_condition)'s (<= 1e-5 of it), and
+    post_select(bits) the same state (<= 1e-6); the time of each call."""
+    import torch
+    dqt = _pkg()[0]
+    label = f'conditional n={COND_N}'
+    cir = conditional_circuit()
+    half = COND_N // 2
+    if cir.device.type != 'cuda' or cir._planar_ok() or cir.wires_condition != list(range(half)):
+        raise AssertionError(f'{label}: device {cir.device}, planar {cir._planar_ok()}, '
+                             f'condition wires {cir.wires_condition}')
+    with torch.inference_mode():
+        reset_counts()
+        state, fwd_ms = _one_call_ms(cir.forward)
+        counts = read_counts()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        (sliced, bits, prob), defer_ms = _one_call_ms(
+            lambda: cir.defer_measure(with_prob=True, generator=gen))
+        pr, prob_ms = _one_call_ms(lambda: cir.get_prob(bits, wires=cir.wires_condition))
+        post, post_ms = _one_call_ms(lambda: cir.post_select(bits))
+        norm = torch.linalg.vector_norm(sliced).item()
+        d_post = (post - sliced).abs().max().item()
+    dqt.set_dtype('complex128')
+    try:
+        with torch.inference_mode():
+            d_ref = (state.to(torch.complex128)
+                     - conditional_circuit('cuda').forward()).abs().max().item()
+    finally:
+        dqt.set_dtype('complex64')
+    d_prob = abs(prob - pr.item()) / pr.item()
+    print(f'{label}: bits {bits}, p {prob:.6e} (get_prob {pr.item():.6e}, rel {d_prob:.1e}), '
+          f'|state| {norm:.8f}, post_select max|d| {d_post:.1e}, state to complex128 '
+          f'{d_ref:.2e}; launches {counts}; forward {fwd_ms:.2f} ms, defer_measure '
+          f'{defer_ms:.2f} ms, get_prob {prob_ms:.2f} ms, post_select {post_ms:.2f} ms [{card}]')
+    if tuple(sliced.shape) != (1 << (COND_N - half), 1) or not (
+            abs(norm - 1) <= 1e-5 and d_prob <= 1e-5 and d_post <= 1e-6 and d_ref <= 1e-5):
+        raise AssertionError(f'{label}: a bar missed')
+    return counts, dict(forward_ms=fwd_ms, defer_measure_ms=defer_ms, get_prob_ms=prob_ms,
+                        post_select_ms=post_ms)
+
+
+def mps_circuit(n: int, chi: int, layers: int, device=None, mps: bool = True):
+    """layers x (rx, rz, rx on every wire; cnot(i, i + 1) chain), Z on wire
+    0, parameters from init_para(SEED); an MPS with bond chi, or with
+    ``mps=False`` the same circuit on a state vector."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(n, device=device, mps=mps, chi=chi if mps else None)
+    for _ in range(layers):
+        for i in range(n):
+            cir.rx(i)
+            cir.rz(i)
+            cir.rx(i)
+        for i in range(n - 1):
+            cir.cnot(i, i + 1)
+    cir.observable(0)
+    cir.init_para(SEED)
+    return cir
+
+
+@contextlib.contextmanager
+def count_factorisations(counts: dict):
+    """Count the torch.linalg.svd and torch.linalg.qr calls made inside."""
+    import torch
+    saved = torch.linalg.svd, torch.linalg.qr
+
+    def wrap(fn, key):
+        def counted(*args, **kwargs):
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    torch.linalg.svd, torch.linalg.qr = wrap(saved[0], 'svd'), wrap(saved[1], 'qr')
+    try:
+        yield counts
+    finally:
+        torch.linalg.svd, torch.linalg.qr = saved
+
+
+def _cuda_only_device_ms(step) -> float:
+    """Device time of one call of ``step`` from a profiler window that
+    records the card's activity only: a window that also records every
+    host op cost ~2 ms an op over a whole Hessian call, and an MPS step
+    issues tens of thousands of small ones."""
+    import torch
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, 'self_device_time_total', None)
+            total += float(t if t is not None else getattr(ev, 'self_cuda_time_total', 0.0))
+    return total / 1e3
+
+
+def _mps_step(cir):
+    """Forward, <Z0> and its gradient on the MPS: (value, gradient)."""
+    p = cir.params.requires_grad_()
+    e = cir.expectation(params=p)[0]
+    e.backward()
+    return e.detach(), p.grad
+
+
+def _mps_last_layer():
+    """The MPS circuit's last layer (rx, rz, rx on every wire; the CNOT
+    chain; Z on wire 0) on the MPS the first MPS_LAYERS - 1 layers make: a
+    window of the step at full bond."""
+    import torch
+    dqt = _pkg()[0]
+    mps = _models()[2]
+    with torch.inference_mode():
+        tensors = mps_circuit(MPS_N, MPS_CHI, MPS_LAYERS - 1).forward()
+    init = mps.MatrixProductState(MPS_N, [t.clone() for t in tensors], chi=MPS_CHI)
+    cir = dqt.QubitCircuit(MPS_N, init_state=init, mps=True, chi=MPS_CHI)
+    for i in range(MPS_N):
+        cir.rx(i)
+        cir.rz(i)
+        cir.rx(i)
+    for i in range(MPS_N - 1):
+        cir.cnot(i, i + 1)
+    cir.observable(0)
+    cir.init_para(SEED)
+    return cir
+
+
+def check_mps(card: str):
+    """MPS at 100 qubits, chi=64, 8 layers (the bond would reach 256, so
+    truncation runs): <Z0> and its gradient at complex64 against the same
+    MPS at complex128 on the card (<= 1e-4; <= 1e-3 of max|g|), the norm
+    (<= 1e-4), 10^4 shots of wire 0 within 5 sigma of (1 - <Z0>) / 2; the
+    100-qubit GHZ state giving only its two strings (a chi-square); exact at
+    n=16, 5 layers, chi=256 against the kernel state-vector route (state up
+    to a global phase <= 1e-5, <Z0> <= 1e-5, gradient <= 1e-4). Forward and
+    gradient times, SVD / QR calls of a step, and the busy share of the last
+    layer's value and gradient at full bond (``_mps_last_layer``)."""
+    import torch
+    dqt = _pkg()[0]
+    mps = _models()[2]
+    label = f'MPS n={MPS_N}, chi={MPS_CHI}, {MPS_LAYERS} layers'
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    cir = mps_circuit(MPS_N, MPS_CHI, MPS_LAYERS)
+    if cir.device.type != 'cuda':
+        raise AssertionError(f'{label}: the circuit landed on {cir.device}')
+    with torch.inference_mode(), count_factorisations({}) as fwd_calls:
+        tensors, fwd_ms = _one_call_ms(cir.forward)
+    bond = max(t.shape[-1] for t in tensors)
+    norm = mps.inner_product_mps(tensors, tensors).real.item()
+    part('forward')
+    with count_factorisations({}) as step_calls:
+        (e, g), step_ms = _one_call_ms(lambda: _mps_step(cir))
+    part('step')
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    with torch.inference_mode():
+        shots, shots_ms = _one_call_ms(lambda: cir.measure(shots=MPS_SHOTS, wires=[0],
+                                                          generator=gen))
+    part('shots')
+    layer = _mps_last_layer()
+    _, layer_ms = _one_call_ms(lambda: _mps_step(layer))
+    dev_ms = _cuda_only_device_ms(lambda: _mps_step(layer))
+    busy = dev_ms / layer_ms
+    part('last layer, profiled')
+    p1 = (1 - e.item()) / 2
+    f1 = shots.get('1', 0) / MPS_SHOTS
+    z = abs(f1 - p1) / np.sqrt(max(p1 * (1 - p1), 1e-12) / MPS_SHOTS)
+    dqt.set_dtype('complex128')
+    try:
+        ref = mps_circuit(MPS_N, MPS_CHI, MPS_LAYERS, 'cuda')
+        (e_ref, g_ref), ref_ms = _one_call_ms(lambda: _mps_step(ref))
+    finally:
+        dqt.set_dtype('complex64')
+    part('complex128 step')
+    d_e = abs(e.item() - e_ref.item())
+    d_g = (g.double() - g_ref).abs().max().item() / g_ref.abs().max().item()
+    print(f'{label}: max bond {bond}, norm {norm:.8f}, <Z0> {e.item():.8f} (complex128 '
+          f'{e_ref.item():.8f}), |d| {d_e:.2e}, gradient max|d| / max|g| {d_g:.2e}; wire 0 in '
+          f'{MPS_SHOTS} shots: {f1:.4f} against {p1:.4f} ({z:.2f} sigma, {shots_ms:.1f} ms); '
+          f'forward {fwd_ms:.1f} ms ({fwd_calls}), value and gradient {step_ms:.1f} ms '
+          f'({step_calls}; complex128 {ref_ms:.1f} ms); the last layer\'s value and gradient '
+          f'{layer_ms:.1f} ms, device {dev_ms:.1f} ms, busy {busy:.1%} [{card}]')
+    if not (bond == MPS_CHI and abs(norm - 1) <= 1e-4 and d_e <= 1e-4 and d_g <= 1e-3
+            and z <= 5 and torch.isfinite(g).all()):
+        raise AssertionError(f'{label}: a bar missed')
+
+    ghz = dqt.QubitCircuit(MPS_N, mps=True, chi=16)
+    ghz.h(0)
+    for i in range(MPS_N - 1):
+        ghz.cnot(i, i + 1)
+    with torch.inference_mode():
+        ghz()
+        res = ghz.measure(shots=MPS_SHOTS, generator=gen)
+    stat = sum((c - MPS_SHOTS / 2) ** 2 / (MPS_SHOTS / 2) for c in res.values())
+    part('ghz')
+    print(f'MPS GHZ n={MPS_N}: {len(res)} strings, chi-square {stat:.2f} on 1 dof')
+    if set(res) != {'0' * MPS_N, '1' * MPS_N} or not stat <= 1 + 6 * np.sqrt(2):
+        raise AssertionError(f'MPS GHZ: outcomes {list(res)[:3]}, chi-square {stat}')
+
+    n = MPS_EXACT_N
+    exact = mps_circuit(n, MPS_EXACT_CHI, MPS_EXACT_LAYERS)
+    sv = mps_circuit(n, MPS_EXACT_CHI, MPS_EXACT_LAYERS, mps=False)
+    if not sv._planar_ok():
+        raise AssertionError('the state-vector reference must take the planar route')
+    with torch.inference_mode():
+        psi_mps = mps.full_tensor(exact.forward())
+        psi = sv.forward().reshape(-1)
+    k = int(psi.abs().argmax())
+    d_psi = (psi_mps * (psi[k] / psi_mps[k]) - psi).abs().max().item()
+    (e_m, g_m), (e_s, g_s) = _mps_step(exact), _mps_step(sv)
+    d_ez, d_gz = abs(e_m.item() - e_s.item()), (g_m - g_s).abs().max().item()
+    part(f'exact n={n}')
+    print(f'MPS n={n}, chi={MPS_EXACT_CHI}, {MPS_EXACT_LAYERS} layers against the kernel state '
+          f'vector: state {d_psi:.2e}, <Z0> {d_ez:.2e}, gradient {d_gz:.2e}; wall seconds of '
+          f'the MPS phase\'s parts {parts}')
+    if not (d_psi <= 1e-5 and d_ez <= 1e-5 and d_gz <= 1e-4):
+        raise AssertionError(f'MPS n={n}: differs from the state-vector route')
+    return dict(forward_ms=fwd_ms, step_ms=step_ms, complex128_step_ms=ref_ms,
+                step_factorisations=step_calls, forward_factorisations=fwd_calls,
+                last_layer_step_ms=layer_ms, last_layer_device_ms=dev_ms,
+                device_busy_share=busy, shots_ms=shots_ms, seconds=parts)
+
+
 PARTS = {   # label -> where the real step spends host time
     'sequence': 'QubitCircuit._planar_seq (gate matrices, window plan and products)',
     'sequence_batched': 'QubitCircuit._planar_seq_batched (every group\'s (B, K, K) matrices)',
@@ -3249,6 +3758,17 @@ def main() -> int:
         add(check_boson_sampling(smi, rng_p))
         add(check_gbs(smi, rng_p))
         add(check_photonic_gradients(smi, np.random.default_rng(SEED + 6)))
+    engine, engine_launches = {}, {}
+    for key, check in (('qft', check_qft), ('qcnn', check_qcnn), ('adjoint', check_adjoint),
+                       ('conditional', check_conditional)):
+        with phase(key):
+            counts, engine[key] = check(smi)
+            add(counts)
+            engine_launches[key] = {k: v for k, v in counts.items() if v}
+    with phase('mps'):
+        engine['mps'] = check_mps(smi)
+    print(f'qubit engine paths (launches per call): {json.dumps(engine_launches)}')
+    print(f'qubit engine paths: {json.dumps(engine)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

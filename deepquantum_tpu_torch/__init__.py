@@ -27,23 +27,104 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     ...
     out = qml.expectation(data=feats, params=p) # feats (B, ndata): out (B, n_obs)
 
+    qft = dqt.QuantumFourierTransform(24)       # the algorithm circuits (dqt.models)
+    back = qft.inverse().forward(state=qft.forward(state=ket))
+    cir.x(3, controls=0, condition=True)        # mid-circuit measurement, deferred
+    state, bits, prob = cir.defer_measure(with_prob=True, generator=gen)
+    mps = dqt.QubitCircuit(100, mps=True, chi=64)   # an MPS (mps.py, safe SVD / QR)
+    fn = dqt.make_adjoint_expectation(cir)      # params -> <O>, adjoint gradient
+
     bs = dqt.photonic.Clements(12, init_state=[1] * 6 + [0] * 6, cutoff=7)
     probs = bs(data=angles, is_prob=True)       # boson sampling: one permanent per outcome
     gbs = dqt.photonic.GaussianBosonSampling(10, squeezing, unitary, detector='threshold')
     probs = gbs(is_prob=True)                   # click patterns: a kernel call per click count
 """
 
-from . import photonic
-from .circuit import Observable, QubitCircuit
+from . import bitmath, photonic
+from .circuit import NotPortedError, Observable, QubitCircuit
 from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
                      set_kappa)
+from .gate import GateOp
 from .interop import from_jax, params_from_numpy, qumode_from_jax
-from .ops.qmath import amplitude_encoding, expectation_pauli
+from .ops import qmath
+from .ops.qmath import (amplitude_encoding, expectation_pauli, inner_product_mps, measure,
+                        meyer_wallach_measure, multi_kron, partial_trace, slice_state_vector)
 from .photonic import FockState, GaussianState, QumodeCircuit, permanent, torontonian
 from .state import QubitState
 
-__all__ = ['QubitCircuit', 'Observable', 'QubitState', 'set_dtype', 'set_device', 'cdtype',
-           'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
+__all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 'set_device',
+           'cdtype', 'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
            'QumodeCircuit', 'FockState', 'GaussianState', 'permanent', 'torontonian',
            'qumode_from_jax', 'set_hbar', 'set_kappa', 'amplitude_encoding',
-           'expectation_pauli']
+           'expectation_pauli', 'inner_product_mps', 'measure', 'meyer_wallach_measure',
+           'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath',
+           'NotPortedError']
+
+# the JAX package's lazy names: those ported load on first use; the others
+# raise NotPortedError (a NotImplementedError, and an AttributeError so that
+# hasattr stays False), naming what is missing
+_LAZY_SUBMODULES = ('mps', 'models', 'adjoint', 'channel')
+_ANSATZ_NAMES = (
+    'Ansatz', 'HHL', 'QuantumFourierTransform', 'QuantumPhaseEstimation',
+    'QuantumPhaseEstimationSingleQubit', 'QuantumConvolutionalNeuralNetwork',
+    'RandomCircuitG3', 'ShorCircuit', 'ShorCircuitFor15', 'NumberEncoder',
+    'PhiAdder', 'PhiModularAdder', 'ControlledMultiplier', 'ControlledUa',
+)
+_LAZY_ATTRS = {
+    'MatrixProductState': ('.mps', 'MatrixProductState'),
+    'make_adjoint_expectation': ('.adjoint', 'make_adjoint_expectation'),
+    'make_layered_vqe': ('.models.layered', 'make_layered_vqe'),
+    'Clements': ('.photonic.ansatz', 'Clements'),
+    'GaussianBosonSampling': ('.photonic.ansatz', 'GaussianBosonSampling'),
+    'UnitaryDecomposer': ('.photonic.decompose', 'UnitaryDecomposer'),
+    'hafnian': ('.photonic.hafnian_', 'hafnian'),
+}
+_NOT_PORTED = {
+    'mbqc': 'mbqc/', 'parallel': 'parallel/', 'api': 'api.py', 'cutting': 'cutting.py',
+    'qasm': 'qasm.py', 'optimizer': 'optimizer.py', 'draw': 'draw.py', 'utils': 'utils/',
+    'DistributedQubitCircuit': 'parallel/circuit.py',
+    'DistributedQubitState': 'parallel/sharded.py',
+    'setup_distributed': 'parallel/sharded.py', 'cleanup_distributed': 'parallel/sharded.py',
+    'QumodeCircuitTDM': 'photonic/tdm.py', 'BosonicState': 'photonic/state.py',
+    'CatState': 'photonic/state.py', 'GKPState': 'photonic/state.py',
+    'FockStateBosonic': 'photonic/state.py', 'DistributedFockState': 'photonic/distributed.py',
+    'DistributedQumodeCircuit': 'photonic/distributed.py', 'GraphGBS': 'photonic/ansatz.py',
+    'UnitaryMapper': 'photonic/mapper.py', 'DrawClements': 'photonic/draw.py',
+    'takagi': 'photonic/qmath.py', 'williamson': 'photonic/qmath.py',
+    'Pattern': 'mbqc/pattern.py', 'SubGraphState': 'mbqc/state.py',
+    'GraphState': 'mbqc/state.py', 'cir_to_qasm3': 'qasm.py', 'qasm3_to_cir': 'qasm.py',
+}
+# the class-style gate and layer API of api.py
+_API_NAMES = (
+    'U3Gate', 'PhaseShift', 'Identity', 'PauliX', 'PauliY', 'PauliZ', 'Hadamard',
+    'SGate', 'SDaggerGate', 'TGate', 'TDaggerGate', 'Rx', 'Ry', 'Rz', 'CNOT',
+    'Swap', 'ImaginarySwap', 'Rxx', 'Ryy', 'Rzz', 'Rxy',
+    'ReconfigurableBeamSplitter', 'Toffoli', 'Fredkin', 'ProjectionJ',
+    'UAnyGate', 'LatentGate', 'HamiltonianGate', 'CombinedSingleGate', 'Barrier',
+    'BitFlip', 'PhaseFlip', 'Depolarizing', 'Pauli', 'AmplitudeDamping',
+    'PhaseDamping', 'GeneralizedAmplitudeDamping',
+    'XLayer', 'YLayer', 'ZLayer', 'HLayer', 'RxLayer', 'RyLayer', 'RzLayer',
+    'U3Layer', 'CnotLayer', 'CnotRing', 'expectation',
+)
+
+
+def __getattr__(name):
+    import importlib
+    if name in _LAZY_SUBMODULES:
+        return importlib.import_module(f'.{name}', __name__)
+    if name in _ANSATZ_NAMES:
+        from .models import ansatz
+        return getattr(ansatz, name)
+    if name in _LAZY_ATTRS:
+        mod, attr = _LAZY_ATTRS[name]
+        return getattr(importlib.import_module(mod, __name__), attr)
+    if name in _NOT_PORTED or name in _API_NAMES:
+        where = _NOT_PORTED.get(name, 'api.py')
+        raise NotPortedError(f'{name} is not ported to deepquantum_tpu_torch yet '
+                             f'(deepquantum_tpu/{where}; ROADMAP.md)')
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_SUBMODULES) | set(_ANSATZ_NAMES)
+                  | set(_LAZY_ATTRS))

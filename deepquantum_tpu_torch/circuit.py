@@ -36,21 +36,39 @@ superoperator on (w, w + n) (``planar_superop``, one K1 launch, an
 input-residual backward); a batch of data gives a batch of rho, each with
 its own matrices. ``measure`` and ``expectation(shots=)`` sample a state,
 a batch or rho's diagonal from an explicit ``torch.Generator``.
+
+Mid-circuit measurement follows the deferred-measurement principle: a gate
+added with ``condition=True`` is a controlled gate whose controls are the
+measured wires (``wires_condition``); it keeps the circuit on the einsum
+route, as in the JAX package. ``defer_measure`` then draws the condition
+wires' outcome once and slices the state; ``post_select`` slices it on
+given bits. ``reset`` and ``move`` are non-unitary ops of the einsum route.
+Circuits compose (``add`` of a circuit, a gate descriptor or an
+observable; ``inverse``, ``+``), and ``get_unitary``, ``get_amplitude`` and
+``get_prob`` inspect them.
+
+MPS circuits (``mps=True, chi=...``): the state is a matrix product state
+(mps.py), each gate an MPO contracted in and truncated back to ``chi`` by
+QR / SVD sweeps (``svd_safe`` / ``qr_stable``, differentiable); forward
+returns the list of site tensors, and expectation, measure and
+get_amplitude read it without the dense state.
 """
 
 from __future__ import annotations
 
+import copy as _copy
 from typing import Any
 
 import numpy as np
 import torch
 
 from .config import cdtype, rdtype, resolve_device
-from .gate import GATE_REGISTRY, GateOp
+from .gate import GATE_REGISTRY, GateOp, hamiltonian_fn, latent_fn, projection_j_fn
 from .ops import gates as G
 from .ops.apply import (controlled_matrix, evolve_den_mat, evolve_den_mat_controlled, evolve_state,
                         evolve_state_controlled, permute_matrix_wires)
-from .ops.qmath import expectation_pauli, measure as qmeasure, sample2expval
+from .ops.qmath import (amplitude_encoding, expectation_pauli, measure as qmeasure, sample2expval,
+                        slice_state_vector)
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable']
@@ -98,6 +116,36 @@ def _flat_wires(wires):
     return list(wires)
 
 
+def _apply_reset(x: torch.Tensor, wires, postselect: int, n: int) -> torch.Tensor:
+    """Project each wire of a state tensor (..., 2, ..., 2) (its last n axes
+    the qubits) on |postselect>, renormalise, and set it to |0>. Where the
+    post-selected branch has zero probability the other branch is kept
+    instead: the mask keeps the division away from zero, as the JAX
+    package's does."""
+    lead = x.dim() - n
+    if len(wires) == n:
+        flat = torch.zeros(1 << n, dtype=x.dtype, device=x.device)
+        flat[0] = 1
+        return flat.reshape([2] * n).expand(x.shape).clone()
+    for wire in wires:
+        xt = x.movedim(lead + wire, 0)
+        sel, alt = xt[postselect], xt[1 - postselect]
+        axes = tuple(range(lead, sel.dim()))
+        prob = (sel.abs() ** 2).sum(dim=axes, keepdim=True)
+        mask = 1 - torch.sign(prob)
+        state0 = ((1 - mask) * sel + mask * alt) / torch.sqrt(prob + mask)
+        x = torch.stack([state0, torch.zeros_like(state0)]).movedim(0, lead + wire)
+    return x
+
+
+class NotPortedError(NotImplementedError, AttributeError):
+    """A public name of the JAX package that the port does not have yet."""
+
+
+def _not_ported(name: str, where: str):
+    raise NotPortedError(f'{name} is not ported to deepquantum_tpu_torch yet ({where})')
+
+
 _PAULI_NP = {'x': np.array([[0, 1], [1, 0]], np.complex64),
              'y': np.array([[0, -1j], [1j, 0]], np.complex64),
              'z': np.array([[1, 0], [0, -1]], np.complex64)}
@@ -131,6 +179,8 @@ class QubitCircuit:
         reupload: data re-uploading for encoders (data shorter than ndata
             wraps around).
         shots: default measurement shots.
+        mps: matrix-product-state simulation (mps.py).
+        chi: the MPS bond dimension (default 10 * nqubit).
     """
 
     #: max combined wire support of one fused gate group (the JAX package's
@@ -143,14 +193,18 @@ class QubitCircuit:
 
     def __init__(self, nqubit: int, init_state: Any = 'zeros', name: str | None = None,
                  den_mat: bool = False, device=None, reupload: bool = False,
-                 shots: int = 1024) -> None:
+                 shots: int = 1024, mps: bool = False, chi: int | None = None) -> None:
         self.nqubit = nqubit
         self.name = name
         self.den_mat = den_mat
         self.device = resolve_device(device)
         self.reupload = reupload
         self.shots = shots
+        self.mps = mps
+        self.chi = chi
+        self.depth = np.zeros(nqubit, dtype=np.int64)
         self.wires_measure: list[int] = []
+        self.wires_condition: list[int] = []
         self.operators: list[GateOp] = []
         self.observables: list[Observable] = []
         self.encoders: list[GateOp] = []
@@ -166,7 +220,17 @@ class QubitCircuit:
 
     # ------------------------------------------------------------------ state
     def set_init_state(self, init_state: Any) -> None:
-        if isinstance(init_state, QubitState):
+        if self.mps:
+            from .mps import MatrixProductState
+            if isinstance(init_state, MatrixProductState):
+                if init_state.nsite != self.nqubit:
+                    raise ValueError('init_state has another number of sites')
+                self.init_state = init_state
+            else:
+                self.init_state = MatrixProductState(self.nqubit, init_state, chi=self.chi,
+                                                     device=self.device)
+            self.chi = self.init_state.chi
+        elif isinstance(init_state, QubitState):
             if init_state.nqubit != self.nqubit:
                 raise ValueError('init_state has another number of qubits')
             self.den_mat = init_state.den_mat
@@ -174,6 +238,52 @@ class QubitCircuit:
         else:
             self.init_state = QubitState(self.nqubit, init_state, den_mat=self.den_mat,
                                          device=self.device)
+
+    def reset_circuit(self, init_state: Any = 'zeros') -> None:
+        """Clear the operators, parameters and observables and set the
+        initial state anew."""
+        self.set_init_state(init_state)
+        self.operators = []
+        self.observables = []
+        self.encoders = []
+        self._pvals = []
+        self._enc_pidx = []
+        self._train_mask = []
+        self.state = None
+        self.npara = 0
+        self.ndata = 0
+        self.depth = np.zeros(self.nqubit, dtype=np.int64)
+        self.wires_measure = []
+        self.wires_condition = []
+        self._touch()
+
+    def set_nqubit(self, nqubit: int) -> None:
+        """Resize the circuit; only before operators are added."""
+        if self.operators:
+            raise ValueError('set_nqubit before adding operators')
+        self.nqubit = nqubit
+        self.depth = np.zeros(nqubit, dtype=np.int64)
+        self.set_init_state('zeros')
+        self._touch()
+
+    def set_wires(self, wires) -> None:
+        """Record the ``wires`` attribute (a circuit acts on all its qubits)."""
+        self.wires = _flat_wires(wires)
+
+    # ------------------------------------------------------ state reshapers
+    def tensor_rep(self, x) -> torch.Tensor:
+        """A state as a (batch, 2, ..., 2) tensor (2n axes of 2 for a density
+        matrix)."""
+        return torch.as_tensor(x).reshape([-1] + [2] * (2 * self.nqubit if self.den_mat
+                                                        else self.nqubit))
+
+    def vector_rep(self, x) -> torch.Tensor:
+        """A state as a (batch, 2^n, 1) column."""
+        return torch.as_tensor(x).reshape(-1, 2 ** self.nqubit, 1)
+
+    def matrix_rep(self, x) -> torch.Tensor:
+        """A state as a (batch, 2^n, 2^n) density matrix."""
+        return torch.as_tensor(x).reshape(-1, 2 ** self.nqubit, 2 ** self.nqubit)
 
     # ------------------------------------------------------------- parameters
     @property
@@ -268,10 +378,15 @@ class QubitCircuit:
         self._train_mask.extend([requires_grad and not encode] * len(values))
         return idx
 
-    def add_gate(self, name: str, wires, controls=None, inputs=None,
-                 encode: bool = False) -> GateOp:
-        """Append a GATE_REGISTRY gate to the IR, registering its parameters
-        (trainable unless given as ``inputs`` or fed by data: ``encode``)."""
+    def add_gate(self, name: str, wires, controls=None, inputs=None, encode: bool = False,
+                 condition: bool = False, requires_grad: bool | None = None, matrix_fn=None,
+                 static_matrix=None, npara: int | None = None,
+                 extra: dict | None = None) -> GateOp:
+        """Append a gate to the IR, registering its parameters (trainable
+        unless given as ``inputs`` or fed by data: ``encode``). A registry
+        gate is named; any other gives its ``matrix_fn`` ((params, device)
+        -> matrix) and ``npara``, or a ``static_matrix``. ``condition``
+        makes it a gate conditioned on its controls' measured values."""
         wires = tuple(_flat_wires(wires))
         controls = tuple(_flat_wires(controls)) if controls is not None else ()
         if len(set(wires)) != len(wires) or len(set(controls)) != len(controls) \
@@ -280,13 +395,18 @@ class QubitCircuit:
         for w in wires + controls:
             if not 0 <= w < self.nqubit:
                 raise ValueError(f'wire {w} out of range for {self.nqubit} qubits')
-        reg = GATE_REGISTRY.get(name)
-        if reg is None:
-            raise ValueError(f'Unknown gate: {name}')
-        npara = reg['npara']
-        if len(wires) != reg['nwires']:
-            raise ValueError(f'{name} acts on {reg["nwires"]} wire(s), got {wires}')
-        requires_grad = inputs is None and npara > 0 and not encode
+        if condition and not controls:
+            raise ValueError(f'{name}: a conditional gate needs the measured wires as controls')
+        if matrix_fn is None and static_matrix is None:
+            reg = GATE_REGISTRY.get(name)
+            if reg is None:
+                raise ValueError(f'Unknown gate: {name}')
+            matrix_fn, npara = reg['fn'], reg['npara']
+            if len(wires) != reg['nwires']:
+                raise ValueError(f'{name} acts on {reg["nwires"]} wire(s), got {wires}')
+        npara = npara or 0
+        if requires_grad is None:
+            requires_grad = inputs is None and npara > 0 and not encode
         if npara > 0:
             if inputs is None:
                 values = [float(np.random.rand() * 2 * np.pi) for _ in range(npara)]
@@ -297,9 +417,13 @@ class QubitCircuit:
             pidx = self._new_params(values, encode, requires_grad)
         else:
             pidx = ()
-        op = GateOp(name=name, wires=wires, controls=controls, matrix_fn=reg['fn'], pidx=pidx,
-                    npara=npara, requires_grad=requires_grad)
+        op = GateOp(name=name, wires=wires, controls=controls, matrix_fn=matrix_fn,
+                    static_matrix=static_matrix, pidx=pidx, npara=npara, condition=condition,
+                    requires_grad=requires_grad, extra=extra or {})
         self.operators.append(op)
+        self.depth[list(wires + controls)] += 1
+        if condition:
+            self.wires_condition = sorted(set(self.wires_condition) | set(controls))
         if encode:
             self.encoders.append(op)
             self._enc_pidx.extend(pidx)
@@ -308,6 +432,66 @@ class QubitCircuit:
             self.npara += npara
         self._touch()
         return op
+
+    def add(self, op, encode: bool = False, wires=None, controls=None) -> None:
+        """Append a QubitCircuit (its ops, parameters copied; its
+        observables replace this circuit's), an Observable, or a GateOp
+        descriptor. A descriptor's parameters are registered on this
+        circuit the first time it is added (from ``extra['inputs']``, or
+        random) and shared when the same descriptor is added again;
+        ``wires`` / ``controls`` place the copy."""
+        if isinstance(op, QubitCircuit):
+            if op.nqubit != self.nqubit:
+                raise ValueError('the circuits have different numbers of qubits')
+            offset = len(self._pvals)
+            self._pvals.extend(op._pvals)
+            self._train_mask.extend(op._train_mask)
+            enc = {id(g) for g in op.encoders}
+            for g in op.operators:
+                g2 = _copy.copy(g)
+                g2.pidx = tuple(i + offset for i in g.pidx)
+                self.operators.append(g2)
+                if id(g) in enc:
+                    self.encoders.append(g2)
+                    self._enc_pidx.extend(g2.pidx)
+            self.observables = list(op.observables)
+            self.npara += op.npara
+            self.ndata += op.ndata
+            self.depth += op.depth
+            self.wires_measure = op.wires_measure
+            self.wires_condition = sorted(set(self.wires_condition) | set(op.wires_condition))
+            self._touch()
+            return
+        if isinstance(op, Observable):
+            self.observables.append(op)
+            return
+        if not isinstance(op, GateOp):
+            raise TypeError(f'cannot add {type(op).__name__} to a QubitCircuit')
+        if op.kind == 'channel' and not self.den_mat:
+            raise ValueError('Channels act on density matrices; build the circuit with '
+                             'den_mat=True')
+        shared = op.npara > 0 and op.extra.get('_owner') is self and bool(op.pidx)
+        if op.npara > 0 and not shared:
+            # the slice goes on the descriptor itself, so adding it again shares it
+            values = op.extra.get('inputs')
+            if values is None:
+                values = [float(np.random.rand() * 2 * np.pi) for _ in range(op.npara)]
+            op.pidx = self._new_params(_float64(values), encode, op.requires_grad)
+            op.extra['_owner'] = self
+        g = _copy.copy(op)
+        if wires is not None:
+            g.wires = tuple(_flat_wires(wires))
+            g.controls = tuple(_flat_wires(controls)) if controls is not None else ()
+        self.operators.append(g)
+        self.depth[list(g.wires + g.controls)] += 1
+        if not shared:
+            if encode:
+                self.encoders.append(g)
+                self._enc_pidx.extend(g.pidx)
+                self.ndata += g.npara
+            else:
+                self.npara += g.npara
+        self._touch()
 
     def _touch(self) -> None:
         self._version += 1
@@ -427,7 +611,7 @@ class QubitCircuit:
         ok = self._cache.get(key)
         if ok is None:
             eff_n = 2 * self.nqubit if self.den_mat else self.nqubit
-            ok = eff_n >= 10 and cdtype() == torch.complex64
+            ok = not self.mps and eff_n >= 10 and cdtype() == torch.complex64
             if ok:
                 for entry in self._fused_plan():
                     if entry[0] == 'group':
@@ -550,9 +734,20 @@ class QubitCircuit:
         return from_planar(flush(p))
 
     def _apply_op(self, op: GateOp, full_params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """One op on the einsum route: a gate on a state or a density matrix,
-        a channel's Kraus sum on a density matrix."""
+        """One op on the einsum route: a gate on a state or a density matrix
+        (a conditional gate is its controlled form), a channel's Kraus sum
+        on a density matrix, a reset or a move on a state."""
         n = self.nqubit
+        if op.kind in ('barrier', 'cut'):
+            return x
+        if op.kind in ('reset', 'move'):
+            if self.den_mat:
+                raise ValueError(f'{op.name} acts on state vectors')
+            ps = op.extra.get('postselect', 0)
+            if op.kind == 'reset':
+                return _apply_reset(x, op.wires, ps, n)
+            x = _apply_reset(x, (op.wires[1],), ps, n)
+            return evolve_state(x, G.swap_matrix(x.device), n, list(op.wires))
         if op.kind == 'channel':
             kraus = op.matrix(full_params).to(cdtype())
             return sum(evolve_den_mat(x, kraus[..., z, :, :], n, list(op.wires))
@@ -593,6 +788,8 @@ class QubitCircuit:
         init_state.
         params: optional trainable-parameter vector.
         """
+        if self.mps:
+            return self._forward_mps(data, state, params)
         if state is None:
             state = self.init_state
         if isinstance(state, QubitState):
@@ -626,9 +823,110 @@ class QubitCircuit:
         self.state = out.reshape(bsz, *shape)
         return self.state
 
+    def _run_mps(self, full_params: torch.Tensor, tensors: list) -> list:
+        """The gates, one after another, on an MPS (tensors, no center).
+        Under autograd the sweeps' rank tests are read once at the end; if
+        a factor was rank-deficient, the gates run again with each test
+        read where it is made (``ops.linalg.deferred_rank_checks``)."""
+        from .ops.linalg import deferred_rank_checks
+        with deferred_rank_checks() as flags:
+            state = self._run_mps_gates(full_params, tensors)
+        if flags and bool(torch.stack(flags).any()):
+            state = self._run_mps_gates(full_params, tensors)
+        return state
+
+    def _run_mps_gates(self, full_params: torch.Tensor, tensors: list) -> list:
+        from .mps import apply_gate_mps, gate_to_mpo
+        normalize = getattr(self.init_state, 'normalize', True)
+        state = (list(tensors), -1)
+        for op in self.operators:
+            if op.kind == 'barrier':
+                continue
+            if op.kind != 'gate':
+                raise ValueError(f'MPS circuits take unitary gates only, not {op.name}')
+            all_wires = list(op.controls) + list(op.wires)
+            wires = sorted(all_wires)
+            order = sorted(range(len(all_wires)), key=lambda i: all_wires[i])
+            mat = self._mps_matrix(op, full_params, order)
+            mpo = None
+            if len(wires) > 1:
+                mpo = gate_to_mpo(mat, wires, bases=self._mpo_bases(op, full_params, order))
+            state = apply_gate_mps(state, mat, wires, self.chi, normalize, mpo=mpo)
+        return state[0]
+
+    @staticmethod
+    def _mps_matrix(op: GateOp, full_params: torch.Tensor, order: list) -> torch.Tensor:
+        """The op's matrix with its controls, its qudits in sorted wire order."""
+        mat = controlled_matrix(op.matrix(full_params).to(cdtype()), len(op.controls))
+        return permute_matrix_wires(mat, order)
+
+    def _mpo_bases(self, op: GateOp, full_params: torch.Tensor, order: list) -> list:
+        """The MPO split bases of the op's gate family (``mps.mpo_bases``),
+        made once per circuit version for every op of the same family: from
+        its one matrix if it is fixed, else from its matrix at generic
+        parameter values (as many as the largest bond can be), so that a
+        bond does not shrink where the gate is a product at some angle."""
+        from .mps import mpo_bases
+        key = ('mpo_bases', id(op.matrix_fn), id(op.static_matrix), op.inv, len(op.controls),
+               tuple(order), self._version, cdtype(), full_params.device)
+        bases = self._cache.get(key)
+        if bases is None:
+            k = len(order)
+            with torch.no_grad(), torch.inference_mode(False):
+                if op.npara == 0:
+                    probes = [self._mps_matrix(op, full_params, order)]
+                else:
+                    gen = torch.Generator(device='cpu').manual_seed(0)
+                    nprobe = 4 ** (k // 2)
+                    draws = torch.rand(nprobe, full_params.shape[-1], generator=gen,
+                                       dtype=torch.float64) * 2 * np.pi
+                    draws = draws.to(device=full_params.device, dtype=full_params.dtype)
+                    probes = [self._mps_matrix(op, p, order) for p in draws]
+                bases = self._cache[key] = mpo_bases(probes, k)
+        return bases
+
+    def _forward_mps(self, data=None, state=None, params=None) -> list:
+        """MPS forward: the final site tensors; with data (B, ndata) one run
+        a sample, each site's tensors stacked (B, chi_l, d, chi_r)."""
+        from .mps import MatrixProductState
+        if state is None:
+            state = self.init_state
+        tensors = state.tensors if isinstance(state, MatrixProductState) else list(state)
+        tensors = [torch.as_tensor(t).to(device=self.device, dtype=cdtype()) for t in tensors]
+        if self.ndata == 0:
+            data = None
+        if data is not None:
+            data = torch.as_tensor(data, device=self.device).to(rdtype())
+        if data is None or data.dim() == 1:
+            didx = None if data is None else self._data_indices(data.shape[-1])
+            self.state = self._run_mps(self._full_params(params, data, didx), tensors)
+            return self.state
+        fulls = self._full_params(params, data, self._data_indices(data.shape[-1]))
+        runs = [self._run_mps(full, tensors) for full in fulls]
+        self.state = [torch.stack(ts) for ts in zip(*runs)]
+        return self.state
+
+    def _expectation_mps(self, tensors: list) -> torch.Tensor:
+        """<O> of each observable on an MPS, from the site tensors alone."""
+        from .ops.qmath import inner_product_mps
+        if tensors[0].dim() == 4:
+            return torch.stack([self._expectation_mps([t[b] for t in tensors])
+                                for b in range(tensors[0].shape[0])])
+        out = []
+        for obs in self.observables:
+            t2 = list(tensors)
+            for wire, b in zip(obs.wires, obs.basis):
+                mat = _PAULI_FNS[b](tensors[0].device).to(tensors[0].dtype)
+                t2[wire[0]] = torch.einsum('ab,ibj->iaj', mat, t2[wire[0]])
+            out.append(inner_product_mps(tensors, t2).real)
+        return torch.stack(out, dim=-1)
+
     # ------------------------------------------------------------ observables
     def observable(self, wires=None, basis: str = 'z') -> None:
         self.observables.append(Observable(nqubit=self.nqubit, wires=wires, basis=basis))
+
+    def reset_observable(self) -> None:
+        self.observables = []
 
     def _obs_seq(self, obs: Observable, bsz: int | None = None):
         """Scheduled planar sequence of one observable's Pauli blocks (a
@@ -678,6 +976,8 @@ class QubitCircuit:
             s = self.state
         if shots is not None:
             return self._expectation_shots(s, shots, generator)
+        if self.mps:
+            return self._expectation_mps(s)
         n = self.nqubit
         bsz = s.shape[0] if s.dim() == 3 else None
         vals = []
@@ -768,48 +1068,213 @@ class QubitCircuit:
         self.wires_measure = _flat_wires(list(range(self.nqubit)) if wires is None else wires)
         if self.state is None:
             return None
+        if self.mps:
+            from .mps import measure_mps
+            return measure_mps(self.state, shots=shots, wires=self.wires_measure,
+                               with_prob=with_prob, generator=generator)
         return qmeasure(self.state, shots=shots, with_prob=with_prob, wires=self.wires_measure,
                         den_mat=self.den_mat, generator=generator)
 
+    def expval_fn(self):
+        """A function (params, data=None) -> the expectation values."""
+        def fn(params, data=None):
+            return self.expectation(data=data, params=params)
+        return fn
+
+    def _sliced(self, state: torch.Tensor, bits: str) -> torch.Tensor:
+        out = slice_state_vector(state.reshape(1, -1), self.nqubit, self.wires_condition, bits)
+        return out[0][:, None]
+
+    def defer_measure(self, with_prob: bool = False,
+                      generator: torch.Generator | None = None):
+        """Measure the condition wires once (drawn from ``generator``) and
+        slice the stored state on the outcome: the state of the other wires
+        (2^(n - k), 1), and with ``with_prob`` also the bits and their
+        probability; for a batch, a (B, 2^(n - k), 1) stack and lists."""
+        if self.den_mat or self.mps:
+            raise ValueError('defer_measure acts on state vectors')
+        rst = self.measure(shots=1, with_prob=with_prob, wires=self.wires_condition,
+                           generator=generator)
+        if isinstance(rst, dict):
+            bit = next(iter(rst))
+            state = self._sliced(self.state, bit)
+            return (state, bit, rst[bit][1]) if with_prob else state
+        states, bits, probs = [], [], []
+        for i, d in enumerate(rst):
+            bit = next(iter(d))
+            states.append(self._sliced(self.state[i], bit))
+            bits.append(bit)
+            if with_prob:
+                probs.append(d[bit][1])
+        out = torch.stack(states)
+        return (out, bits, probs) if with_prob else out
+
+    def post_select(self, bits: str) -> torch.Tensor:
+        """The stored state sliced on the condition wires' values ``bits``,
+        renormalised: (2^(n - k), 1), or (B, 2^(n - k), 1) for a batch."""
+        if self.den_mat or self.mps:
+            raise ValueError('post_select acts on state vectors')
+        state = self.state
+        single = state.dim() == 2
+        out = slice_state_vector(state.reshape(1 if single else state.shape[0], -1),
+                                 self.nqubit, self.wires_condition, bits)
+        return out[0][:, None] if single else out[..., None]
+
+    # ------------------------------------------------------------- inspection
+    def get_unitary(self, params=None) -> torch.Tensor:
+        """The circuit's 2^n x 2^n unitary: the identity's columns run as one
+        batch through the einsum route, op by op (gates only)."""
+        n = self.nqubit
+        full = self._full_params(params)
+        dim = 1 << n
+        x = torch.eye(dim, dtype=cdtype(), device=self.device).reshape([dim] + [2] * n)
+        for op in self.operators:
+            if op.kind in ('barrier', 'cut'):
+                continue
+            if op.kind != 'gate':
+                raise ValueError(f'{op.name} has no unitary')
+            x = evolve_state_controlled(x, op.matrix(full), n, list(op.wires), list(op.controls))
+        return x.reshape(dim, dim).T
+
+    def get_amplitude(self, bits: str) -> torch.Tensor:
+        """<bits|state> of the stored state (one value a sample for a
+        batch); from the site tensors for an MPS."""
+        if self.den_mat:
+            raise ValueError('get_amplitude acts on state vectors')
+        if len(bits) != self.nqubit:
+            raise ValueError(f'{len(bits)} bits for {self.nqubit} qubits')
+        if self.mps:
+            from .mps import bitstring_amplitude
+            return bitstring_amplitude(self.state, bits)
+        return self.state.reshape(-1, 1 << self.nqubit)[:, int(bits, 2)].squeeze()
+
+    def get_prob(self, bits: str, wires=None) -> torch.Tensor:
+        """The probability of ``bits`` on ``wires`` (default all) in the
+        stored state, the other wires summed out."""
+        if wires is not None:
+            wires = _flat_wires(wires)
+            if len(wires) != self.nqubit:
+                state = self.state.reshape(-1, 1 << self.nqubit)
+                sliced = slice_state_vector(state, self.nqubit, wires, bits, normalize=False)
+                return (sliced.abs() ** 2).sum(-1).squeeze()
+        return self.get_amplitude(bits).abs() ** 2
+
+    def amplitude_encoding(self, data) -> torch.Tensor:
+        return amplitude_encoding(torch.as_tensor(data, device=self.device), self.nqubit)
+
+    @property
+    def max_depth(self) -> int:
+        return int(max(self.depth))
+
+    def inverse(self, encode: bool = False) -> 'QubitCircuit':
+        """The inverse circuit: the ops in reverse order, each gate's adjoint
+        (its ``inv`` flag), the parameter values copied. Without ``encode``
+        the encoders' values become fixed parameters."""
+        cir = QubitCircuit(self.nqubit, name=(self.name or '') + '_inverse', den_mat=self.den_mat,
+                           device=self.device, reupload=self.reupload, mps=self.mps, chi=self.chi)
+        cir._pvals = list(self._pvals)
+        cir._train_mask = list(self._train_mask)
+        enc = {id(op) for op in self.encoders}
+        for op in reversed(self.operators):
+            g = _copy.copy(op)
+            if g.kind == 'gate':
+                g.inv = not g.inv
+            cir.operators.append(g)
+            if encode and id(op) in enc:
+                cir.encoders.append(g)
+                cir._enc_pidx.extend(g.pidx)
+        cir.wires_condition = list(self.wires_condition)
+        if encode:
+            cir.npara, cir.ndata = self.npara, self.ndata
+        else:
+            cir.npara, cir.ndata = self.npara + self.ndata, 0
+        cir._touch()
+        return cir
+
+    def __add__(self, rhs: 'QubitCircuit') -> 'QubitCircuit':
+        if self.nqubit != rhs.nqubit:
+            raise ValueError('the circuits have different numbers of qubits')
+        cir = QubitCircuit(self.nqubit, init_state=self.init_state, name=self.name,
+                           den_mat=self.den_mat, device=self.device, reupload=self.reupload,
+                           mps=self.mps, chi=self.chi)
+        cir.add(self)
+        cir.add(rhs)
+        cir.observables = list(rhs.observables)
+        return cir
+
     # ------------------------------------------------------------- gate sugar
-    def u3(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('U3Gate', wires, controls, inputs, encode)
+    def u3(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('U3Gate', wires, controls, inputs, encode, condition)
 
-    def p(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('PhaseShift', wires, controls, inputs, encode)
+    def cu(self, control, target, inputs=None, encode=False):
+        self.add_gate('U3Gate', target, control, inputs, encode)
 
-    def x(self, wires, controls=None):
-        self.add_gate('PauliX', wires, controls)
+    def p(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('PhaseShift', wires, controls, inputs, encode, condition)
 
-    def y(self, wires, controls=None):
-        self.add_gate('PauliY', wires, controls)
+    def cp(self, control, target, inputs=None, encode=False):
+        self.add_gate('PhaseShift', target, control, inputs, encode)
 
-    def z(self, wires, controls=None):
-        self.add_gate('PauliZ', wires, controls)
+    def x(self, wires, controls=None, condition=False):
+        self.add_gate('PauliX', wires, controls, condition=condition)
 
-    def h(self, wires, controls=None):
-        self.add_gate('Hadamard', wires, controls)
+    def y(self, wires, controls=None, condition=False):
+        self.add_gate('PauliY', wires, controls, condition=condition)
 
-    def s(self, wires, controls=None):
-        self.add_gate('SGate', wires, controls)
+    def z(self, wires, controls=None, condition=False):
+        self.add_gate('PauliZ', wires, controls, condition=condition)
 
-    def sdg(self, wires, controls=None):
-        self.add_gate('SDaggerGate', wires, controls)
+    def h(self, wires, controls=None, condition=False):
+        self.add_gate('Hadamard', wires, controls, condition=condition)
 
-    def t(self, wires, controls=None):
-        self.add_gate('TGate', wires, controls)
+    def s(self, wires, controls=None, condition=False):
+        self.add_gate('SGate', wires, controls, condition=condition)
 
-    def tdg(self, wires, controls=None):
-        self.add_gate('TDaggerGate', wires, controls)
+    def sdg(self, wires, controls=None, condition=False):
+        self.add_gate('SDaggerGate', wires, controls, condition=condition)
 
-    def rx(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Rx', wires, controls, inputs, encode)
+    def t(self, wires, controls=None, condition=False):
+        self.add_gate('TGate', wires, controls, condition=condition)
 
-    def ry(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Ry', wires, controls, inputs, encode)
+    def tdg(self, wires, controls=None, condition=False):
+        self.add_gate('TDaggerGate', wires, controls, condition=condition)
 
-    def rz(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Rz', wires, controls, inputs, encode)
+    def ch(self, control, target):
+        self.add_gate('Hadamard', target, control)
+
+    def cs(self, control, target):
+        self.add_gate('SGate', target, control)
+
+    def csdg(self, control, target):
+        self.add_gate('SDaggerGate', target, control)
+
+    def ct(self, control, target):
+        self.add_gate('TGate', target, control)
+
+    def ctdg(self, control, target):
+        self.add_gate('TDaggerGate', target, control)
+
+    def rx(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Rx', wires, controls, inputs, encode, condition)
+
+    def ry(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Ry', wires, controls, inputs, encode, condition)
+
+    def rz(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Rz', wires, controls, inputs, encode, condition)
+
+    def crx(self, control, target, inputs=None, encode=False):
+        self.add_gate('Rx', target, control, inputs, encode)
+
+    def cry(self, control, target, inputs=None, encode=False):
+        self.add_gate('Ry', target, control, inputs, encode)
+
+    def crz(self, control, target, inputs=None, encode=False):
+        self.add_gate('Rz', target, control, inputs, encode)
+
+    def j(self, wires, inputs=None, plane='xy', controls=None, condition=False, encode=False):
+        self.add_gate('ProjectionJ', wires, controls, inputs, encode, condition,
+                      matrix_fn=projection_j_fn(plane), npara=1, extra={'plane': plane})
 
     def cnot(self, control, target):
         self.add_gate('CNOT', [control, target])
@@ -817,44 +1282,108 @@ class QubitCircuit:
     def cx(self, control, target):
         self.add_gate('PauliX', target, control)
 
+    def cy(self, control, target):
+        self.add_gate('PauliY', target, control)
+
     def cz(self, control, target):
         self.add_gate('PauliZ', target, control)
 
-    def swap(self, wires, controls=None):
-        self.add_gate('Swap', wires, controls)
+    def swap(self, wires, controls=None, condition=False):
+        self.add_gate('Swap', wires, controls, condition=condition)
 
-    def iswap(self, wires, controls=None):
-        self.add_gate('ImaginarySwap', wires, controls)
+    def iswap(self, wires, controls=None, condition=False):
+        self.add_gate('ImaginarySwap', wires, controls, condition=condition)
 
-    def rxx(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Rxx', wires, controls, inputs, encode)
+    def rxx(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Rxx', wires, controls, inputs, encode, condition)
 
-    def ryy(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Ryy', wires, controls, inputs, encode)
+    def ryy(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Ryy', wires, controls, inputs, encode, condition)
 
-    def rzz(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Rzz', wires, controls, inputs, encode)
+    def rzz(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Rzz', wires, controls, inputs, encode, condition)
 
-    def rxy(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('Rxy', wires, controls, inputs, encode)
+    def rxy(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('Rxy', wires, controls, inputs, encode, condition)
 
-    def rbs(self, wires, inputs=None, controls=None, encode=False):
-        self.add_gate('ReconfigurableBeamSplitter', wires, controls, inputs, encode)
+    def rbs(self, wires, inputs=None, controls=None, condition=False, encode=False):
+        self.add_gate('ReconfigurableBeamSplitter', wires, controls, inputs, encode, condition)
+
+    def crxx(self, control, target1, target2, inputs=None, encode=False):
+        self.add_gate('Rxx', [target1, target2], control, inputs, encode)
+
+    def cryy(self, control, target1, target2, inputs=None, encode=False):
+        self.add_gate('Ryy', [target1, target2], control, inputs, encode)
+
+    def crzz(self, control, target1, target2, inputs=None, encode=False):
+        self.add_gate('Rzz', [target1, target2], control, inputs, encode)
+
+    def crxy(self, control, target1, target2, inputs=None, encode=False):
+        self.add_gate('Rxy', [target1, target2], control, inputs, encode)
 
     def toffoli(self, control1, control2, target):
         self.add_gate('Toffoli', [control1, control2, target])
 
+    def ccx(self, control1, control2, target):
+        self.add_gate('PauliX', target, [control1, control2])
+
     def fredkin(self, control, target1, target2):
         self.add_gate('Fredkin', [control, target1, target2])
 
-    def _layer_wires(self, wires):
-        if wires is None:
-            return list(range(self.nqubit))
-        return _flat_wires(wires)
+    def cswap(self, control, target1, target2):
+        self.add_gate('Swap', [target1, target2], control)
 
-    def _rot_layer(self, kind, wires, inputs, encode):
+    def any(self, unitary, wires=None, minmax=None, controls=None, name='uany'):
+        """A fixed arbitrary unitary on ``wires`` (default the ``minmax`` span)."""
+        unitary = unitary.detach().cpu().numpy() if torch.is_tensor(unitary) else unitary
+        self.add_gate(name, self._layer_wires(wires, minmax), controls,
+                      static_matrix=np.asarray(unitary, dtype=np.complex128), npara=0)
+
+    def latent(self, wires=None, inputs=None, minmax=None, controls=None, encode=False):
+        """A latent gate: the polar projection U V^H of a trainable 2^k x 2^k
+        latent matrix (random normal when not given)."""
+        wires = self._layer_wires(wires, minmax)
+        dim = 2 ** len(wires)
+        if inputs is None:
+            inputs = np.random.randn(dim, dim)
+        self.add_gate('LatentGate', wires, controls, _float64(inputs), encode,
+                      matrix_fn=latent_fn(dim), npara=dim * dim)
+
+    def hamiltonian(self, hamiltonian, t=None, wires=None, minmax=None, controls=None,
+                    encode=False):
+        """exp(-i H t) on ``wires``, the time t a parameter."""
+        ham = hamiltonian.detach().cpu().numpy() if torch.is_tensor(hamiltonian) else hamiltonian
+        ham = np.asarray(ham, dtype=np.complex128)
+        self.add_gate('HamiltonianGate', self._layer_wires(wires, minmax), controls, t, encode,
+                      matrix_fn=hamiltonian_fn(ham), npara=1, extra={'ham': ham})
+
+    def _layer_wires(self, wires, minmax=None):
+        """``wires`` as a list; None: the ``minmax`` span, default all."""
+        if wires is not None:
+            return _flat_wires(wires)
+        lo, hi = (0, self.nqubit - 1) if minmax is None else minmax
+        return list(range(lo, hi + 1))
+
+    def xlayer(self, wires=None):
+        for w in self._layer_wires(wires):
+            self.x(w)
+
+    def ylayer(self, wires=None):
+        for w in self._layer_wires(wires):
+            self.y(w)
+
+    def zlayer(self, wires=None):
+        for w in self._layer_wires(wires):
+            self.z(w)
+
+    def hlayer(self, wires=None):
+        for w in self._layer_wires(wires):
+            self.h(w)
+
+    def _rot_layer(self, kind, wires, inputs, encode, npara: int = 1):
+        flat = None if inputs is None else _float64(inputs)
         for i, w in enumerate(self._layer_wires(wires)):
-            ins = None if inputs is None else np.asarray(inputs).reshape(-1)[i:i + 1]
+            ins = None if flat is None else flat[npara * i:npara * (i + 1)]
             getattr(self, kind)(w, ins, encode=encode)
 
     def rxlayer(self, wires=None, inputs=None, encode=False):
@@ -865,6 +1394,15 @@ class QubitCircuit:
 
     def rzlayer(self, wires=None, inputs=None, encode=False):
         self._rot_layer('rz', wires, inputs, encode)
+
+    def u3layer(self, wires=None, inputs=None, encode=False):
+        self._rot_layer('u3', wires, inputs, encode, npara=3)
+
+    def cxlayer(self, wires=None):
+        if wires is None:
+            wires = [[i, i + 1] for i in range(0, self.nqubit - 1, 2)]
+        for c, t in wires:
+            self.cx(c, t)
 
     def cnot_ring(self, minmax=None, step: int = 1, reverse: bool = False):
         """Ring of CNOTs."""
@@ -934,3 +1472,41 @@ class QubitCircuit:
         self.operators.append(GateOp(name='Barrier', wires=tuple(self._layer_wires(wires)),
                                      kind='barrier'))
         self._touch()
+
+    def reset(self, wires=None, postselect: int | None = 0):
+        """Reset ``wires`` (default all) to |0>, post-selecting
+        ``postselect`` (0 or 1) on each."""
+        if postselect not in (0, 1):
+            raise ValueError('reset post-selects 0 or 1')
+        self.operators.append(GateOp(name='Reset', wires=tuple(self._layer_wires(wires)),
+                                     kind='reset', extra={'postselect': postselect}))
+        self._touch()
+
+    def move(self, wire1: int, wire2: int, postselect: int | None = 0):
+        """Reset ``wire2`` (post-selecting ``postselect``), then swap it with
+        ``wire1``."""
+        self.operators.append(GateOp(name='Move', wires=(wire1, wire2), kind='move',
+                                     extra={'postselect': postselect}))
+        self._touch()
+
+    # not ported yet: circuit cutting, MBQC, drawing, QASM (ROADMAP.md)
+    def cut(self, wires):
+        _not_ported('QubitCircuit.cut', 'cutting.py')
+
+    def transform_cut2move(self):
+        _not_ported('QubitCircuit.transform_cut2move', 'cutting.py')
+
+    def get_subexperiments(self, qubit_labels=None):
+        _not_ported('QubitCircuit.get_subexperiments', 'cutting.py')
+
+    def pattern(self):
+        _not_ported('QubitCircuit.pattern', 'mbqc/')
+
+    def draw(self, output: str = 'text', **kwargs):
+        _not_ported('QubitCircuit.draw', 'draw.py')
+
+    def qasm(self):
+        _not_ported('QubitCircuit.qasm', 'qasm.py')
+
+    def qasm3(self):
+        _not_ported('QubitCircuit.qasm3', 'qasm.py')

@@ -18,13 +18,21 @@ import torch
 from .config import cdtype
 from .ops import gates as G
 
-__all__ = ['GateOp', 'GATE_REGISTRY']
+__all__ = ['GateOp', 'GATE_REGISTRY', 'projection_j_fn', 'latent_fn', 'hamiltonian_fn']
 
 
 @dataclasses.dataclass
 class GateOp:
     """One operation in the circuit IR: kind 'gate' (a unitary), 'channel'
-    (a Kraus set, density matrices only) or 'barrier'."""
+    (a Kraus set, density matrices only), 'barrier', 'reset' (project wires
+    on ``extra['postselect']`` and set them to |0>), 'move' (reset the
+    second wire, then swap) or 'cut' (a wire-cut marker).
+
+    ``extra`` holds per-op metadata: 'plane' (projection J), 'ham'
+    (Hamiltonian gates), 'postselect', and for a standalone descriptor
+    (``models.ansatz.make_gate``) its 'inputs' and the circuit that first
+    registered its parameters ('_owner'): adding that descriptor to the
+    same circuit again shares them."""
     name: str
     wires: tuple
     controls: tuple = ()
@@ -37,6 +45,7 @@ class GateOp:
     condition: bool = False
     requires_grad: bool = True
     inv: bool = False                      # apply the adjoint of the matrix
+    extra: dict = dataclasses.field(default_factory=dict)
 
     def matrix(self, full_params: torch.Tensor) -> torch.Tensor:
         """Local unitary on ``full_params``' device: (2^k, 2^k) from a (P,)
@@ -57,8 +66,13 @@ class GateOp:
                 p = full_params[..., list(self.pidx)]
             mat = self.matrix_fn(p, device)
         if self.inv:
-            mat = mat.conj().transpose(-1, -2)
+            # laid out anew: torch.kron refuses some transposed views
+            mat = mat.conj().transpose(-1, -2).contiguous()
         return mat
+
+    @property
+    def all_wires(self) -> tuple:
+        return tuple(self.controls) + tuple(self.wires)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,3 +120,19 @@ GATE_REGISTRY: dict[str, dict] = {
     'Toffoli': dict(nwires=3, npara=0, fn=_fixed(G.toffoli_matrix)),
     'Fredkin': dict(nwires=3, npara=0, fn=_fixed(G.fredkin_matrix)),
 }
+
+
+# matrix functions of the gates built with their own arguments (the plane of
+# a projection J, the size of a latent gate, the Hamiltonian): shared by the
+# circuit's sugar and ``from_jax``
+def projection_j_fn(plane: str):
+    return lambda p, device: G.projection_j_matrix(p[..., 0], plane)
+
+
+def latent_fn(dim: int):
+    return lambda p, device: G.latent_matrix(p.reshape(*p.shape[:-1], dim, dim))
+
+
+def hamiltonian_fn(ham):
+    ham = np.asarray(ham, dtype=np.complex128)
+    return lambda p, device: G.hamiltonian_matrix(ham, p[..., 0])

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .config import rdtype, resolve_device
-from .gate import GATE_REGISTRY, GateOp
+from .gate import GATE_REGISTRY, GateOp, hamiltonian_fn, latent_fn, projection_j_fn
 
 __all__ = ['from_jax', 'params_from_numpy', 'qumode_from_jax']
 
@@ -25,57 +25,88 @@ def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -
     return p.requires_grad_(requires_grad)
 
 
-def from_jax(cir, device=None):
-    """Build the port's QubitCircuit from a deepquantum_tpu QubitCircuit.
+def _gate_fn(op):
+    """The port's matrix function of a JAX gate op: by registry name, or for
+    the gates built from their own arguments, from those (a projection J's
+    plane, a latent gate's size, a Hamiltonian gate's ``extra['ham']``); a
+    fixed matrix carries over as numpy."""
+    if op.matrix_fn is None:
+        return None, np.asarray(op.static_matrix)
+    if op.name == 'ProjectionJ':
+        return projection_j_fn(op.extra.get('plane', 'xy')), None
+    if op.name == 'LatentGate':
+        return latent_fn(2 ** len(op.wires)), None
+    if op.name == 'HamiltonianGate':
+        return hamiltonian_fn(np.asarray(op.extra['ham'])), None
+    reg = GATE_REGISTRY.get(op.name)
+    if reg is None or reg['npara'] != op.npara:
+        raise NotImplementedError(f'from_jax: cannot map gate {op.name}')
+    return reg['fn'], None
 
-    Reads ``nqubit``, ``den_mat``, ``reupload``, ``shots``, the init state,
-    ``operators`` (name, wires, controls, pidx, npara, static_matrix, inv),
-    ``encoders``, ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``npara``,
-    ``ndata`` and ``observables``. Gates are mapped by name through the
-    port's GATE_REGISTRY, Kraus channels (with their parameter slots, data
-    slots for encoded ones) through its CHANNEL_REGISTRY; an op it cannot
-    map (a latent, hamiltonian or projection gate, a measurement, a reset)
-    raises NotImplementedError."""
+
+def from_jax(cir, device=None):
+    """Build the port's QubitCircuit from a deepquantum_tpu QubitCircuit (an
+    Ansatz too: it becomes a plain QubitCircuit of the same ops,
+    parameters and observables).
+
+    Reads ``nqubit``, ``den_mat``, ``reupload``, ``shots``, ``mps`` and
+    ``chi``, the init state (an MPS's site tensors as numpy), ``operators``
+    (name, wires, controls, pidx, npara, static_matrix, inv, condition,
+    extra), ``encoders``, ``_pvals``, ``_train_mask``, ``_enc_pidx``,
+    ``npara``, ``ndata``, ``depth``, ``wires_condition`` and
+    ``observables``. Gates map by name through the port's GATE_REGISTRY
+    (projection J, latent and Hamiltonian gates from their arguments, a
+    fixed matrix as it is), Kraus channels through its CHANNEL_REGISTRY,
+    resets and moves with their post-selection; an op it cannot map (a
+    wire cut) raises NotImplementedError."""
     from .channel import CHANNEL_REGISTRY
     from .circuit import Observable, QubitCircuit
 
     init = cir.init_state
-    if getattr(cir, 'mps', False):
-        raise NotImplementedError('from_jax: MPS circuits are not ported yet')
-    kind = getattr(init, 'kind', None)
-    state = kind if kind is not None else np.asarray(init.state)
+    mps = bool(getattr(cir, 'mps', False))
+    if mps:
+        state = [np.asarray(t) for t in init.tensors]
+    else:
+        kind = getattr(init, 'kind', None)
+        state = kind if kind is not None else np.asarray(init.state)
     out = QubitCircuit(cir.nqubit, init_state=state, name=getattr(cir, 'name', None),
                        den_mat=bool(getattr(cir, 'den_mat', False)), device=device,
                        reupload=bool(getattr(cir, 'reupload', False)),
-                       shots=int(getattr(cir, 'shots', 1024)))
+                       shots=int(getattr(cir, 'shots', 1024)), mps=mps,
+                       chi=getattr(cir, 'chi', None))
+    if mps:
+        out.init_state.normalize = bool(getattr(init, 'normalize', True))
     for op in cir.operators:
         if op.kind == 'barrier':
             out.barrier(list(op.wires))
+            continue
+        if op.kind in ('reset', 'move'):
+            out.operators.append(GateOp(name=op.name, wires=tuple(op.wires), kind=op.kind,
+                                        extra={'postselect': op.extra.get('postselect', 0)}))
             continue
         if op.kind == 'channel' and op.name in CHANNEL_REGISTRY:
             out.operators.append(GateOp(
                 name=op.name, wires=tuple(op.wires), matrix_fn=CHANNEL_REGISTRY[op.name]['fn'],
                 pidx=tuple(op.pidx), npara=op.npara, kind='channel', requires_grad=False))
             continue
-        if op.kind != 'gate' or op.condition:
+        if op.kind != 'gate':
             raise NotImplementedError(f'from_jax: cannot map {op.kind} op {op.name}')
-        if op.matrix_fn is None:
-            fn, static = None, np.asarray(op.static_matrix)
-        else:
-            reg = GATE_REGISTRY.get(op.name)
-            if reg is None or reg['npara'] != op.npara:
-                raise NotImplementedError(f'from_jax: cannot map gate {op.name}')
-            fn, static = reg['fn'], None
+        fn, static = _gate_fn(op)
+        extra = {k: v for k, v in op.extra.items() if k in ('plane', 'ham')}
         out.operators.append(GateOp(
             name=op.name, wires=tuple(op.wires), controls=tuple(op.controls), matrix_fn=fn,
             static_matrix=static, pidx=tuple(op.pidx), npara=op.npara,
-            requires_grad=op.requires_grad, inv=op.inv))
+            condition=bool(op.condition), requires_grad=op.requires_grad, inv=op.inv,
+            extra=extra))
     out._pvals = [float(v) for v in cir._pvals]
     out._train_mask = [bool(t) for t in cir._train_mask]
     enc = {id(op) for op in cir.encoders}
     out.encoders = [new for new, op in zip(out.operators, cir.operators) if id(op) in enc]
     out._enc_pidx = [int(i) for i in cir._enc_pidx]
     out.npara, out.ndata = int(cir.npara), int(cir.ndata)
+    if getattr(cir, 'depth', None) is not None:
+        out.depth = np.array(cir.depth, dtype=np.int64)
+    out.wires_condition = [int(w) for w in getattr(cir, 'wires_condition', [])]
     for obs in cir.observables:
         out.observables.append(Observable(cir.nqubit, [list(w) for w in obs.wires], obs.basis))
     out._touch()

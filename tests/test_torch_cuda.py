@@ -1086,3 +1086,112 @@ def test_photonic_paths_on_the_card(card128):
     for k, v in out.items():
         assert abs(v.item() - want[tuple(k.state.tolist())]) <= 1e-10
     assert abs(sum(v.item() for v in out.values()) - 1) <= 1e-10
+
+
+# ------------------------------------------------ the rest of the qubit engine
+def _engine_circuit(n, device):
+    cir = dqt.QubitCircuit(n, device=device)
+    for w in range(n):
+        cir.ry(w, inputs=0.3 + 0.1 * w)
+    cir.cu(0, n - 1, inputs=[0.3, 0.5, 0.7])
+    cir.crxx(4, 1, 8, inputs=0.3)
+    cir.ccx(2, 5, 7)
+    cir.latent(wires=[2, 6, 7], inputs=np.random.default_rng(0).normal(size=(8, 8)))
+    cir.hamiltonian(np.diag([1.0, -1.0, 0.5, 0.2]), t=0.6, wires=[3, 5])
+    cir.any(_haar(4, np.random.default_rng(1)), wires=[1, 9], controls=0)
+    cir.cnot_ring()
+    cir.observable(list(range(n)), basis='x' * n)
+    return cir
+
+
+def test_controlled_sugar_planar_on_the_card(card):
+    """Controlled, latent, Hamiltonian and fixed gates on <= 3 wires stay on
+    the kernel route at n=12: against the CPU's complex128 route, 1e-5."""
+    cir = _engine_circuit(12, None)
+    assert cir.device.type == 'cuda' and cir._planar_ok()
+    got = cir.forward().reshape(-1).cpu()
+    dqt.set_dtype('complex128')
+    want = _engine_circuit(12, 'cpu').forward().reshape(-1)
+    assert (got.to(torch.complex128) - want).abs().max().item() <= 1e-5
+
+
+def test_qft_and_inverse_on_the_card(card):
+    from deepquantum_tpu_torch.models import QuantumFourierTransform
+    n, x = 16, 12345
+    qft = QuantumFourierTransform(n)
+    ket = torch.zeros(1 << n, dtype=torch.complex64, device=card)
+    ket[x] = 1
+    twg.window_apply.launches = 0
+    out = qft.forward(state=ket).reshape(-1)
+    assert twg.window_apply.launches > 0
+    j = np.arange(1 << n)
+    want = np.exp(2j * np.pi * ((j * x) % (1 << n)) / (1 << n)) / np.sqrt(1 << n)
+    assert np.abs(out.cpu().numpy() - want).max() <= 1e-5
+    back = qft.inverse().forward(state=out).reshape(-1)
+    assert (back - ket).abs().max().item() <= 1e-5
+
+
+def test_conditional_defer_measure_on_the_card(card):
+    cir = dqt.QubitCircuit(6)
+    for w in range(3):
+        cir.h(w)
+        cir.x(w + 3, controls=w, condition=True)
+    cir.ry(4, inputs=0.4)
+    cir.forward()
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    state, bits, prob = cir.defer_measure(with_prob=True, generator=gen)
+    assert state.device.type == 'cuda' and state.shape == (8, 1)
+    assert abs(torch.linalg.vector_norm(state).item() - 1) <= 1e-6
+    assert abs(prob - cir.get_prob(bits, wires=[0, 1, 2]).item()) <= 1e-6
+    assert torch.equal(cir.post_select(bits), state)
+
+
+def test_mps_on_the_card(card):
+    """A truncated MPS (n=10, chi=4) on the card: value and gradient against
+    the same MPS on the CPU, 1e-5 / 1e-4."""
+    def run(device):
+        cir = dqt.QubitCircuit(10, device=device, mps=True, chi=4)
+        for _ in range(2):
+            for w in range(10):
+                cir.rx(w)
+                cir.rz(w)
+            for w in range(9):
+                cir.cnot(w, w + 1)
+        cir.observable(0)
+        cir.init_para(3)
+        p = cir.params.requires_grad_()
+        e = cir.expectation(params=p)[0]
+        e.backward()
+        return e.item(), p.grad.cpu()
+
+    e, g = run(None)
+    e_cpu, g_cpu = run('cpu')
+    assert abs(e - e_cpu) <= 1e-5 and (g - g_cpu).abs().max().item() <= 1e-4
+
+
+def test_mps_gradient_at_zero_angle_on_the_card(card):
+    """|++> through an Rzz at angle 0, a product gate whose derivative is
+    not: the MPS keeps the channel, d<YZ>/dtheta = 1 (1e-5) on the card."""
+    cir = dqt.QubitCircuit(2, mps=True, chi=4)
+    cir.h(0)
+    cir.h(1)
+    cir.rzz([0, 1])
+    cir.observable([0, 1], basis='yz')
+    p = torch.zeros_like(cir.params).requires_grad_()
+    cir.expectation(params=p)[0].backward()
+    assert p.grad.device.type == 'cuda' and abs(p.grad.item() - 1) <= 1e-5
+
+
+def test_adjoint_expectation_on_the_card(card):
+    from deepquantum_tpu_torch.adjoint import make_adjoint_expectation
+    cir = _bench(14, 2)
+    fn = make_adjoint_expectation(cir)
+    p = cir.params.requires_grad_()
+    fn(p).backward()
+    loss, grad = _grad(cir)
+    assert torch.allclose(p.grad, grad, atol=1e-6, rtol=0)
+    dqt.set_dtype('complex128')
+    ref = _bench(14, 2)
+    q = ref.params.requires_grad_()
+    make_adjoint_expectation(ref)(q).backward()
+    assert (q.grad - grad.double()).abs().max().item() <= 1e-4
