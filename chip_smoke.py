@@ -192,6 +192,31 @@ Phases (each raises on failure, so the run exits non-zero):
    profiler window over the whole step costs ~150 s). In phase 3 check_superop_kernels
    also times the one torch.einsum of K1 / K5 / K1b / K5b's superoperator
    rows (library_ms);
+9h. graph GBS (check_graph_gbs; Arrazola & Bromley, PRL 121, 030503): GraphGBS
+   on G(14, 1/2) with a planted 6-clique, 14 photons on average, threshold
+   detectors, complex128: all 16 384 patterns in 12 batched K8 calls (sum
+   1 within 1e-6), measure(10^5 shots) by a chi-square against the table,
+   postselect on 6 and 8 clicks (graph_density only where networkx is
+   installed); the 10-node subgraph with pnrd detectors, cutoff 2: 1024
+   outcomes, one hafnian_batch call per photon number, complex64 within
+   1e-6 of complex128;
+9i. lossy GBS (check_lossy_gbs): path (b)'s 14-mode GBS with loss_db(3.0)
+   on every mode: the click table (12 batched K8 calls; displaced, 12 K9)
+   and measure(10^5 shots) by a chi-square; homodyne conditioning on 4 of
+   the 14 modes with given outcomes, complex64 within 1e-6 of complex128;
+9j. time-domain multiplexing (check_tdm): Borealis-like loops of 1, 6 and
+   36 bins (Madsen et al., Nature 606, 75; 44 concurrent modes, data
+   (64, 216, 6), 216 steps) and a 2-D cluster source with delays of 1 and
+   12 (Asavanant et al., Science 366, 373; 200 steps), complex64 against
+   complex128 on one generator seed: every step's covariance within 1e-5;
+   ms per step, peak memory, busy share;
+9k. the Bosonic backend (check_bosonic), complex128: two cats and a GKP
+   state (16 x the GKP's components), beam splitters, measure_homodyne
+   (1000 shots) through a conditional homodyne, the Wigner function of
+   mode 0 on 100 x 100 points (integral within 1e-3), quadrature means
+   and photon statistics, the rejection sampler's x of mode 0 by a
+   chi-square against its marginal. Each of 9h-9k prints its time, K8b /
+   K9b wrapper calls, peak memory and busy share;
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -2914,6 +2939,450 @@ def check_gbs(card: str, rng):
     return total_counts
 
 
+# ------------------------------------------- the continuous-variable engine
+CV_SHOTS = 100_000
+GRAPH_NODES, GRAPH_SMALL, GRAPH_CLIQUE = 14, 10, 6
+LOSS_DB = 3.0
+HOMODYNE_WIRES = (1, 4, 7, 12)
+BOREALIS_LOOPS, BOREALIS_BATCH, BOREALIS_STEPS = (1, 6, 36), 64, 216
+CLUSTER_DELAYS, CLUSTER_STEPS = (1, 12), 200
+TDM_BUSY_STEPS = 20
+BOSONIC_SHOTS, MARGINAL_SHOTS, WIGNER_POINTS = 1000, 20_000, 100
+# float32 against float64 on the same inputs (the card read 6.6e-7 / 8.5e-7
+# for the 14-mode homodyne's covariance / mean, 6.0e-7 for the Borealis
+# covariance over 216 steps, 1.8e-7 for the 10-mode pnrd table)
+HOMODYNE_COV_BAR = HOMODYNE_MEAN_BAR = 1e-6
+TDM_COV_BAR = 1e-5
+# every step's samples and the last means, complex64 against complex128,
+# over the run's largest |mean| or |sample| (the card read 8.8e-5 for the
+# Borealis means after 216 steps of feedback)
+TDM_FEEDBACK_BAR = 1e-3
+PNRD_BAR = 1e-6
+
+
+def _cv_stats(fn):
+    """(fn(), stats): one call's time between CUDA events, the K8b / K9b
+    wrapper calls it made and its peak device memory; a second call's time
+    (``again_ms``: the first launch of a library kernel in the process can
+    take seconds of host time, as tools/pnrd_first_call.py traces), and
+    the device's busy share: a third call's device time (a profiler window
+    with CUDA activity only) over the second call's time."""
+    import torch
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = _one_call_ms(fn)
+    counts = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, again = _one_call_ms(fn)
+    device_ms = _cuda_only_device_ms(fn)
+    return out, dict(ms=ms, again_ms=again, launches=counts, peak_gib=round(peak, 3),
+                     busy=round(device_ms / again, 4))
+
+
+def _stats_text(s: dict) -> str:
+    launches = ', '.join(f'{k} {v}' for k, v in s['launches'].items()) or 'none'
+    return (f"{s['ms']:.1f} ms (again {s['again_ms']:.1f}), launches {launches}, peak "
+            f"{s['peak_gib']} GiB, busy {100 * s['busy']:.1f} %")
+
+
+def _dict_chi2(counts: dict, table: dict, shots: int):
+    """Pearson's chi-square of sampled counts {FockState: n} against a
+    probability table {FockState: p} (normalised), the cells with an
+    expected count >= 5 and the rest pooled; its dof and the bound
+    dof + 6 sqrt(2 dof)."""
+    keys = list(table)
+    p = np.array([float(table[k]) for k in keys])
+    exp = shots * p / p.sum()
+    obs = np.array([counts.get(k, 0) for k in keys], dtype=np.float64)
+    if sum(counts.values()) != shots or not set(counts) <= set(keys):
+        raise AssertionError('samples: wrong total or an outcome outside the table')
+    big = exp >= 5
+    stat = float(np.sum((obs[big] - exp[big]) ** 2 / exp[big]))
+    if (~big).any() and exp[~big].sum() > 0:
+        stat += float((obs[~big].sum() - exp[~big].sum()) ** 2 / exp[~big].sum())
+    dof = max(int(big.sum()) + int((~big).any()) - 1, 1)
+    return stat, dof, dof + 6 * np.sqrt(2 * dof)
+
+
+def _hold_chi2(label: str, stat: float, dof: int, bar: float):
+    if not stat <= bar:
+        raise AssertionError(f'{label}: chi-square {stat} on {dof} dof above {bar}')
+
+
+def _planted_graph(n: int, clique: int, rng):
+    """A G(n, 1/2) adjacency matrix with a clique planted on ``clique`` of
+    its first GRAPH_SMALL nodes (so the 10-node subgraph holds it too)."""
+    a = np.triu((rng.random((n, n)) < 0.5).astype(float), 1)
+    nodes = np.sort(rng.choice(min(n, GRAPH_SMALL), clique, replace=False))
+    a[np.ix_(nodes, nodes)] = 1
+    a = np.triu(a, 1)
+    return a + a.T, nodes.tolist()
+
+
+def check_graph_gbs(card: str, rng):
+    """Phase 9h, graph GBS for dense subgraphs (Arrazola & Bromley, PRL 121,
+    030503): GraphGBS on G(14, 1/2) with a planted 6-clique, 14 photons on
+    average, threshold detectors, at complex128: all 16 384 click patterns
+    in 12 batched K8 calls (sum 1 within 1e-6), measure(10^5 shots) by a
+    chi-square against the table, postselect on 6 and 8 clicks. Then the
+    10-node subgraph with pnrd detectors, cutoff 2: all 1024 outcomes in one
+    hafnian_batch call per photon number, complex64 against complex128
+    (hafnian_batch computes in complex128 at either precision, so PNRD_BAR
+    holds the Q-matrix stage)."""
+    import importlib
+    import torch
+    dqt = _pkg()[0]
+    from deepquantum_tpu_torch.photonic import gaussian_prob as gp
+    adj, clique = _planted_graph(GRAPH_NODES, GRAPH_CLIQUE, rng)
+    out, counts_all = {}, {}
+    with complex128(), torch.no_grad():
+        gbs = dqt.photonic.GraphGBS(adj, mean_photon_num=GRAPH_NODES, detector='threshold',
+                                    rng=np.random.default_rng(SEED))
+        table, stats = _cv_stats(lambda: gbs(is_prob=True))
+        counts_all = dict(stats['launches'])
+        total = torch.stack(list(table.values())).sum().item()
+        print(f'GraphGBS {GRAPH_NODES} nodes, threshold: c {gbs.c:.6f}, {len(table)} patterns, '
+              f'sum {total:.10f}; {_stats_text(stats)} [{card}]')
+        if stats['launches'] != {'tor_dets_cuda_batched': GRAPH_NODES - 2} \
+                or len(table) != 1 << GRAPH_NODES or not abs(total - 1) <= 1e-6:
+            raise AssertionError(f'GraphGBS table: launches {stats["launches"]}, sum {total}')
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        samples, ms = _one_call_ms(lambda: gbs.measure(shots=CV_SHOTS, generator=gen))
+        stat, dof, bar = _dict_chi2(samples, table, CV_SHOTS)
+        six, eight = gbs.postselect(samples, [6, 8])
+        hit = samples.get(dqt.FockState([int(i in clique) for i in range(GRAPH_NODES)]), 0)
+        p_clique = float(table[dqt.FockState([int(i in clique) for i in range(GRAPH_NODES)])])
+        print(f'GraphGBS measure({CV_SHOTS}): {ms:.1f} ms, {len(samples)} patterns, chi-square '
+              f'{stat:.1f} on {dof} dof (bound {bar:.1f}); postselect 6 clicks {sum(six.values())} '
+              f'samples ({len(six)} patterns), 8 clicks {sum(eight.values())} ({len(eight)}); the '
+              f'planted clique {clique} drawn {hit} times (p {p_clique:.3e}) [{card}]')
+        _hold_chi2('GraphGBS samples', stat, dof, bar)
+        try:
+            nx = importlib.import_module('networkx')
+        except ImportError:
+            print('GraphGBS graph_density: skipped, networkx is not installed here')
+        else:
+            dens = gbs.graph_density(nx.from_numpy_array(adj), six)
+            top = next(iter(dens.items()), None)
+            print(f'GraphGBS graph_density of the 6-click samples: densest {top}')
+        out['threshold'] = dict(stats, measure_ms=ms, chi2=stat, dof=dof, clique_hits=hit)
+    # pnrd on the 10-node subgraph: the table through hafnian_batch, by precision
+    calls, tables = [], {}
+    real = gp.hafnian_batch
+
+    def counted(mats, loop=False):
+        calls.append(tuple(mats.shape))
+        return real(mats, loop)
+
+    gp.hafnian_batch = counted
+    try:
+        with torch.no_grad():
+            for dtype in ('complex128', 'complex64'):
+                dqt.set_dtype(dtype)
+                small = dqt.photonic.GraphGBS(adj[:GRAPH_SMALL, :GRAPH_SMALL], cutoff=2,
+                                              mean_photon_num=GRAPH_SMALL, detector='pnrd',
+                                              rng=np.random.default_rng(SEED))
+                calls.clear()
+                tables[dtype], stats = _cv_stats(lambda: small(is_prob=True))
+                tables[dtype + ' calls'] = len(calls) // 3        # _cv_stats calls it thrice
+                out[f'pnrd_{dtype}'] = stats
+                for k, v in stats['launches'].items():
+                    counts_all[k] = counts_all.get(k, 0) + v
+    finally:
+        gp.hafnian_batch = real
+        dqt.set_dtype('complex64')
+    ref = _by_state(tables['complex128'])
+    got = _by_state(tables['complex64'])
+    d = max(abs(got[k].item() - ref[k].item()) for k in ref)
+    total = sum(v.item() for v in ref.values())
+    print(f"GraphGBS {GRAPH_SMALL} nodes, pnrd, cutoff 2: {len(ref)} outcomes (sum {total:.6f}: "
+          f"the cutoff drops the tail), {tables['complex128 calls']} hafnian_batch calls; "
+          f"complex64 {_stats_text(out['pnrd_complex64'])}, complex128 "
+          f"{_stats_text(out['pnrd_complex128'])}; max |d p| {d:.2e} [{card}]")
+    if len(ref) != 1 << GRAPH_SMALL or tables['complex128 calls'] != GRAPH_SMALL + 1 \
+            or not d <= PNRD_BAR or out['pnrd_complex64']['launches']:
+        raise AssertionError(f'GraphGBS pnrd: {len(ref)} outcomes, '
+                             f"{tables['complex128 calls']} calls, |d p| {d} > {PNRD_BAR}")
+    out['pnrd_max_abs_err'] = d
+    return counts_all, out
+
+
+def _lossy_gbs(displaced: bool, seed: int):
+    """Path (b)'s 14-mode threshold GBS with loss_db(3.0) on every mode."""
+    cir = _gbs_circuit(GBS_BIG, displaced, np.random.default_rng(seed))
+    for i in range(GBS_BIG):
+        cir.loss_db(i, LOSS_DB)
+    return cir
+
+
+def check_lossy_gbs(card: str):
+    """Phase 9i: path (b)'s 14-mode threshold GBS with 3 dB of loss on every
+    mode, at complex128: the click table (12 batched K8 calls; displaced,
+    12 batched K9 calls), sum 1 within 1e-6, measure(10^5 shots) by a
+    chi-square against it; then homodyne conditioning of the undisplaced
+    lossy state on 4 of its 14 modes with given outcomes, complex64
+    against complex128."""
+    import torch
+    dqt = _pkg()[0]
+    counts_all, out = {}, {}
+    with torch.no_grad():
+        with complex128():
+            for displaced, hot in ((False, 'tor_dets_cuda_batched'),
+                                   (True, 'tor_dets_quads_cuda_batched')):
+                label = 'lossy GBS 14 modes' + (', displaced' if displaced else '')
+                cir = _lossy_gbs(displaced, SEED + 11)
+                table, stats = _cv_stats(lambda: cir(is_prob=True))
+                total = torch.stack(list(table.values())).sum().item()
+                gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+                samples, ms = _one_call_ms(lambda: cir.measure(shots=CV_SHOTS, generator=gen))
+                stat, dof, bar = _dict_chi2(samples, table, CV_SHOTS)
+                print(f'{label}, {LOSS_DB} dB: sum {total:.10f}; table {_stats_text(stats)}; '
+                      f'measure({CV_SHOTS}) {ms:.1f} ms, chi-square {stat:.1f} on {dof} dof '
+                      f'(bound {bar:.1f}) [{card}]')
+                if stats['launches'] != {hot: GBS_BIG - 2} or not abs(total - 1) <= 1e-6:
+                    raise AssertionError(f'{label}: launches {stats["launches"]}, sum {total}')
+                _hold_chi2(label, stat, dof, bar)
+                for k, v in stats['launches'].items():
+                    counts_all[k] = counts_all.get(k, 0) + v
+                out['displaced' if displaced else 'plain'] = dict(stats, measure_ms=ms, chi2=stat,
+                                                                  dof=dof)
+        conditioned = {}
+        outcomes = np.random.default_rng(SEED + 12).normal(size=(len(HOMODYNE_WIRES), 2))
+        for dtype in ('complex128', 'complex64'):
+            dqt.set_dtype(dtype)
+            try:
+                state = _lossy_gbs(False, SEED + 11)()
+
+                def condition(state=state):
+                    for w, s in zip(HOMODYNE_WIRES, outcomes):
+                        state = dqt.Homodyne(0.3 * w, GBS_BIG, w)(state, samples=s)
+                    return state
+
+                conditioned[dtype], stats = _cv_stats(condition)
+            finally:
+                dqt.set_dtype('complex64')
+        errs = [rel_err(a.double(), b)[0] for a, b in zip(conditioned['complex64'],
+                                                           conditioned['complex128'])]
+        print(f'homodyne on modes {list(HOMODYNE_WIRES)} of the lossy state, given outcomes: '
+              f'complex64 against complex128 cov {errs[0]:.2e}, mean {errs[1]:.2e}; '
+              f'{_stats_text(stats)} [{card}]')
+        if not (errs[0] <= HOMODYNE_COV_BAR and errs[1] <= HOMODYNE_MEAN_BAR):
+            raise AssertionError(f'homodyne conditioning: {errs} above '
+                                 f'{HOMODYNE_COV_BAR} / {HOMODYNE_MEAN_BAR}')
+        out['homodyne'] = dict(stats, cov_rel_err=errs[0], mean_rel_err=errs[1])
+    return counts_all, out
+
+
+def borealis_tdm():
+    """A Borealis-like source (Madsen et al., Nature 606, 75): one squeezed
+    spatial mode through loops of 1, 6 and 36 time bins, each loop's
+    (theta, phi) encoded per bin, homodyne x (the TDM API measures by
+    homodyne where Borealis counts photons): 44 concurrent modes."""
+    dqt = _pkg()[0]
+    cir = dqt.QumodeCircuitTDM(1, 'vac')
+    cir.s(0, r=1.0)
+    for ntau in BOREALIS_LOOPS:
+        cir.delay(0, ntau=ntau, convention='bs', encode=True)
+    cir.homodyne_x(0)
+    return cir
+
+
+def cluster_tdm():
+    """A 2-D cluster-state source (Asavanant et al., Science 366, 373): two
+    squeezed spatial modes, one turned by pi / 2, a real balanced beam
+    splitter (an EPR pair a step; ``bs_theta``'s fixed phase of pi / 2
+    would align the two squeezings and entangle nothing), delays of 1 and
+    12 bins (full swaps), x and p homodyne."""
+    dqt = _pkg()[0]
+    cir = dqt.QumodeCircuitTDM(2, 'vac')
+    cir.s(0, r=1.0)
+    cir.s(1, r=1.0)
+    cir.r(0, [np.pi / 2])
+    cir.bs([0, 1], [np.pi / 4, 0.0])
+    for wire, ntau in enumerate(CLUSTER_DELAYS):
+        cir.delay(wire, ntau=ntau, inputs=[np.pi / 2, 0.0])
+    cir.homodyne_x(0)
+    cir.homodyne_p(1)
+    return cir
+
+
+def _tdm_steps(cir, data, steps: int, gen, record: bool):
+    """Run ``steps`` time steps one call each (data (B, steps, nfeat) or
+    None); the last state, the covariance after each step when ``record``
+    and every step's samples, (B, nwire, steps)."""
+    import torch
+    state, covs, samples = None, [], []
+    for i in range(steps):
+        state = cir(data=None if data is None else data[:, i:i + 1], state=state, nstep=1,
+                    generator=gen)
+        samples.append(cir.get_samples())
+        if record:
+            covs.append(state[0])
+    return state, covs, torch.cat(samples, -1)
+
+
+def check_tdm(card: str):
+    """Phase 9j, time-domain multiplexing: the Borealis-like loops (data
+    (64, 216, 6) from the seed, 216 steps, cov 88 x 88) and the 2-D
+    cluster source (200 steps), each at complex64 against the port's
+    complex128 run on the same generator seed. A conditioned covariance
+    does not depend on the outcome: every step's covariance within
+    TDM_COV_BAR. The normals are drawn in float64, so the samples and the
+    means they feed back differ by rounding only: every step's samples and
+    the last means within TDM_FEEDBACK_BAR of the run's largest |mean| or
+    |sample|, and the feedback must have moved the means (the mean update
+    itself is held to the JAX package by tests/test_torch_tdm_bosonic.py).
+    ms per step, peak memory, the busy share (the device time of
+    TDM_BUSY_STEPS steps over their share of the run's time)."""
+    import torch
+    dqt = _pkg()[0]
+    data = np.random.default_rng(SEED + 13).uniform(
+        0, 2 * np.pi, (BOREALIS_BATCH, BOREALIS_STEPS, 2 * len(BOREALIS_LOOPS)))
+    out = {}
+    with torch.no_grad():
+        for label, build, feats, steps in (('borealis', borealis_tdm, data, BOREALIS_STEPS),
+                                           ('cluster', cluster_tdm, None, CLUSTER_STEPS)):
+            runs = {}
+            for dtype in ('complex128', 'complex64'):
+                dqt.set_dtype(dtype)
+                try:
+                    cir = build()
+                    gen = torch.Generator(device='cuda').manual_seed(SEED)
+                    torch.cuda.reset_peak_memory_stats()
+                    (state, covs, samples), ms = _one_call_ms(
+                        lambda: _tdm_steps(cir, feats, steps, gen, record=True))
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    runs[dtype] = (covs, state, samples, ms, peak)
+                    if dtype == 'complex64':
+                        # device time of the first steps over their share of
+                        # the run's time (the profiler lengthens its window)
+                        device_ms = _cuda_only_device_ms(
+                            lambda: _tdm_steps(cir, feats, TDM_BUSY_STEPS, gen, record=False))
+                        busy = device_ms / (ms * TDM_BUSY_STEPS / steps)
+                finally:
+                    dqt.set_dtype('complex64')
+            cov_err = max(rel_err(a.double(), b)[0]
+                          for a, b in zip(runs['complex64'][0], runs['complex128'][0]))
+            # the means follow the samples: both against the run's largest
+            # |mean| or |sample|
+            mean_err = rel_err(runs['complex64'][1][1].double(), runs['complex128'][1][1])[1]
+            mean_max = runs['complex128'][1][1].abs().max().item()
+            sample_err = (runs['complex64'][2].double() - runs['complex128'][2]).abs().max().item()
+            scale = max(mean_max, runs['complex128'][2].abs().max().item())
+            ms64, ms128 = runs['complex64'][3], runs['complex128'][3]
+            nmode = runs['complex64'][1][0].shape[-1] // 2
+            print(f'TDM {label}: {nmode} concurrent modes, cov {tuple(runs["complex64"][1][0].shape)},'
+                  f' {steps} steps: complex64 {ms64 / steps:.3f} ms a step ({ms64:.1f} ms, peak '
+                  f'{runs["complex64"][4]:.3f} GiB, busy {100 * busy:.1f} %), complex128 '
+                  f'{ms128 / steps:.3f} ms a step; every step\'s cov against complex128 '
+                  f'{cov_err:.2e}; the last means max |d| {mean_err:.2e} (max |mean| '
+                  f'{mean_max:.2e}), every step\'s samples max |d| {sample_err:.2e} (of '
+                  f'{runs["complex64"][2].numel()}; scale {scale:.2e}) [{card}]')
+            if not cov_err <= TDM_COV_BAR or not torch.isfinite(runs['complex64'][2]).all():
+                raise AssertionError(f'TDM {label}: covariance {cov_err} > {TDM_COV_BAR}')
+            if runs['complex64'][2].shape[-1] != steps or not mean_max > 1e-3 \
+                    or not max(mean_err, sample_err) <= TDM_FEEDBACK_BAR * scale:
+                raise AssertionError(f'TDM {label}: means {mean_err} / samples {sample_err} '
+                                     f'above {TDM_FEEDBACK_BAR} x {scale}, or no feedback '
+                                     f'(max |mean| {mean_max})')
+            out[label] = dict(ms_per_step=ms64 / steps, ms_per_step_c128=ms128 / steps,
+                              peak_gib=runs['complex64'][4], busy=busy, cov_rel_err=cov_err,
+                              mean_abs_err=mean_err, sample_abs_err=sample_err,
+                              feedback_scale=scale, modes=nmode)
+    return {}, out
+
+
+def bosonic_circuit():
+    """Two cats (even and odd, r = 1.5) and a GKP state (epsilon 0.05, the
+    weights above 0.1), two balanced beam splitters, homodyne x of mode 2."""
+    dqt = _pkg()[0]
+    cir = dqt.QumodeCircuit(3, backend='bosonic')
+    cir.cat(0, r=1.5, theta=0.0, p=0)
+    cir.cat(1, r=1.5, theta=0.0, p=1)
+    cir.gkp(2, theta=0.0, phi=0.0, epsilon=0.05, amp_cutoff=0.1)
+    cir.bs([0, 1], [np.pi / 4, 0.0])
+    cir.bs([1, 2], [np.pi / 4, 0.0])
+    cir.homodyne_x(2)
+    return cir
+
+
+def _marginal_bins(cov, mean, weight, edges):
+    """Bin probabilities of p(x) = Re sum_k w_k N(x; mu_k, s_k^2) (complex
+    means: the normal CDF continued analytically through erf), the tails
+    beyond the edges as two more cells."""
+    from scipy.special import erf
+    s = np.sqrt(2 * cov)[:, None]
+    cdf = 0.5 * (1 + erf((edges[None, :] - mean[:, None]) / s))
+    inner = np.real(np.sum(weight[:, None] * np.diff(cdf, axis=1), 0))
+    below = np.real(np.sum(weight * cdf[:, 0]))
+    return np.concatenate([[below], inner, [1 - below - inner.sum()]])
+
+
+def check_bosonic(card: str):
+    """Phase 9k, the Bosonic backend at complex128: the cats and the GKP
+    state combined (16 x the GKP's components), the beam splitters,
+    measure_homodyne(1000 shots) through the conditional homodyne (the
+    weights of every shot's state sum to 1), the Wigner function of mode
+    0 on 100 x 100 points (its integral within 1e-3 of 1), the quadrature
+    means and photon statistics, and the rejection sampler's draws of mode
+    0's x (MARGINAL_SHOTS) against its marginal p(x) by a chi-square."""
+    import torch
+    dqt = _pkg()[0]
+    out = {}
+    with complex128(), torch.no_grad():
+        cir = bosonic_circuit()
+        gkp = cir._bosonic_states[2].ncomb
+        state, stats = _cv_stats(cir)
+        ncomb = state[2].shape[-1]
+        wsum = state[2].sum().item()
+        print(f'Bosonic: ncomb {ncomb} = 16 x {gkp} GKP components; forward '
+              f'{_stats_text(stats)}; weights sum {wsum:.12f} [{card}]')
+        if ncomb != 16 * gkp or not abs(wsum - 1) <= 1e-9:
+            raise AssertionError(f'Bosonic state: {ncomb} components, weights sum {wsum}')
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        xs, hstats = _cv_stats(lambda: cir.measure_homodyne(shots=BOSONIC_SHOTS, generator=gen))
+        weights = cir.state_measured[2].sum(-1)
+        werr = (weights - 1).abs().max().item()
+        print(f'Bosonic measure_homodyne({BOSONIC_SHOTS}): x of mode 2 mean '
+              f'{xs.mean().item():.4f}, std {xs.std().item():.4f}; every shot\'s weights sum to '
+              f'1 within {werr:.1e}; {_stats_text(hstats)} [{card}]')
+        if xs.shape != (BOSONIC_SHOTS,) or not torch.isfinite(xs).all() or not werr <= 1e-9:
+            raise AssertionError('Bosonic measure_homodyne: bad samples or weights')
+        wig, wstats = _cv_stats(lambda: cir.wigner(0, npoints=WIGNER_POINTS, plot=False,
+                                                    normalize=False))
+        step = (20 / (WIGNER_POINTS - 1)) ** 2
+        integral = wig.sum().item() * step
+        qmean = cir.quadrature_mean().cpu().numpy().round(6).tolist()
+        nmean, nvar = (t.cpu().numpy().round(6).tolist() for t in cir.photon_number_mean_var())
+        print(f'Bosonic Wigner of mode 0 on {WIGNER_POINTS} x {WIGNER_POINTS}: integral '
+              f'{integral:.6f}, min {wig.min().item():.4f}; {_stats_text(wstats)}; <x> {qmean}, '
+              f'<n> {nmean}, Var n {nvar} [{card}]')
+        if not abs(integral - 1) <= 1e-3:
+            raise AssertionError(f'Bosonic Wigner function integrates to {integral}')
+        from deepquantum_tpu_torch.photonic.measurement import sample_bosonic
+        cov, mean, weight = (t[0] for t in state)
+        draws, sstats = _cv_stats(lambda: sample_bosonic(
+            cov[None, :, :1, :1], mean[None, :, :1].expand(MARGINAL_SHOTS, -1, -1, -1),
+            weight[None], gen))
+        edges = np.linspace(-9, 9, 61)
+        probs = _marginal_bins(cov[:, 0, 0].cpu().numpy(), mean[:, 0, 0].cpu().numpy(),
+                               weight.cpu().numpy(), edges)
+        obs = np.histogram(draws[:, 0].cpu().numpy(), np.concatenate([[-np.inf], edges,
+                                                                       [np.inf]]))[0]
+        exp = probs * MARGINAL_SHOTS
+        big = exp >= 5
+        stat = float(np.sum((obs[big] - exp[big]) ** 2 / exp[big]))
+        dof = int(big.sum()) - 1
+        bar = dof + 6 * np.sqrt(2 * dof)
+        print(f'Bosonic rejection sampler, x of mode 0: {MARGINAL_SHOTS} draws, chi-square '
+              f'{stat:.1f} on {dof} dof (bound {bar:.1f}); min bin probability '
+              f'{probs.min():.2e}; {_stats_text(sstats)} [{card}]')
+        _hold_chi2('Bosonic marginal', stat, dof, bar)
+        out = dict(ncomb=ncomb, forward=stats, measure_homodyne=hstats, wigner=wstats,
+                   sampler=sstats, wigner_integral=integral, chi2=stat, dof=dof)
+    return {}, out
+
+
 # ----------------------------------------------------------------- profile
 # ------------------------------------------- the rest of the qubit engine
 QFT_N = 24
@@ -3769,6 +4238,14 @@ def main() -> int:
         engine['mps'] = check_mps(smi)
     print(f'qubit engine paths (launches per call): {json.dumps(engine_launches)}')
     print(f'qubit engine paths: {json.dumps(engine)}')
+    cv = {}
+    for key, check in (('graph_gbs', lambda: check_graph_gbs(smi, np.random.default_rng(SEED + 10))),
+                       ('lossy_gbs', lambda: check_lossy_gbs(smi)),
+                       ('tdm', lambda: check_tdm(smi)), ('bosonic', lambda: check_bosonic(smi))):
+        with phase(key):
+            counts, cv[key] = check()
+            add(counts)
+    print(f'continuous-variable paths: {json.dumps(cv)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

@@ -38,6 +38,11 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     probs = bs(data=angles, is_prob=True)       # boson sampling: one permanent per outcome
     gbs = dqt.photonic.GaussianBosonSampling(10, squeezing, unitary, detector='threshold')
     probs = gbs(is_prob=True)                   # click patterns: a kernel call per click count
+    counts = gbs.measure(shots=10**5, generator=gen)   # GBS samples from that table
+    cv = dqt.QumodeCircuit(4, backend='bosonic')        # Gaussian / Bosonic: loss, homodyne
+    cv.cat(0, r=1.5, p=1); cv.bs([0, 1]); cv.loss_db(1, 3.0); cv.homodyne_x(1)
+    cv(); xs = cv.measure_homodyne(shots=1000, generator=gen)
+    tdm = dqt.QumodeCircuitTDM(1, 'vac')        # time-domain multiplexing with feedback
 """
 
 from . import bitmath, photonic
@@ -49,12 +54,16 @@ from .interop import from_jax, params_from_numpy, qumode_from_jax
 from .ops import qmath
 from .ops.qmath import (amplitude_encoding, expectation_pauli, inner_product_mps, measure,
                         meyer_wallach_measure, multi_kron, partial_trace, slice_state_vector)
-from .photonic import FockState, GaussianState, QumodeCircuit, permanent, torontonian
+from .photonic import (BosonicState, CatState, FockState, FockStateBosonic, GaussianState,
+                       GKPState, QumodeCircuit, QumodeCircuitTDM, cv_to_wigner, hafnian_batch,
+                       permanent, takagi, torontonian, williamson)
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 'set_device',
            'cdtype', 'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
-           'QumodeCircuit', 'FockState', 'GaussianState', 'permanent', 'torontonian',
+           'QumodeCircuit', 'QumodeCircuitTDM', 'FockState', 'GaussianState', 'BosonicState',
+           'CatState', 'GKPState', 'FockStateBosonic', 'permanent', 'torontonian', 'takagi',
+           'williamson', 'hafnian_batch', 'cv_to_wigner',
            'qumode_from_jax', 'set_hbar', 'set_kappa', 'amplitude_encoding',
            'expectation_pauli', 'inner_product_mps', 'measure', 'meyer_wallach_measure',
            'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath',
@@ -78,6 +87,12 @@ _LAZY_ATTRS = {
     'GaussianBosonSampling': ('.photonic.ansatz', 'GaussianBosonSampling'),
     'UnitaryDecomposer': ('.photonic.decompose', 'UnitaryDecomposer'),
     'hafnian': ('.photonic.hafnian_', 'hafnian'),
+    'GraphGBS': ('.photonic.ansatz', 'GraphGBS'),
+    'combine_bosonic_states': ('.photonic.state', 'combine_bosonic_states'),
+    'Homodyne': ('.photonic.measurement', 'Homodyne'),
+    'Generaldyne': ('.photonic.measurement', 'Generaldyne'),
+    'GeneralBosonic': ('.photonic.measurement', 'GeneralBosonic'),
+    'PhotonNumberResolvingBosonic': ('.photonic.measurement', 'PhotonNumberResolvingBosonic'),
 }
 _NOT_PORTED = {
     'mbqc': 'mbqc/', 'parallel': 'parallel/', 'api': 'api.py', 'cutting': 'cutting.py',
@@ -85,12 +100,9 @@ _NOT_PORTED = {
     'DistributedQubitCircuit': 'parallel/circuit.py',
     'DistributedQubitState': 'parallel/sharded.py',
     'setup_distributed': 'parallel/sharded.py', 'cleanup_distributed': 'parallel/sharded.py',
-    'QumodeCircuitTDM': 'photonic/tdm.py', 'BosonicState': 'photonic/state.py',
-    'CatState': 'photonic/state.py', 'GKPState': 'photonic/state.py',
-    'FockStateBosonic': 'photonic/state.py', 'DistributedFockState': 'photonic/distributed.py',
-    'DistributedQumodeCircuit': 'photonic/distributed.py', 'GraphGBS': 'photonic/ansatz.py',
+    'DistributedFockState': 'photonic/distributed.py',
+    'DistributedQumodeCircuit': 'photonic/distributed.py',
     'UnitaryMapper': 'photonic/mapper.py', 'DrawClements': 'photonic/draw.py',
-    'takagi': 'photonic/qmath.py', 'williamson': 'photonic/qmath.py',
     'Pattern': 'mbqc/pattern.py', 'SubGraphState': 'mbqc/state.py',
     'GraphState': 'mbqc/state.py', 'cir_to_qasm3': 'qasm.py', 'qasm3_to_cir': 'qasm.py',
 }

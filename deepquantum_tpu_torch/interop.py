@@ -117,60 +117,89 @@ _SINGLE_BS = {'BeamSplitterSingle_rx': 'bs_rx', 'BeamSplitterSingle_ry': 'bs_ry'
               'BeamSplitterSingle_h': 'bs_h'}
 _BY_NAME = {'PhaseShift': 'ps', 'BeamSplitter': 'bs', 'BeamSplitterTheta': 'bs_theta',
             'BeamSplitterPhi': 'bs_phi', 'DisplacementPosition': 'x', 'DisplacementMomentum': 'z',
-            **_SINGLE_BS}
+            'QuadraticPhase': 'qp', 'ControlledX': 'cx', 'ControlledZ': 'cz', **_SINGLE_BS}
 _R_THETA = {'Squeezing': 's', 'Squeezing2': 's2', 'Displacement': 'd'}
 
 
+def _bosonic_from_jax(state):
+    from .photonic import BosonicState
+    return BosonicState([np.asarray(state.cov), np.asarray(state.mean), np.asarray(state.weight)],
+                        state.nmode, state.cutoff)
+
+
+def _qumode_op(out, op):
+    """Append the port's counterpart of one JAX photonic op to ``out``."""
+    wires = list(op.wires)
+    # parameter values are placeholders here: the slots are overwritten
+    if op.kind == 'barrier':
+        out.barrier(wires)
+    elif op.kind == 'loss':
+        out.loss(wires, [0.0])
+    elif op.kind == 'delay':
+        out.delay(wires[0], ntau=op.extra['ntau'], inputs=[0.0, 0.0],
+                  convention=op.extra['convention'])
+    elif op.kind != 'gate':
+        raise NotImplementedError(f'qumode_from_jax: cannot map {op.kind} op {op.name}')
+    elif op.static_unitary is not None:
+        out.any(np.asarray(op.static_unitary), wires, name=op.name)
+    elif op.name == 'MZI':
+        out.mzi(wires, [0.0, 0.0], phi_first=bool(op.unitary_fn.__defaults__[0]))
+    elif op.name == 'PhaseShiftInv':
+        out.r(wires, [0.0], inv_mode=True)
+    elif op.name in _BY_NAME:
+        getattr(out, _BY_NAME[op.name])(wires, [0.0] * op.npara)
+    elif op.name in _R_THETA:
+        getattr(out, _R_THETA[op.name])(wires, 0.0, 0.0)
+    else:
+        raise NotImplementedError(f'qumode_from_jax: cannot map gate {op.name}')
+
+
 def qumode_from_jax(cir, device=None):
-    """Build the port's QumodeCircuit from a deepquantum_tpu QumodeCircuit.
+    """Build the port's QumodeCircuit (or QumodeCircuitTDM) from a
+    deepquantum_tpu one.
 
     Reads ``nmode``, ``backend``, ``basis``, ``cutoff``, ``detector``, the
-    init state (``state`` or ``cov`` / ``mean``), ``operators``, ``_pvals``,
-    ``_train_mask``, ``_enc_pidx``, ``encoders`` and ``_custom_out_basis``.
-    The JAX gates hold closures, so they are told apart by name (an MZI's
-    ``phi_first`` sits in the defaults of its ``unitary_fn``; a fixed
-    unitary carries ``static_unitary``). What the port cannot map (delay,
-    loss, homodyne, Fock-only gates, tensor mode, the bosonic backend,
-    per-forward noise) raises NotImplementedError."""
-    from .photonic import QumodeCircuit
+    init state (``state``, ``cov`` / ``mean`` / ``weight``), the cat / GKP
+    states of the Bosonic backend (``_bosonic_states``), ``operators``
+    (gates, loss, delay loops, barriers), the homodyne ``measurements``,
+    ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``encoders`` and
+    ``_custom_out_basis``. The JAX gates hold closures, so they are told
+    apart by name (an MZI's ``phi_first`` sits in the defaults of its
+    ``unitary_fn``; a fixed unitary carries ``static_unitary``). What the
+    port cannot map (the Fock-only gates, tensor mode, per-forward noise, a
+    measurement other than Homodyne) raises NotImplementedError."""
+    from .photonic import QumodeCircuit, QumodeCircuitTDM
 
-    if cir.measurements or getattr(cir, '_with_delay', False):
-        raise NotImplementedError('qumode_from_jax: homodyne measurements and delay loops are '
-                                  'not ported yet')
-    if getattr(cir, '_noise_pidx', None) or getattr(cir, '_bosonic_states', None):
-        raise NotImplementedError('qumode_from_jax: per-forward noise and cat / GKP states are '
-                                  'not ported yet')
+    if getattr(cir, '_noise_pidx', None):
+        raise NotImplementedError('qumode_from_jax: per-forward noise is not ported yet')
     init = cir.init_state
     if cir.backend == 'fock':
         state = np.asarray(init.state)
     elif cir.backend == 'gaussian':
         state = [np.asarray(init.cov, np.float64), np.asarray(init.mean, np.float64)]
     else:
-        raise NotImplementedError(f"qumode_from_jax: backend={cir.backend!r} is not ported yet")
-    out = QumodeCircuit(cir.nmode, init_state=state, cutoff=cir.cutoff, backend=cir.backend,
-                        basis=cir.basis if cir.backend == 'fock' else True,
-                        detector=cir.detector, name=cir.name, den_mat=cir.den_mat, mps=cir.mps,
-                        device=device)
+        state = _bosonic_from_jax(init)
+    if type(cir).__name__ == 'QumodeCircuitTDM':
+        out = QumodeCircuitTDM(cir.nmode, init_state=state, cutoff=cir.cutoff,
+                               backend=cir.backend, name=cir.name, device=device)
+    else:
+        out = QumodeCircuit(cir.nmode, init_state=state, cutoff=cir.cutoff, backend=cir.backend,
+                            basis=cir.basis if cir.backend == 'fock' else True,
+                            detector=cir.detector, name=cir.name, den_mat=cir.den_mat,
+                            mps=cir.mps, device=device)
     for op in cir.operators:
-        if op.kind != 'gate':
-            raise NotImplementedError(f'qumode_from_jax: cannot map {op.kind} op {op.name}')
-        wires = list(op.wires)
-        # parameter values are placeholders here: the slots are overwritten below
-        if op.static_unitary is not None:
-            out.any(np.asarray(op.static_unitary), wires, name=op.name)
-        elif op.name == 'MZI':
-            out.mzi(wires, [0.0, 0.0], phi_first=bool(op.unitary_fn.__defaults__[0]))
-        elif op.name in _BY_NAME:
-            getattr(out, _BY_NAME[op.name])(wires, [0.0] * op.npara)
-        elif op.name in _R_THETA:
-            getattr(out, _R_THETA[op.name])(wires, 0.0, 0.0)
-        else:
-            raise NotImplementedError(f'qumode_from_jax: cannot map gate {op.name}')
+        _qumode_op(out, op)
         new = out.operators[-1]
         if new.npara != op.npara:
             raise NotImplementedError(f'qumode_from_jax: {op.name} has {op.npara} parameters '
                                       f'here, {new.npara} in the port')
         new.pidx = tuple(op.pidx)
+    for m in cir.measurements:
+        if type(m).__name__ != 'Homodyne':
+            raise NotImplementedError(f'qumode_from_jax: cannot map measurement {m.name}')
+        out.homodyne(list(m.wires), phi=m.phi, eps=float(np.sqrt(m.cov_m[0, 0])))
+    if getattr(cir, '_bosonic_states', None) is not None:
+        out._bosonic_states = [_bosonic_from_jax(s) for s in cir._bosonic_states]
     enc = {id(op) for op in cir.encoders}
     out.encoders = [new for new, op in zip(out.operators, cir.operators) if id(op) in enc]
     out._pvals = [float(v) for v in cir._pvals]

@@ -1,26 +1,41 @@
-"""QumodeCircuit: the photonic circuit API (Fock basis mode and Gaussian).
+"""QumodeCircuit: the photonic circuit API (Fock basis mode, Gaussian, Bosonic).
 
 PyTorch counterpart of ``deepquantum_tpu/photonic/circuit.py``: a circuit is
-a list of gate descriptors plus a flat parameter vector, and each backend is
-a plain function of them (there is no jit cache: the functions are called).
+a list of operation descriptors plus a flat parameter vector, and each
+backend is a plain function of them (there is no jit cache: the functions
+are called).
 
 - Fock backend, basis mode: the amplitudes of every output basis state as
   one dense vector, one Ryser permanent per state, all in ONE launch of the
-  permanent kernel on the card (``qmath.permanent_batch``).
-- Gaussian backend: affine symplectic folds on (cov, mean), then per
-  outcome a hafnian (``detector='pnrd'``), or for ``detector='threshold'``
-  the torontonians of all click patterns of one click count in one call
-  of the CUDA LU kernel on the card (one pattern alone: one torontonian).
+  permanent kernel on the card (``qmath.permanent_batch``); ``measure``
+  draws from them.
+- Gaussian backend: affine symplectic maps and photon loss on (cov, mean),
+  each applied to the rows and columns of its modes, a batch of data rows
+  at once; then per outcome group one batched hafnian (``detector='pnrd'``)
+  or, for ``detector='threshold'``, the torontonians of all click patterns
+  of one click count in one call of the CUDA LU kernel on the card; or
+  homodyne samples and conditioning (``measurement.py``), Wigner functions.
+- Bosonic backend: the same maps on every component of (cov, complex mean,
+  weight); cat and GKP states on chosen modes.
+- Time-domain multiplexing: ``delay`` loops unrolled onto concurrent modes,
+  shifted after each time step (``tdm.QumodeCircuitTDM`` runs the steps
+  with homodyne feedback); ``global_circuit`` unrolls them in space.
 
-Not ported yet, and raising ``NotImplementedError`` by name: Fock tensor
-mode (``basis=False``), ``den_mat``, ``mps``, ``backend='bosonic'``,
-``delay`` (TDM), ``loss``, ``noise``, ``measure`` and homodyne, ``draw``,
-``wigner``, and the gates that exist only as Fock matrices.
+Not ported yet, and raising ``NotImplementedError`` by name (the Fock
+slice): Fock tensor mode (``basis=False``), ``den_mat``, ``mps``, the gates
+that exist only as Fock matrices (``cp``, ``k``, ``ck``) and the CV gates'
+Fock matrices (``qp``, ``cx``, ``cz`` on the Fock backend), loss, delay and
+homodyne on the Fock backend, per-forward ``noise``, ``draw``. Fock-basis
+probabilities of a Bosonic state (``is_prob`` / ``measure`` /
+``get_prob``) raise too: they need loop hafnians with complex
+displacement, which the JAX package does not have either (it drops the
+weights there, ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
 import copy as _copy
+from collections import defaultdict
 from functools import partial
 from math import factorial
 from typing import Any
@@ -28,36 +43,76 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import config
 from ..config import cdtype, rdtype, resolve_device
 from . import gates as PG
-from .gates import PHOTONIC_REGISTRY, passive_xp_from_unitary
-from .qmath import fock_combinations, permanent, permanent_batch, photon_number_mean_var, sub_matrix
-from .state import FockState, GaussianState
+from .channel import loss_xy, transmittance_to_theta
+from .gates import PHOTONIC_REGISTRY
+from .qmath import (fock_combinations, permanent, permanent_batch, photon_number_mean_var,
+                    shift_func, sub_matrix)
+from .state import BosonicState, CatState, FockState, GaussianState, GKPState, combine_bosonic_states
 
 __all__ = ['QumodeCircuit', 'PhotonicOp']
 
+_FOCK_SLICE = 'the Fock slice'
+_BOSONIC_PROBS = ("Fock-basis probabilities of a Bosonic state need loop hafnians with "
+                  "complex displacement; the JAX package computes one Gaussian table per "
+                  "component and drops the weights (ROADMAP queue 3)")
 
-def _missing(what: str):
-    raise NotImplementedError(f'QumodeCircuit: {what} is not ported to deepquantum_tpu_torch yet')
+
+def _missing(what: str, where: str = _FOCK_SLICE):
+    raise NotImplementedError(f'QumodeCircuit: {what} is not ported to deepquantum_tpu_torch '
+                              f'yet ({where})')
+
+
+def _delay_subgates(op, wire1: int, wire2: int) -> list:
+    """A delay loop's gates on its concurrent modes: wire1 the loop's mode,
+    wire2 the spatial mode. 'bs': a BeamSplitterTheta (phi = pi / 2) on
+    both, then a PhaseShift on the loop; 'mzi': one MZI with
+    ``phi_first=False``."""
+    if op.extra['convention'] == 'bs':
+        return [PhotonicOp(op.name, [wire1, wire2], op.pidx[:1], 1,
+                           unitary_fn=partial(PG.bs_theta_unitary, phi=np.pi / 2)),
+                PhotonicOp(op.name + '_ps', [wire1], op.pidx[1:2], 1, unitary_fn=PG.ps_unitary,
+                           xp_fn=PG.ps_xp)]
+    return [PhotonicOp(op.name, [wire1, wire2], op.pidx, 2,
+                       unitary_fn=partial(PG.mzi_unitary, phi_first=False))]
+
+
+def _apply_map(cov, mean, m, v, idx):
+    """cov -> S cov S^T and mean -> S mean + d for S the identity but the
+    block m on the rows / columns ``idx`` (a tensor) and d the vector v
+    there; m and v may carry batch axes in front of the state's."""
+    batch = np.broadcast_shapes(cov.shape[:-2], m.shape[:-2])
+    cov = cov.expand(batch + cov.shape[-2:])
+    cov = cov.index_copy(-2, idx, m @ cov[..., idx, :])
+    cov = cov.index_copy(-1, idx, cov[..., :, idx] @ m.mT)
+    mb = np.broadcast_shapes(mean.shape[:-2], m.shape[:-2])
+    mean = mean.expand(mb + mean.shape[-2:])
+    mean = mean.index_copy(-2, idx, m.to(mean.dtype) @ mean[..., idx, :] + v.to(mean.dtype))
+    return cov, mean
 
 
 class PhotonicOp:
-    """One photonic operation of the circuit's list."""
+    """One photonic operation of the circuit's list; ``kind`` is 'gate',
+    'loss', 'delay' or 'barrier'."""
 
-    def __init__(self, name, wires, pidx=(), npara=0, unitary_fn=None, xp_fn=None,
-                 static_unitary=None):
+    def __init__(self, name, wires, pidx=(), npara=0, kind='gate', unitary_fn=None,
+                 xp_fn=None, static_unitary=None, extra=None):
         self.name = name
         self.wires = tuple(wires)
         self.pidx = tuple(pidx)
         self.npara = npara
+        self.kind = kind
         self.unitary_fn = unitary_fn
         self.xp_fn = xp_fn
         self.static_unitary = static_unitary
+        self.extra = extra or {}
 
     def params(self, full):
         if not self.npara:
             return None
-        return full[list(self.pidx)]
+        return full[..., list(self.pidx)]
 
     def unitary(self, full):
         """k x k creation-operator unitary (passive gates)."""
@@ -72,7 +127,7 @@ class PhotonicOp:
         if self.xp_fn is None:
             if self.unitary_fn is None and self.static_unitary is None:
                 raise ValueError(f'{self.name} has no symplectic representation')
-            return passive_xp_from_unitary(self.unitary(full))
+            return PG.passive_xp_from_unitary(self.unitary(full))
         return self.xp_fn(self.params(full))
 
 
@@ -81,9 +136,10 @@ class QumodeCircuit:
 
     Args:
         nmode: number of modes.
-        init_state: Fock basis photon numbers / 'vac' / [cov, mean] / a state object.
+        init_state: Fock basis photon numbers / 'vac' / [cov, mean(, weight)]
+            / a state object.
         cutoff: Fock truncation.
-        backend: 'fock' (basis mode) or 'gaussian'.
+        backend: 'fock' (basis mode), 'gaussian' or 'bosonic'.
         basis: Fock basis mode (permanent-based); tensor mode is not ported.
         detector: 'pnrd' or 'threshold' (Gaussian probabilities).
         den_mat, mps, chi, noise, mu, sigma: the JAX package's options, kept in
@@ -97,16 +153,14 @@ class QumodeCircuit:
                  name: str | None = None, den_mat: bool = False, mps: bool = False,
                  chi: int | None = None, noise: bool = False, mu: float = 0,
                  sigma: float = 0.1, device=None) -> None:
-        if backend == 'bosonic':
-            _missing("backend='bosonic'")
-        if backend not in ('fock', 'gaussian'):
+        if backend not in ('fock', 'gaussian', 'bosonic'):
             raise ValueError(f'Unknown backend {backend}')
         if den_mat:
             _missing('den_mat=True')
         if mps:
             _missing('mps=True')
         if noise:
-            _missing('noise=True')
+            _missing('noise=True', 'per-forward parameter noise')
         if backend == 'fock' and not basis:
             _missing('Fock tensor mode (basis=False)')
         self.nmode = nmode
@@ -117,15 +171,26 @@ class QumodeCircuit:
         self.device = resolve_device(device)
         self.operators: list[PhotonicOp] = []
         self.encoders: list[PhotonicOp] = []
+        self.measurements: list = []
+        self.wires_homodyne: list = []
         self._pvals: list[float] = []
         self._train_mask: list[bool] = []
         self._enc_pidx: list[int] = []
         self.npara = 0
         self.ndata = 0
         self.state = None
+        self.state_measured = None
         self._cv_state = None
         self._basis_table = None       # output basis of the last Fock forward
         self._custom_out_basis = None  # user override via set_fock_basis
+        self._bosonic_states = None    # per-mode Bosonic states (cat / gkp)
+        # time-domain multiplexing: the delay loops of each spatial mode
+        self._with_delay = False
+        self._nmode_tdm = nmode
+        self._ntau_dict = defaultdict(list)
+        self._unroll_dict = None
+        self._operators_tdm = None
+        self._measurements_tdm = None
         if cutoff is None:
             cutoff = 2 if backend == 'fock' else 5
         self.cutoff = cutoff
@@ -141,13 +206,12 @@ class QumodeCircuit:
             else:
                 self.init_state = FockState(init_state, self.nmode, self.cutoff, self.basis)
             self.cutoff = self.init_state.cutoff
-        else:
-            if init_state is None:
-                init_state = 'vac'
-            if isinstance(init_state, GaussianState):
-                self.init_state = init_state
-            else:
-                self.init_state = GaussianState(init_state, self.nmode, self.cutoff)
+            return
+        cls = GaussianState if self.backend == 'gaussian' else BosonicState
+        if init_state is None:
+            init_state = 'vac'
+        self.init_state = init_state if isinstance(init_state, cls) else \
+            cls(init_state, self.nmode, self.cutoff)
 
     # ---------------------------------------------------------- parameters
     def _trainable(self) -> list[int]:
@@ -172,16 +236,23 @@ class QumodeCircuit:
             return x.to(device=self.device, dtype=rdtype())
         return torch.as_tensor(np.asarray(x, np.float64), device=self.device).to(rdtype())
 
+    def _complex(self, x) -> torch.Tensor:
+        if torch.is_tensor(x):
+            return x.to(device=self.device, dtype=cdtype())
+        return torch.as_tensor(np.asarray(x, np.complex128), device=self.device).to(cdtype())
+
     def _full_params(self, params=None, data=None, data_idx=None) -> torch.Tensor:
         """All parameter slots as one vector: the stored values, with the
-        trainable slots from ``params`` and the encoder slots from ``data``."""
+        trainable slots from ``params`` and the encoder slots from ``data``;
+        (B, P) for a (B, ndata) batch of data rows."""
         full = torch.as_tensor(np.asarray(self._pvals, np.float64), device=self.device).to(rdtype())
         if params is not None:
             ti = torch.as_tensor(self._trainable(), dtype=torch.long, device=self.device)
             full = full.index_put((ti,), self._real(params).reshape(-1))
         if data is not None and self._enc_pidx:
-            ei = torch.as_tensor(self._enc_pidx, dtype=torch.long, device=self.device)
-            full = full.index_put((ei,), self._real(data).reshape(-1)[list(data_idx)])
+            vals = self._real(data)[..., list(data_idx)]
+            full = full.expand(vals.shape[:-1] + full.shape).clone()
+            full[..., self._enc_pidx] = vals
         return full
 
     def _data_indices(self, data_len: int) -> list[int]:
@@ -196,7 +267,40 @@ class QumodeCircuit:
         self._train_mask.extend([requires_grad and not encode] * len(values))
         return idx
 
+    def init_para(self) -> None:
+        """Re-randomize all trainable parameters in [0, 2 pi)."""
+        for i, trainable in enumerate(self._train_mask):
+            if trainable:
+                self._pvals[i] = float(np.random.rand() * 2 * np.pi)
+
     # ------------------------------------------------------------------ add
+    def _touch(self) -> None:
+        """Forget what was derived from the operation list."""
+        self._basis_table = None
+        self._unroll_dict = None
+        self._operators_tdm = None
+        self._measurements_tdm = None
+
+    def _append(self, op: PhotonicOp, encode: bool) -> None:
+        self.operators.append(op)
+        if encode:
+            self.encoders.append(op)
+            self._enc_pidx.extend(op.pidx)
+        if op.kind == 'delay':
+            self._with_delay = True
+            self._ntau_dict[op.wires[0]].append(op.extra['ntau'])
+            self._nmode_tdm += op.extra['ntau']
+        self._touch()
+
+    def _register(self, op: PhotonicOp, encode: bool) -> PhotonicOp:
+        """Append an op whose parameters are new slots, and count them."""
+        self._append(op, encode)
+        if encode:
+            self.ndata += op.npara
+        else:
+            self.npara += op.npara
+        return op
+
     def add_op(self, name: str, wires, inputs=None, encode=False, requires_grad=None,
                unitary_fn=None, xp_fn=None, npara=None, static_unitary=None) -> PhotonicOp:
         wires = [wires] if isinstance(wires, int) else list(wires)
@@ -218,79 +322,100 @@ class QumodeCircuit:
             pidx = self._new_params(values, encode, requires_grad)
         else:
             pidx = ()
-        op = PhotonicOp(name, wires, pidx, npara, unitary_fn, xp_fn, static_unitary)
-        self.operators.append(op)
-        if encode:
-            self.encoders.append(op)
-            self._enc_pidx.extend(pidx)
-            self.ndata += npara
-        else:
-            self.npara += npara
-        self._basis_table = None
-        return op
+        return self._register(PhotonicOp(name, wires, pidx, npara, 'gate', unitary_fn, xp_fn,
+                                         static_unitary), encode)
 
-    def add(self, op: 'QumodeCircuit', encode: bool = False) -> None:
-        """Append another circuit's operations and parameters."""
-        if not isinstance(op, QumodeCircuit):
-            _missing('add() of a standalone gate descriptor (add a circuit, or use the gate sugar)')
-        if self.nmode != op.nmode:
-            raise ValueError(f'add: {op.nmode} modes into a circuit of {self.nmode}')
-        offset = len(self._pvals)
-        self._pvals.extend(op._pvals)
-        self._train_mask.extend(op._train_mask)
-        for g in op.operators:
-            g2 = _copy.copy(g)
-            g2.pidx = tuple(i + offset for i in g.pidx)
-            self.operators.append(g2)
-            if g in op.encoders:
-                self.encoders.append(g2)
-                self._enc_pidx.extend(g2.pidx)
-        self.npara += op.npara
-        self.ndata += op.ndata
-        self._basis_table = None
+    def add(self, op, encode: bool = False, wires=None) -> None:
+        """Append another circuit's operations and parameters, or a
+        ``PhotonicOp`` descriptor. A descriptor's parameters are registered
+        on this circuit the first time it is added (from ``extra['inputs']``,
+        or random; trainable if ``extra['requires_grad']``) and shared when
+        the same descriptor is added again; ``wires`` places the copy."""
+        if isinstance(op, QumodeCircuit):
+            if self.nmode != op.nmode:
+                raise ValueError(f'add: {op.nmode} modes into a circuit of {self.nmode}')
+            offset = len(self._pvals)
+            self._pvals.extend(op._pvals)
+            self._train_mask.extend(op._train_mask)
+            enc = {id(g) for g in op.encoders}
+            for g in op.operators:
+                g2 = _copy.copy(g)
+                g2.pidx = tuple(i + offset for i in g.pidx)
+                self._append(g2, id(g) in enc)
+            self.npara += op.npara
+            self.ndata += op.ndata
+            self.measurements.extend(op.measurements)
+            self.wires_homodyne.extend(op.wires_homodyne)
+            return
+        if not isinstance(op, PhotonicOp):
+            raise TypeError(f'cannot add {type(op).__name__} to a QumodeCircuit')
+        shared = op.npara > 0 and op.extra.get('_owner') is self and bool(op.pidx)
+        if op.npara > 0 and not shared:
+            values = op.extra.get('inputs')
+            if values is None:
+                values = [float(np.random.rand() * 2 * np.pi) for _ in range(op.npara)]
+            op.pidx = self._new_params(list(values), encode, op.extra.get('requires_grad', False))
+            op.extra['_owner'] = self
+        if wires is not None:
+            op = _copy.copy(op)
+            op.wires = tuple([wires] if isinstance(wires, int) else wires)
+        if shared:                    # its slots are counted already
+            self._append(op, False)
+        else:
+            self._register(op, encode)
 
     # ----------------------------------------------------------- global ops
     def get_unitary(self, params=None, data=None) -> torch.Tensor:
-        """Global nmode x nmode creation-operator unitary."""
-        didx = None if data is None else self._data_indices(np.shape(data)[-1])
+        """Global nmode x nmode creation-operator unitary (of one row of data)."""
+        if data is not None:
+            data = self._real(data).reshape(-1)
+        didx = None if data is None else self._data_indices(data.shape[-1])
         return self._unitary_of(self._full_params(params, data, didx))
 
     def _unitary_of(self, full) -> torch.Tensor:
         eye = torch.eye(self.nmode, dtype=cdtype(), device=self.device)
         u = eye
         for op in self.operators:
-            w = list(op.wires)
-            u_op = eye.index_put((torch.as_tensor(w, device=self.device)[:, None],
-                                  torch.as_tensor(w, device=self.device)[None, :]),
-                                 op.unitary(full).to(cdtype()))
-            u = u_op @ u
+            if op.kind != 'gate':
+                continue
+            w = torch.as_tensor(list(op.wires), device=self.device)
+            u = eye.index_put((w[:, None], w[None, :]), op.unitary(full).to(cdtype())) @ u
         return u
 
+    def _cv_operators(self):
+        """(operators, modes) of one time step: the unrolled concurrent
+        modes when the circuit has delay loops."""
+        if self._with_delay:
+            self._prepare_unroll_dict()
+            self._unroll_circuit()
+            return self._operators_tdm, self._nmode_tdm
+        return self.operators, self.nmode
+
+    def _idx(self, wires, n: int) -> torch.Tensor:
+        return torch.as_tensor(list(wires) + [w + n for w in wires], device=self.device)
+
     def get_symplectic(self, params=None) -> torch.Tensor:
-        """Global symplectic matrix in xxpp."""
+        """Global symplectic matrix in xxpp (of one unrolled time step when
+        the circuit has delay loops)."""
         full = self._full_params(params)
-        s = torch.eye(2 * self.nmode, dtype=rdtype(), device=self.device)
-        for op in self.operators:
-            s = self._global_xp(op, full)[0] @ s
+        operators, n = self._cv_operators()
+        s = torch.eye(2 * n, dtype=rdtype(), device=self.device)
+        for op in operators:
+            if op.kind == 'gate':
+                idx = self._idx(op.wires, n)
+                s = s.index_copy(-2, idx, op.xp(full)[0].to(rdtype()) @ s[idx])
         return s
 
-    def _global_xp(self, op: PhotonicOp, full):
-        n = self.nmode
-        m, v = op.xp(full)
-        wires = torch.as_tensor(list(op.wires) + [w + n for w in op.wires], device=self.device)
-        s = torch.eye(2 * n, dtype=rdtype(), device=self.device).index_put(
-            (wires[:, None], wires[None, :]), m.to(rdtype()))
-        d = torch.zeros((2 * n, 1), dtype=rdtype(), device=self.device).index_put(
-            (wires,), v.to(rdtype()))
-        return s, d
-
     def get_displacement(self, init_mean, params=None) -> torch.Tensor:
-        """Final mean vector after all operations."""
+        """Final mean vector after all gates."""
         full = self._full_params(params)
         mean = self._real(init_mean)
-        for op in self.operators:
-            s, d = self._global_xp(op, full)
-            mean = s @ mean + d
+        operators, n = self._cv_operators()
+        for op in operators:
+            if op.kind == 'gate':
+                m, v = op.xp(full)
+                idx = self._idx(op.wires, n)
+                mean = mean.index_copy(-2, idx, m.to(rdtype()) @ mean[idx] + v.to(rdtype()))
         return mean
 
     # --------------------------------------------------------------- forward
@@ -302,7 +427,8 @@ class QumodeCircuit:
                 stepwise=False, params=None):
         """Run the circuit. Fock backend: the unitary (``is_prob=None``) or a
         dict FockState -> amplitude / probability. Gaussian backend:
-        [cov, mean], or with ``is_prob`` a dict FockState -> probability."""
+        [cov, mean], or with ``is_prob`` a dict FockState -> probability.
+        Bosonic backend: [cov, mean, weight]."""
         if self.backend == 'fock':
             return self._forward_fock(data, state, is_prob, sort, params)
         return self._forward_cv(data, state, is_prob, detector, params)
@@ -406,44 +532,83 @@ class QumodeCircuit:
         return amps[0] if data is None or data.ndim == 1 else amps
 
     # CV helpers ------------------------------------------------------------
-    def _forward_cv(self, data, state, is_prob, detector, params=None):
+    def _cv_parts(self, state):
+        """The forward's input state as tensors: [cov, mean] (Gaussian) or
+        [cov, complex mean, complex weight] (Bosonic)."""
+        bosonic = self.backend == 'bosonic'
         if state is None:
-            state = self.init_state
+            if bosonic and self._bosonic_states is not None:
+                state = combine_bosonic_states(self._bosonic_states, self.cutoff)
+            else:
+                state = self.init_state
         elif isinstance(state, str):
-            state = GaussianState(state, self.nmode, self.cutoff)
+            state = (BosonicState if bosonic else GaussianState)(state, self.nmode, self.cutoff)
         if isinstance(state, GaussianState):
             state = [state.cov, state.mean]
-        cov, mean = self._real(state[0]), self._real(state[1])
+        elif isinstance(state, BosonicState):
+            state = [state.cov, state.mean, state.weight]
+        cov = self._real(state[0])
+        if not bosonic:
+            return [cov, self._real(state[1])]
+        mean = self._complex(state[1])
+        weight = self._complex(state[2]) if len(state) > 2 else \
+            torch.ones((1, cov.shape[-3]), dtype=cdtype(), device=self.device)
+        return [cov, mean, weight]
+
+    def _forward_cv(self, data, state, is_prob, detector, params=None):
+        parts = self._cv_parts(state)
+        cov, mean = parts[0], parts[1]
+        if self._with_delay:
+            self._prepare_unroll_dict()
+            self._unroll_circuit()
+            cov, mean = self._unroll_init_state(cov, mean)
         if data is None:
-            cov, mean = self._run_cv(self._full_params(params), cov, mean)
+            full = self._full_params(params)
         else:
             data = self._real(data)
-            didx = self._data_indices(data.shape[-1])
-            if data.ndim == 1:
-                cov, mean = self._run_cv(self._full_params(params, data, didx), cov, mean)
-            else:
-                # batched data: one state for every row, or row i with state i
+            full = self._full_params(params, data, self._data_indices(data.shape[-1]))
+            if data.ndim > 1:
+                # a batch of data rows: one state for every row, or row i with state i
                 zipped = cov.ndim > 2 and cov.shape[0] == data.shape[0] and cov.shape[0] > 1
-                outs = []
-                for i, d in enumerate(data):
-                    c = cov[i] if zipped else (cov[0] if cov.ndim > 2 else cov)
-                    m = mean[i] if zipped else (mean[0] if mean.ndim > 2 else mean)
-                    outs.append(self._run_cv(self._full_params(params, d, didx), c, m))
-                cov = torch.stack([o[0] for o in outs])
-                mean = torch.stack([o[1] for o in outs])
-        self._cv_state = [cov, mean]
+                if not zipped:
+                    cov = cov[0] if cov.ndim > 2 else cov
+                    mean = mean[0] if mean.ndim > 2 else mean
+        cov, mean = self._run_cv(full, cov, mean)
+        self._cv_state = [cov, mean] + parts[2:]
         if is_prob:
+            if self.backend == 'bosonic':
+                _missing('is_prob=True on the Bosonic backend', _BOSONIC_PROBS)
             self.state = self._forward_cv_prob(cov, mean, detector)
-        else:
-            self.state = [cov, mean]
+            return self.state
+        if self._with_delay:
+            # the returned state is already advanced one time step
+            cov, mean = self._shift_state(cov, mean)
+        self.state = [cov, mean] + parts[2:]
         return self.state
 
     def _run_cv(self, full, cov, mean):
-        """Fold the affine symplectic operations over (cov, mean)."""
-        for op in self.operators:
-            s, d = self._global_xp(op, full)
-            cov = s @ cov @ s.T
-            mean = s @ mean + d
+        """Apply the symplectic maps and the loss channels in order to
+        (cov, mean); parameters (B, P) act on a batch of states, each map on
+        every Bosonic component."""
+        operators, n = self._cv_operators()
+        lift = (1,) if self.backend == 'bosonic' and full.ndim > 1 else ()
+
+        def lifted(t):
+            return t if t.ndim == 2 else t.reshape(t.shape[:-2] + lift + t.shape[-2:])
+
+        for op in operators:
+            if op.kind == 'loss':
+                x, y = (lifted(t) for t in loss_xy(op.params(full)))
+                idx = self._idx(op.wires, n)
+                cov, mean = _apply_map(cov, mean, x, torch.zeros_like(x[..., :1]), idx)
+                y_full = torch.zeros(y.shape[:-2] + (2 * n, 2 * n), dtype=cov.dtype,
+                                     device=cov.device)
+                y_full[..., idx[:, None], idx] = y
+                cov = cov + y_full
+            elif op.kind == 'gate':
+                m, v = op.xp(full)
+                cov, mean = _apply_map(cov, mean, lifted(m.to(cov.dtype)),
+                                       lifted(v.to(cov.dtype)), self._idx(op.wires, n))
         return cov, mean
 
     def _forward_cv_prob(self, cov, mean, detector=None) -> dict:
@@ -453,16 +618,100 @@ class QumodeCircuit:
         return self._state_dict(basis, probs, sort=True)
 
     # ------------------------------------------------------------- outcomes
+    def _last_cv_state(self) -> list:
+        state = self._cv_state if isinstance(self.state, dict) else self.state
+        if state is None:
+            raise RuntimeError('Run the circuit forward first')
+        return state
+
+    def measure(self, shots: int = 1024, with_prob: bool = False, wires=None, detector=None,
+                generator: torch.Generator | None = None, mcmc: bool = False):
+        """Sample Fock-basis outcomes of the last forward: {FockState:
+        count}, or {FockState: (count, probability)} with ``with_prob``; a
+        list of such dicts for a batch. ``wires`` keeps those modes' photon
+        numbers (the others summed out). Fock basis mode draws from the
+        forward's dict (amplitudes or probabilities); the Gaussian backend
+        from its probability table (computed here, with ``detector``, when
+        the forward returned the state). ``torch.multinomial`` on
+        ``generator``."""
+        if mcmc:
+            _missing('measure(mcmc=True)', 'Markov-chain sampling')
+        if self.state is None:
+            raise RuntimeError('Run the circuit forward before measurement')
+        if self.backend == 'bosonic':
+            _missing('measure on the Bosonic backend', _BOSONIC_PROBS)
+        if self.backend == 'fock':
+            if not isinstance(self.state, dict):
+                raise ValueError('measure: run the Fock circuit forward with is_prob=True or '
+                                 'False first (is_prob=None returns the unitary)')
+            probs_dict = self.state
+        else:
+            probs_dict = self.state if isinstance(self.state, dict) else \
+                self._forward_cv_prob(self.state[0], self.state[1], detector)
+        basis = list(probs_dict.keys())
+        vals = torch.stack([probs_dict[b] for b in basis], -1)
+        probs = vals.abs() ** 2 if vals.is_complex() else vals.clamp(min=0)
+        single = probs.ndim == 1 or (self.backend == 'gaussian' and probs.shape[0] == 1)
+        probs = probs.detach().reshape(-1, len(basis)).to(torch.float64)
+        if wires is not None:
+            wires = [wires] if isinstance(wires, int) else sorted(wires)
+            sub = np.asarray([b.state for b in basis])[:, wires]
+            keys, inverse = np.unique(sub, axis=0, return_inverse=True)
+            probs = torch.zeros((probs.shape[0], len(keys)), dtype=probs.dtype,
+                                device=probs.device).index_add_(
+                1, torch.as_tensor(inverse.reshape(-1), device=probs.device), probs)
+            basis = [FockState(list(k), len(wires), self.cutoff) for k in keys]
+        draws = torch.multinomial(probs, shots, replacement=True, generator=generator)
+        counts = torch.zeros(probs.shape, dtype=torch.long, device=probs.device).scatter_add_(
+            1, draws, torch.ones_like(draws))
+        counts, probs = counts.cpu().numpy(), probs.cpu().numpy()
+        results = []
+        for c_row, p_row in zip(counts, probs):
+            hit = np.flatnonzero(c_row)
+            results.append({basis[i]: (int(c_row[i]), float(p_row[i])) if with_prob
+                            else int(c_row[i]) for i in hit})
+        return results[0] if single else results
+
     def photon_number_mean_var(self, wires=None):
-        """Photon-number mean and variance per wire (Gaussian backend)."""
+        """Photon-number mean and variance per wire of the last CV forward;
+        a Bosonic state's are the mixture's (sum_k w_k <n>_k, and
+        sum_k w_k <n^2>_k - <n>^2, real parts)."""
         if self.backend == 'fock':
             _missing('photon statistics of the Fock backend (tensor mode)')
         if wires is None:
             wires = list(range(self.nmode))
         wires = [wires] if isinstance(wires, int) else list(wires)
-        state = self._cv_state if isinstance(self.state, dict) else self.state
-        exp, var = photon_number_mean_var(state[0], state[1])
-        return exp[..., wires], var[..., wires]
+        state = self._last_cv_state()
+        if self.backend == 'gaussian':
+            exp, var = photon_number_mean_var(state[0], state[1])
+            return exp[..., wires], var[..., wires]
+        weight = state[2][..., None]
+        exp_k, var_k = photon_number_mean_var(state[0].to(cdtype()), state[1])
+        exp = (weight * exp_k).sum(-2)
+        var = (weight * (var_k + exp_k ** 2)).sum(-2) - exp ** 2
+        return exp.real[..., wires], var.real[..., wires]
+
+    def quadrature_mean(self, wires=None):
+        """<x> per wire of the last CV forward; a Bosonic state's is
+        Re sum_k w_k <x>_k."""
+        if self.backend == 'fock':
+            _missing('quadrature_mean of the Fock backend (tensor mode)')
+        if wires is None:
+            wires = list(range(self.nmode))
+        wires = [wires] if isinstance(wires, int) else list(wires)
+        state = self._last_cv_state()
+        mean = state[1][..., wires, 0]
+        if self.backend == 'bosonic':
+            mean = (state[2][..., None] * mean).sum(-2)
+        return mean.real
+
+    def wigner(self, wire: int, **kwargs):
+        """Wigner function of one mode of the last CV forward (see
+        ``wigner.cv_to_wigner``)."""
+        if self.backend == 'fock':
+            _missing('wigner of the Fock backend (fock_to_wigner)')
+        from .wigner import cv_to_wigner
+        return cv_to_wigner(self._last_cv_state(), wire, **kwargs)
 
     def get_amplitude(self, final_state, init_state=None, unitary=None) -> torch.Tensor:
         """Transfer amplitude <final|U|init> of the Fock backend: one
@@ -486,10 +735,10 @@ class QumodeCircuit:
         torontonian of the last forward's state."""
         if self.backend == 'fock':
             return self.get_amplitude(final_state, refer_state, unitary).abs() ** 2
+        if self.backend == 'bosonic':
+            _missing('get_prob on the Bosonic backend', _BOSONIC_PROBS)
         from .gaussian_prob import probs_gaussian_helper
-        state = self._cv_state if isinstance(self.state, dict) else self.state
-        if state is None:
-            raise RuntimeError('Run the circuit forward first')
+        state = self._last_cv_state()
         cov = state[0].reshape(-1, 2 * self.nmode, 2 * self.nmode)
         mean = state[1].reshape(-1, 2 * self.nmode, 1)
         if isinstance(final_state, FockState):
@@ -499,9 +748,30 @@ class QumodeCircuit:
                            for i in range(cov.shape[0])])
         return out[0] if out.shape[0] == 1 else out
 
+    @property
+    def max_depth(self) -> int:
+        """The most operations on one mode."""
+        depth = np.zeros(self.nmode, np.int64)
+        for op in self.operators:
+            for w in op.wires:
+                depth[w] += 1
+        return int(depth.max())
+
     # ------------------------------------------------------------ gate sugar
     def ps(self, wires, inputs=None, encode=False):
         self.add_op('PhaseShift', wires, inputs, encode)
+
+    def r(self, wires, inputs=None, encode=False, inv_mode=False):
+        """A phase shift; with ``inv_mode`` by minus the angle."""
+        if inv_mode:
+            self.add_op('PhaseShiftInv', wires, inputs, encode, npara=1,
+                        unitary_fn=PG.ps_inv_unitary, xp_fn=PG.ps_inv_xp)
+        else:
+            self.ps(wires, inputs, encode)
+
+    def f(self, wires):
+        """The Fourier gate: a phase shift by pi / 2."""
+        self.add_op('PhaseShift', wires, [np.pi / 2], False)
 
     def bs(self, wires, inputs=None, encode=False):
         self.add_op('BeamSplitter', wires, inputs, encode)
@@ -601,6 +871,276 @@ class QumodeCircuit:
     def z(self, wires, inputs=None, encode=False):
         self.add_op('DisplacementMomentum', wires, inputs, encode)
 
+    def _cv_gate(self, name: str, sugar: str, wires, inputs, encode):
+        if self.backend == 'fock':
+            _missing(f'{sugar} on the Fock backend (its Fock matrix)')
+        self.add_op(name, wires, inputs, encode)
+
+    def qp(self, wires, inputs=None, encode=False):
+        """Quadratic phase P(s)."""
+        self._cv_gate('QuadraticPhase', 'qp', wires, inputs, encode)
+
+    def cx(self, wires, inputs=None, encode=False):
+        """CV controlled-X(s) on [control, target]."""
+        self._cv_gate('ControlledX', 'cx', wires, inputs, encode)
+
+    def cz(self, wires, inputs=None, encode=False):
+        """CV controlled-Z(s)."""
+        self._cv_gate('ControlledZ', 'cz', wires, inputs, encode)
+
+    def barrier(self, wires=None):
+        """A barrier (drawing only; no operation)."""
+        wires = list(range(self.nmode)) if wires is None else wires
+        self._append(PhotonicOp('Barrier', [wires] if isinstance(wires, int) else wires,
+                                kind='barrier'), False)
+
+    # ---------------------------------------------------------- loss, delay
+    def loss(self, wires, inputs=None, encode=False):
+        """Photon loss of angle theta, transmittance T = cos^2(theta / 2)."""
+        if self.backend == 'fock':
+            _missing('loss on the Fock backend (Kraus operators on density matrices)')
+        if inputs is None:
+            inputs = [float(np.random.rand() * np.pi)]
+        pidx = self._new_params(list(np.asarray(inputs, np.float64).reshape(-1)), encode, False)
+        self._register(PhotonicOp('PhotonLoss', [wires] if isinstance(wires, int) else wires,
+                                  pidx, 1, kind='loss'), encode)
+
+    def loss_t(self, wires, inputs=None, encode=False):
+        """Photon loss of transmittance T."""
+        theta = None if inputs is None else \
+            [transmittance_to_theta(float(np.asarray(inputs).reshape(-1)[0]))]
+        self.loss(wires, theta, encode)
+
+    def loss_db(self, wires, inputs=None, encode=False):
+        """Photon loss in dB: T = 10^(-dB / 10)."""
+        theta = None if inputs is None else \
+            [transmittance_to_theta(10 ** (-float(np.asarray(inputs).reshape(-1)[0]) / 10))]
+        self.loss(wires, theta, encode)
+
+    def delay(self, wires, ntau: int = 1, inputs=None, convention: str = 'bs',
+              encode: bool = False, loop_gates=None):
+        """A delay loop of ntau time bins on one spatial mode, coupled in by
+        a BeamSplitterTheta and a PhaseShift on the loop ('bs') or by an
+        MZI ('mzi'): two parameters (theta, phi)."""
+        if convention not in ('bs', 'mzi'):
+            raise ValueError(f'Unknown delay convention {convention}')
+        if self.backend == 'fock':
+            _missing('delay on the Fock backend')
+        if loop_gates is not None:
+            _missing('delay(loop_gates=...)', 'gates inside the loop; the JAX package ignores them')
+        if inputs is None:
+            values = [float(np.random.rand() * 2 * np.pi) for _ in range(2)]
+        else:
+            values = list(np.asarray(inputs, np.float64).reshape(-1))
+            if len(values) != 2:
+                raise ValueError(f'delay takes 2 parameters (theta, phi), got {len(values)}')
+        pidx = self._new_params(values, encode, inputs is None and not encode)
+        wire = wires if isinstance(wires, int) else wires[0]
+        self._register(PhotonicOp(f'Delay_{convention}', [wire], pidx, 2, kind='delay',
+                                  extra={'ntau': ntau, 'convention': convention}), encode)
+
+    def _prepare_unroll_dict(self):
+        """Spatial mode -> its delay loops' concurrent modes (the last loop
+        added first), then the spatial mode itself."""
+        if self._unroll_dict is None:
+            self._unroll_dict = defaultdict(list)
+            start = 0
+            for i in range(self.nmode):
+                for ntau in reversed(self._ntau_dict[i]):
+                    self._unroll_dict[i].append(list(range(start, start + ntau)))
+                    start += ntau
+                self._unroll_dict[i].append(start)
+                start += 1
+        return self._unroll_dict
+
+    def _unroll_init_state(self, cov, mean):
+        """Embed a state of the spatial modes into the concurrent modes,
+        the loops in vacuum; a state already on them is kept."""
+        nt = 2 * self._nmode_tdm
+        if cov.shape[-1] == nt:
+            return cov, mean
+        idx = np.array([v[-1] for v in self._unroll_dict.values()])
+        idx = np.concatenate([idx, idx + self._nmode_tdm])
+        vac = config.HBAR / (4 * config.KAPPA ** 2)
+        cov_tdm = (torch.eye(nt, dtype=cov.dtype, device=cov.device) * vac).repeat(
+            cov.shape[:-2] + (1, 1))
+        cov_tdm[..., idx[:, None], idx] = cov
+        mean_tdm = torch.zeros(mean.shape[:-2] + (nt, 1), dtype=mean.dtype, device=mean.device)
+        mean_tdm[..., idx, :] = mean
+        return cov_tdm, mean_tdm
+
+    def _unroll_circuit(self):
+        """The operations and measurements of one time step on the
+        concurrent modes; a delay becomes its coupling gates on the
+        loop's first mode and the spatial mode."""
+        if self._operators_tdm is None:
+            ops = []
+            ndelay = np.zeros(self.nmode, np.int64)
+            for op in self.operators:
+                if op.kind == 'delay':
+                    wire = op.wires[0]
+                    ndelay[wire] += 1
+                    loop = self._unroll_dict[wire][-int(ndelay[wire]) - 1]
+                    ops.extend(_delay_subgates(op, loop[0], self._unroll_dict[wire][-1]))
+                else:
+                    g = _copy.copy(op)
+                    g.wires = tuple(self._unroll_dict[w][-1] for w in op.wires)
+                    ops.append(g)
+            self._operators_tdm = ops
+        if self._measurements_tdm is None:
+            ms = []
+            for op_m in self.measurements:
+                m2 = _copy.copy(op_m)
+                m2.nmode = self._nmode_tdm
+                m2.wires = [self._unroll_dict[w][-1] for w in op_m.wires]
+                ms.append(m2)
+            self._measurements_tdm = ms
+
+    def _shift_state(self, cov, mean, nstep: int = 1, reverse: bool = False):
+        """Cycle every delay loop's modes by nstep time bins."""
+        idx_shift = []
+        for wire in self._unroll_dict:
+            for idx in self._unroll_dict[wire]:
+                if isinstance(idx, int):
+                    idx_shift.append(idx)
+                else:
+                    idx_shift.extend(shift_func(list(idx), -nstep if reverse else nstep))
+        idx_shift = np.asarray(idx_shift)
+        idx_shift = np.concatenate([idx_shift, idx_shift + self._nmode_tdm])
+        return cov[..., idx_shift[:, None], idx_shift], mean[..., idx_shift, :]
+
+    def global_circuit(self, nstep: int) -> 'QumodeCircuit':
+        """The delay circuit unrolled in space over nstep time steps, from
+        the vacuum: step i's gates act on fresh spatial modes; the fixed
+        parameters are shared across steps (not trainable), the encoders'
+        are fresh each step."""
+        self._prepare_unroll_dict()
+        nmode = self._nmode_tdm + (nstep - 1) * self.nmode
+        cir = QumodeCircuit(nmode, init_state='vac', cutoff=self.cutoff, backend=self.backend,
+                            detector=self.detector, name=self.name, device=self.device)
+
+        def proto_of(op):
+            """The op's gates (a delay: its coupling gates) as descriptors
+            holding their parameter values."""
+            subs = _delay_subgates(op, 0, 1) if op.kind == 'delay' else [_copy.copy(op)]
+            for sub in subs:
+                sub.extra = {k: v for k, v in op.extra.items() if k != '_owner'}
+                sub.extra['inputs'] = [self._pvals[j] for j in sub.pidx]
+                sub.pidx = ()
+            return subs
+
+        enc = {id(op) for op in self.encoders}
+        protos = {id(op): proto_of(op) for op in self.operators if id(op) not in enc}
+        for i in range(nstep):
+            ndelay = np.zeros(self.nmode, np.int64)
+
+            def spatial(w, i=i):
+                return self._unroll_dict[w][-1] if i == 0 else \
+                    self._nmode_tdm + self.nmode * (i - 1) + w
+
+            for op in self.operators:
+                encode = id(op) in enc
+                gs = proto_of(op) if encode else protos[id(op)]
+                if op.kind == 'delay':
+                    wire = op.wires[0]
+                    ndelay[wire] += 1
+                    wire1 = self._unroll_dict[wire][-int(ndelay[wire]) - 1][i % op.extra['ntau']]
+                    wire_lists = [[wire1, spatial(wire)]] + [[wire1]] * (len(gs) - 1)
+                else:
+                    wire_lists = [[spatial(w) for w in op.wires]]
+                for g, ws in zip(gs, wire_lists):
+                    cir.add(g, encode=encode, wires=ws)
+            for op_m in self.measurements:
+                m2 = _copy.copy(op_m)
+                m2.nmode = nmode
+                m2.wires = [spatial(w) for w in op_m.wires]
+                cir.measurements.append(m2)
+        return cir
+
+    # ------------------------------------------------------------- homodyne
+    def homodyne(self, wires, phi: float = 0.0, eps: float = 2e-4):
+        """A conditional homodyne measurement of the quadrature at angle phi
+        (``measure_homodyne`` draws it)."""
+        from .measurement import Homodyne
+        if self.backend == 'fock':
+            _missing('homodyne on the Fock backend (Homodyne.op_fock)')
+        m = Homodyne(phi=phi, nmode=self.nmode, wires=wires, cutoff=self.cutoff, eps=eps)
+        self.measurements.append(m)
+        self.wires_homodyne.append(m.wires[0])
+        self._measurements_tdm = None
+
+    def homodyne_x(self, wires, eps: float = 2e-4):
+        self.homodyne(wires, phi=0.0, eps=eps)
+
+    def homodyne_p(self, wires, eps: float = 2e-4):
+        self.homodyne(wires, phi=np.pi / 2, eps=eps)
+
+    def measure_homodyne(self, shots: int = 10, wires=None,
+                         generator: torch.Generator | None = None):
+        """Homodyne samples of the last CV forward, (batch, shots, nwire)
+        squeezed. With conditional measurements (``homodyne``) each is drawn
+        in turn and conditions the state, which ends in
+        ``self.state_measured`` (shots x batch states). Without them: a
+        Gaussian state's x and p of ``wires`` (its Wigner function is a
+        distribution), a Bosonic state's x quadratures of ``wires`` (its
+        Wigner function goes negative; x alone is a homodyne outcome)."""
+        if self.backend == 'fock':
+            _missing('measure_homodyne on the Fock backend')
+        if self.state is None or isinstance(self.state, dict):
+            raise RuntimeError('Run forward first (without is_prob)')
+        measurements = self._measurements_tdm if self._with_delay else self.measurements
+        cov, mean = self.state[0], self.state[1]
+        if measurements:
+            batch = mean.shape[0]
+
+            def tile(t):
+                return t if shots == 1 else t.repeat((shots,) + (1,) * (t.ndim - 1))
+
+            # one covariance serves every shot: conditioning does not depend on the outcome
+            parts = [cov if cov.shape[0] == 1 else tile(cov), tile(mean)] + \
+                [tile(w) for w in self.state[2:]]
+            samples = []
+            for op_m in measurements:
+                parts = op_m(parts, generator=generator)
+                s = op_m.samples.reshape(shots, batch, -1)[..., :len(op_m.wires)]
+                samples.append(s.transpose(0, 1))
+            parts[0] = parts[0].expand((parts[1].shape[0],) + parts[0].shape[1:])
+            self.state_measured = parts
+            return torch.cat(samples, -1).squeeze()
+        from .measurement import _mvn_sample, sample_bosonic
+        if wires is None:
+            wires = list(range(self.nmode))
+        wires = np.asarray(sorted([wires] if isinstance(wires, int) else list(wires)))
+        if self.backend == 'gaussian':
+            idx = np.concatenate([wires, wires + self.nmode])
+            loc = mean[..., idx, 0].expand((shots,) + mean.shape[:-2] + (len(idx),))
+            return _mvn_sample(loc, cov[..., idx[:, None], idx], generator).squeeze()
+        cov_sub, mean_sub = cov[..., wires[:, None], wires], mean[..., wires, :]
+        rows = mean_sub.shape[0]
+        draws = sample_bosonic(cov_sub if cov_sub.shape[0] == 1 else cov_sub.repeat(shots, 1, 1, 1),
+                               mean_sub.repeat(shots, 1, 1, 1),
+                               self.state[2].repeat(shots, 1) if self.state[2].shape[0] > 1
+                               else self.state[2], generator)
+        return draws.reshape(shots, rows, -1).squeeze()
+
+    # -------------------------------------------------------- Bosonic states
+    def _bosonic_mode(self, wires: int, state: BosonicState) -> None:
+        if self.backend != 'bosonic':
+            raise ValueError("cat and GKP states need backend='bosonic'")
+        if self._bosonic_states is None:
+            self._bosonic_states = [BosonicState('vac', 1, self.cutoff) for _ in range(self.nmode)]
+        self._bosonic_states[wires] = state
+
+    def cat(self, wires: int, r=None, theta=None, p: int = 1) -> None:
+        """Prepare a cat state on one mode (the others stay in vacuum)."""
+        self._bosonic_mode(wires, CatState(r=r, theta=theta, p=p, cutoff=self.cutoff))
+
+    def gkp(self, wires: int, theta=None, phi=None, amp_cutoff: float = 0.1,
+            epsilon: float = 0.05) -> None:
+        """Prepare a GKP state on one mode (the others stay in vacuum)."""
+        self._bosonic_mode(wires, GKPState(theta=theta, phi=phi, amp_cutoff=amp_cutoff,
+                                           epsilon=epsilon, cutoff=self.cutoff))
+
 
 def _stub(what: str):
     def method(self, *args, **kwargs):
@@ -610,15 +1150,6 @@ def _stub(what: str):
 
 
 # the rest of the JAX package's QumodeCircuit surface raises by name
-for _name, _what in {
-        'r': 'r (phase shift with inv_mode)', 'f': 'f (Fourier gate)',
-        'qp': 'qp (quadratic phase)', 'cx': 'cx (controlled-X)', 'cz': 'cz (controlled-Z)',
-        'cp': 'cp (cubic phase, a Fock-only gate)', 'k': 'k (Kerr, a Fock-only gate)',
-        'ck': 'ck (cross-Kerr, a Fock-only gate)', 'delay': 'delay (time-domain multiplexing)',
-        'global_circuit': 'global_circuit (time-domain multiplexing)', 'loss': 'loss',
-        'loss_t': 'loss_t', 'loss_db': 'loss_db', 'measure': 'measure (sampling)',
-        'homodyne': 'homodyne', 'homodyne_x': 'homodyne_x', 'homodyne_p': 'homodyne_p',
-        'measure_homodyne': 'measure_homodyne', 'quadrature_mean': 'quadrature_mean',
-        'draw': 'draw', 'wigner': 'wigner', 'cat': "cat states (backend='bosonic')",
-        'gkp': "GKP states (backend='bosonic')", 'barrier': 'barrier'}.items():
+for _name, _what in {'cp': 'cp (cubic phase, a Fock-only gate)', 'k': 'k (Kerr, a Fock-only gate)',
+                     'ck': 'ck (cross-Kerr, a Fock-only gate)', 'draw': 'draw'}.items():
     setattr(QumodeCircuit, _name, _stub(_what))

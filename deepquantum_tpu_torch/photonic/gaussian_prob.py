@@ -11,8 +11,11 @@ eager port has no jit, so the grouping is written out for click patterns: a
 O sub-matrices (and (B_k, 2k) gammas when displaced) in one index op, calls
 ``torontonian_batch`` once (one K8 / K9 wrapper call for k >= 3, the plain
 formula vectorised over B_k below), and scatters the probabilities back
-into the caller's order. One outcome alone (``get_prob``) is one
-torontonian, and ``pnrd`` stays one hafnian per state.
+into the caller's order. A ``pnrd`` table groups the outcomes by photon
+number the same way, one outcome alone (``get_prob``) included: per group
+one gather of the (B_N, s, s) sub-matrices with their gammas on the
+diagonal and one ``hafnian_batch`` call (in complex128 at either
+precision). One threshold outcome alone is one torontonian.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import cdtype
-from .hafnian_ import hafnian
+from .hafnian_ import hafnian_batch
 from .qmath import fock_combinations, quadrature_to_ladder
 from .state import GaussianState
 from .torontonian_ import torontonian, torontonian_batch
@@ -49,36 +52,16 @@ def _q_mats(cov, mean):
     return a_mat, o_mat, gamma, p_vac
 
 
-def _prob_one_state(final_state, a_mat, o_mat, gamma, p_vac, detector, purity, loop):
-    """Probability of one Fock basis outcome; the shapes follow the state."""
+def _torontonian_one(final_state, o_mat, gamma, p_vac, loop):
+    """Click probability of one threshold outcome."""
     nmode = len(final_state)
-    fs = np.asarray(final_state, np.int64)
-    idx_half = np.repeat(np.arange(nmode), fs)
+    idx_half = np.repeat(np.arange(nmode), np.asarray(final_state, np.int64))
     idx_double = np.concatenate([idx_half, idx_half + nmode])
-    if detector == 'pnrd':
-        sub_gamma = gamma[idx_double]
-        if purity:
-            sub_mat = a_mat[:nmode, :nmode][idx_half[:, None], idx_half[None, :]]
-            sub_gamma = sub_gamma[: len(idx_half)]
-        else:
-            sub_mat = a_mat[idx_double[:, None], idx_double[None, :]]
-        n = len(sub_gamma)
-        if n == 1:
-            sub_mat = sub_gamma.reshape(1, 1)
-        else:
-            sub_mat = sub_mat - torch.diag(torch.diagonal(sub_mat)) + torch.diag(sub_gamma)
-        haf = hafnian(sub_mat, loop=loop)
-        if purity:
-            haf = haf.abs() ** 2
-        norm = float(np.prod([factorial(int(x)) for x in fs]))
-        prob = p_vac * haf / norm
-    else:  # threshold
-        sub_mat = o_mat[idx_double[:, None], idx_double[None, :]]
-        # an undisplaced state (loop is a host-side fact) takes the
-        # click-probability torontonian, without the augmented solve
-        sub_gamma = gamma[idx_double] if loop else None
-        prob = p_vac * torontonian(sub_mat, sub_gamma)
-    return prob.real.abs()
+    sub_mat = o_mat[idx_double[:, None], idx_double[None, :]]
+    # an undisplaced state (loop is a host-side fact) takes the
+    # click-probability torontonian, without the augmented solve
+    sub_gamma = gamma[idx_double] if loop else None
+    return (p_vac * torontonian(sub_mat, sub_gamma)).real.abs()
 
 
 def click_groups(final_states, nmode: int):
@@ -114,9 +97,53 @@ def _threshold_table(final_states, o_mat, gamma, p_vac, loop):
     return prob.real.abs()
 
 
+def photon_groups(final_states, nmode: int):
+    """Photon-number outcomes grouped by total photon number: {N: (positions
+    in ``final_states``, (B_N, N) modes repeated by their counts, (B_N,)
+    products of the factorials of the counts)}, as numpy."""
+    fs = np.asarray(final_states, np.int64).reshape(len(final_states), nmode)
+    total = fs.sum(1)
+    fact = np.array([factorial(i) for i in range(int(fs.max(initial=0)) + 1)], dtype=np.float64)
+    groups = {}
+    for n in np.unique(total):
+        pos = np.flatnonzero(total == n)
+        half = np.repeat(np.tile(np.arange(nmode), len(pos)), fs[pos].ravel()).reshape(len(pos), n)
+        groups[int(n)] = (pos, half, fact[fs[pos]].prod(1))
+    return groups
+
+
+def _pnrd_table(final_states, a_mat, gamma, p_vac, purity, loop):
+    """Photon-number probabilities of many outcomes: one hafnian_batch per
+    photon number, results back in the caller's order."""
+    nmode = a_mat.shape[-1] // 2
+    dev = a_mat.device
+    parts, order = [], []
+    for n, (pos, half, norm) in photon_groups(final_states, nmode).items():
+        idx = half if purity else np.concatenate([half, half + nmode], axis=1)
+        sub_gamma = gamma[idx]
+        if purity:
+            sub_mat = a_mat[:nmode, :nmode][idx[:, :, None], idx[:, None, :]]
+        else:
+            sub_mat = a_mat[idx[:, :, None], idx[:, None, :]]
+        if idx.shape[1] == 1:
+            sub_mat = sub_gamma[:, :, None]
+        elif idx.shape[1] > 1:
+            sub_mat = sub_mat - torch.diag_embed(torch.diagonal(sub_mat, dim1=-2, dim2=-1)) \
+                + torch.diag_embed(sub_gamma)
+        haf = hafnian_batch(sub_mat, loop=loop)
+        if purity:
+            haf = haf.abs() ** 2
+        parts.append(haf / torch.as_tensor(norm, device=dev).to(a_mat.real.dtype))
+        order.append(pos)
+    inverse = np.argsort(np.concatenate(order))
+    prob = p_vac * torch.cat(parts)[torch.as_tensor(inverse, device=dev)]
+    return prob.real.abs()
+
+
 def probs_gaussian_helper(final_states, cov, mean, detector='pnrd', purity=None, loop=None):
     """Probabilities of the given final states for one (cov, mean), stacked:
-    a threshold table by click count, else one call per state."""
+    a table by photon number (pnrd, any count of outcomes) or by click count
+    (threshold; one torontonian for one outcome)."""
     if purity is None or loop is None:
         mean_np = mean.detach().cpu().numpy()
         if purity is None:
@@ -126,8 +153,9 @@ def probs_gaussian_helper(final_states, cov, mean, detector='pnrd', purity=None,
     a_mat, o_mat, gamma, p_vac = _q_mats(cov, mean)
     if detector == 'threshold' and len(final_states) > 1:
         return _threshold_table(final_states, o_mat, gamma, p_vac, bool(loop))
-    return torch.stack([_prob_one_state(fs, a_mat, o_mat, gamma, p_vac, detector, bool(purity),
-                                        bool(loop)) for fs in final_states])
+    if detector == 'pnrd':
+        return _pnrd_table(final_states, a_mat, gamma, p_vac, bool(purity), bool(loop))
+    return torch.stack([_torontonian_one(fs, o_mat, gamma, p_vac, bool(loop)) for fs in final_states])
 
 
 def fock_probs_gaussian(cov, mean, cutoff: int, detector: str = 'pnrd'):

@@ -11,7 +11,9 @@ power-trace method (Björklund et al., arXiv:2108.01622 Eq. B3),
 where X swaps the two rows of each mode pair and the z^m coefficient comes
 from the power-series exponential recurrence. The JAX package has no TPU
 kernel for the hafnian, so there is none here: each subset size is one batch
-of plain torch products, in complex128 on either device.
+of plain torch products, in complex128 on either device. ``hafnian_batch``
+(the JAX package's vmapped hafnian) evaluates a stack of equal-size
+matrices in the same calls, the stack a leading axis of every product.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from ..config import cdtype
 from .qmath import _as_tensor
 
-__all__ = ['hafnian', 'subset_index_groups', 'padded_powerset_indices']
+__all__ = ['hafnian', 'hafnian_batch', 'subset_index_groups', 'padded_powerset_indices']
 
 
 @lru_cache(maxsize=None)
@@ -101,33 +103,41 @@ def _subset_coeff(sub: torch.Tensor, m: int, loop: bool) -> torch.Tensor:
 
 
 def _hafnian_plain(matrix: torch.Tensor, loop: bool) -> torch.Tensor:
-    """Power-trace hafnian at the matrix's own complex precision."""
-    size = matrix.shape[-1]
-    m = size // 2
-    total = torch.zeros((), dtype=matrix.dtype, device=matrix.device)
+    """Power-trace hafnian of (..., 2m, 2m) matrices at their own complex
+    precision: per subset size one batch of products over every matrix."""
+    m = matrix.shape[-1] // 2
+    total = torch.zeros(matrix.shape[:-2], dtype=matrix.dtype, device=matrix.device)
     for k, pair_sets in subset_index_groups(m).items():
         # mode pair p -> interleaved rows and columns (2p, 2p + 1)
         rows = np.stack([2 * pair_sets, 2 * pair_sets + 1], axis=2).reshape(len(pair_sets), 2 * k)
-        subs = matrix[rows[:, :, None], rows[:, None, :]]
+        subs = matrix[..., rows[:, :, None], rows[:, None, :]]
         sign = 1 if (m - k) % 2 == 0 else -1
-        total = total + sign * _subset_coeff(subs, m, loop).sum()
+        total = total + sign * _subset_coeff(subs, m, loop).sum(-1)
     return total
+
+
+def hafnian_batch(matrix, loop: bool = False, device=None) -> torch.Tensor:
+    """(Loop) hafnians of a (B, n, n) stack of symmetric matrices, computed
+    in complex128 and returned as ``cdtype()``: (B,)."""
+    matrix = _as_tensor(matrix, torch.complex128, device)
+    size = matrix.shape[-1]
+    if size % 2 == 1:
+        if not loop:
+            return torch.zeros(matrix.shape[:-2], dtype=cdtype(), device=matrix.device)
+        # odd loop hafnian: border with a unit diagonal entry
+        padded = torch.zeros(matrix.shape[:-2] + (size + 1, size + 1), dtype=matrix.dtype,
+                             device=matrix.device)
+        padded[..., 0, 0] = 1
+        padded[..., 1:, 1:] = matrix
+        matrix = padded
+        size += 1
+    if size == 0:
+        return torch.ones(matrix.shape[:-2], dtype=cdtype(), device=matrix.device)
+    return _hafnian_plain(matrix, loop).to(cdtype())
 
 
 def hafnian(matrix, loop: bool = False, device=None) -> torch.Tensor:
     """(Loop) hafnian of a symmetric matrix, computed in complex128 and
     returned as ``cdtype()``."""
-    matrix = _as_tensor(matrix, torch.complex128, device)
-    size = matrix.shape[-1]
-    if size % 2 == 1:
-        if not loop:
-            return torch.zeros((), dtype=cdtype(), device=matrix.device)
-        # odd loop hafnian: border with a unit diagonal entry
-        padded = torch.zeros((size + 1, size + 1), dtype=matrix.dtype, device=matrix.device)
-        padded[0, 0] = 1
-        padded[1:, 1:] = matrix
-        matrix = padded
-        size += 1
-    if size == 0:
-        return torch.ones((), dtype=cdtype(), device=matrix.device)
-    return _hafnian_plain(matrix, loop).to(cdtype())
+    matrix = _as_tensor(matrix, None, device)
+    return hafnian_batch(matrix[None], loop)[0]

@@ -1195,3 +1195,111 @@ def test_adjoint_expectation_on_the_card(card):
     q = ref.params.requires_grad_()
     make_adjoint_expectation(ref)(q).backward()
     assert (q.grad - grad.double()).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------- the continuous-variable engine
+def _counts_of(dqt_fn):
+    from deepquantum_tpu_torch.photonic import tor_kernel as tk
+    tk.tor_dets_cuda.batched_launches = tk.tor_dets_quads_cuda.batched_launches = 0
+    out = dqt_fn()
+    return out, (tk.tor_dets_cuda.batched_launches, tk.tor_dets_quads_cuda.batched_launches)
+
+
+def _by_pattern(out):
+    return {tuple(k.state.tolist()): v.item() for k, v in out.items()}
+
+
+def test_graph_gbs_on_the_card(card128):
+    """GraphGBS with threshold detectors: the click table in one batched K8
+    call per click count >= 3 and samples from it on the card; pnrd through
+    hafnian_batch; both against the CPU."""
+    rng = np.random.default_rng(31)
+    adj = np.triu((rng.random((8, 8)) < 0.5).astype(float), 1)
+    adj = adj + adj.T
+    gbs = dqt.photonic.GraphGBS(adj, mean_photon_num=6, detector='threshold',
+                                rng=np.random.default_rng(0))
+    table, (k8, k9) = _counts_of(lambda: gbs(is_prob=True))
+    assert (k8, k9) == (6, 0)
+    ref = dqt.photonic.GraphGBS(adj, mean_photon_num=6, detector='threshold',
+                                rng=np.random.default_rng(0), device='cpu')
+    want = _by_pattern(ref(is_prob=True))
+    got = _by_pattern(table)
+    assert max(abs(got[k] - want[k]) for k in want) <= 1e-10
+    counts = gbs.measure(shots=20000, generator=torch.Generator('cuda').manual_seed(0))
+    assert sum(counts.values()) == 20000 and all(want[tuple(k.state.tolist())] > 0 for k in counts)
+    six = gbs.postselect(counts, [4])[0]
+    assert all(sum(k.state) == 4 for k in six)
+    small = dqt.photonic.GraphGBS(adj[:6, :6], cutoff=2, mean_photon_num=4, detector='pnrd',
+                                  rng=np.random.default_rng(0))
+    ref = dqt.photonic.GraphGBS(adj[:6, :6], cutoff=2, mean_photon_num=4, detector='pnrd',
+                                rng=np.random.default_rng(0), device='cpu')
+    got, want = _by_pattern(small(is_prob=True)), _by_pattern(ref(is_prob=True))
+    assert len(got) == 64 and max(abs(got[k] - want[k]) for k in want) <= 1e-12
+
+
+def test_lossy_gbs_and_homodyne_on_the_card(card128):
+    rng = np.random.default_rng(32)
+    sq, u = rng.uniform(0.2, 0.6, 6), _haar(6, rng)
+
+    def build(device=None):
+        cir = dqt.photonic.GaussianBosonSampling(6, sq, u, detector='threshold', device=device)
+        cir.d(2, 0.3, 0.4)
+        for i in range(6):
+            cir.loss_db(i, 3.0)
+        return cir
+
+    cir, ref = build(), build('cpu')
+    table, (k8, k9) = _counts_of(lambda: cir(is_prob=True))
+    assert (k8, k9) == (0, 4)
+    want = _by_pattern(ref(is_prob=True))
+    assert max(abs(v - want[k]) for k, v in _by_pattern(table).items()) <= 1e-10
+    state, rstate = cir(), ref()
+    for w in (1, 4):
+        state = dqt.Homodyne(0.4, 6, w)(state, samples=[0.3, -0.2])
+        rstate = dqt.Homodyne(0.4, 6, w)(rstate, samples=[0.3, -0.2])
+    for a, b in zip(state, rstate):
+        assert a.device.type == 'cuda' and (a.cpu() - b).abs().max().item() <= 1e-10
+
+
+def test_tdm_on_the_card(card):
+    """Borealis-like loops of 1, 2 and 3 bins, a batch of 4, 10 steps: the
+    covariances on the card at complex64 against the CPU at complex128."""
+    def build(device=None):
+        cir = dqt.QumodeCircuitTDM(1, 'vac', device=device)
+        cir.s(0, r=0.8)
+        for ntau in (1, 2, 3):
+            cir.delay(0, ntau=ntau, convention='bs', encode=True)
+        cir.homodyne_x(0)
+        return cir
+
+    data = np.random.default_rng(33).uniform(0, 2 * np.pi, (4, 10, 6))
+    cir = build()
+    state = cir(data=data, generator=torch.Generator('cuda').manual_seed(0))
+    assert state[0].shape == (4, 14, 14) and cir.samples.shape == (4, 10)
+    dqt.set_dtype('complex128')
+    ref = build('cpu')
+    rstate = ref(data=data, generator=torch.Generator().manual_seed(0))
+    err = (state[0].cpu().double() - rstate[0]).abs().max() / rstate[0].abs().max()
+    assert err.item() <= 1e-5 and torch.isfinite(cir.samples).all()
+
+
+def test_bosonic_on_the_card(card128):
+    def build(device=None):
+        cir = dqt.QumodeCircuit(2, backend='bosonic', device=device)
+        cir.cat(0, r=1.2, theta=0.0, p=1)
+        cir.gkp(1, theta=0.0, phi=0.0, amp_cutoff=0.2, epsilon=0.1)
+        cir.bs([0, 1], [np.pi / 4, 0.0])
+        cir.homodyne_x(1)
+        return cir
+
+    cir, ref = build(), build('cpu')
+    for a, b in zip(cir(), ref()):
+        assert a.device.type == 'cuda' and (a.cpu() - b).abs().max().item() <= 1e-10
+    xs = cir.measure_homodyne(shots=200, generator=torch.Generator('cuda').manual_seed(0))
+    assert xs.shape == (200,) and torch.isfinite(xs).all()
+    weights = cir.state_measured[2].sum(-1)
+    assert (weights - 1).abs().max().item() <= 1e-9
+    w = cir.wigner(0, npoints=60, plot=False, normalize=False)
+    wr = ref.wigner(0, npoints=60, plot=False, normalize=False)
+    assert (w.cpu() - wr).abs().max().item() <= 1e-10
+    assert abs(w.sum().item() * (20 / 59) ** 2 - 1) <= 1e-3

@@ -335,7 +335,7 @@ def test_accessors_and_not_ported_names():
         with pytest.raises(NotImplementedError, match=method):
             fn = getattr(t, method)
             fn(0) if method == 'cut' else fn()
-    for name in ('DistributedQubitCircuit', 'Pattern', 'cutting', 'qasm', 'GraphGBS', 'U3Gate'):
+    for name in ('DistributedQubitCircuit', 'Pattern', 'cutting', 'qasm', 'UnitaryMapper', 'U3Gate'):
         with pytest.raises(NotImplementedError, match=name):
             getattr(dqt, name)
         assert not hasattr(dqt, name)
