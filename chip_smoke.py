@@ -217,6 +217,28 @@ Phases (each raises on failure, so the run exits non-zero):
    and photon statistics, the rejection sampler's x of mode 0 by a
    chi-square against its marginal. Each of 9h-9k prints its time, K8b /
    K9b wrapper calls, peak memory and busy share;
+9l. the CV-QNN training step on Fock tensors (check_fock_qnn; Killoran et
+   al., arXiv:1806.06871): 2 layers on 7 modes at cutoff 10 (10^7
+   amplitudes, 182 operations), the value and gradient of sum <n>, three
+   SGD steps; complex64 against the port's complex128 run on the card
+   (state 1e-5 of max|amp|, value 1e-5, gradient 1e-4 of max|g|, the
+   losses 1e-5); the median step, busy share, peak memory, and the time
+   of building the Fock matrices (a gate family a call, and one gate a
+   call) against contracting them;
+9m. a lossy Fock density matrix (check_fock_dm): one CV-QNN layer on 4
+   modes at cutoff 8 (8^8 entries), loss_db(3) on every mode; forward,
+   value and gradient of sum <n>, quadrature_mean, wigner(0) on 100 x 100
+   points (integral within 1e-3 of the trace), measure(10^5) by a
+   chi-square against the diagonal; complex64 against complex128;
+9n. the Fock MPS (check_fock_mps): one layer on 8 modes at cutoff 4 with
+   chi = 256 (exact) against the dense tensor (1e-5), then 16 modes,
+   chi = 32: forward and measure(1000);
+9o. homodyne on Fock tensors (check_fock_homodyne): measure_homodyne(10^4)
+   on mode 0 of 9l's state by a chi-square against its grid pdf, a
+   conditional homodyne(0) in a 4-mode circuit with given outcomes
+   (complex64 against complex128), per-forward noise from an explicit
+   generator bitwise the same over two runs with one seed. 9l-9o launch
+   none of the port's kernels (asserted);
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -3383,6 +3405,343 @@ def check_bosonic(card: str):
     return {}, out
 
 
+# ------------------------------------------------ the Fock-tensor engine
+QNN_MODES, QNN_CUTOFF, QNN_LAYERS, QNN_STEPS, QNN_LR = 7, 10, 2, 3, 0.05
+FDM_MODES, FDM_CUTOFF, FDM_LOSS_DB = 4, 8, 3.0
+FOCK_SHOTS = 100_000
+FMPS_EXACT_MODES, FMPS_EXACT_CHI = 8, 256      # chi = 4^4: exact at cutoff 4
+FMPS_MODES, FMPS_CHI, FMPS_CUTOFF, FMPS_SHOTS = 16, 32, 4, 1000
+FOCK_HOMODYNE_SHOTS = 10_000
+# complex64 against complex128 on the same circuit: the state over its
+# largest |amplitude|, the value relative, the gradient over its largest
+# |component| (the CPU rehearsal at 3 modes, cutoff 6 read 1e-7 / 1e-7 / 1e-6)
+FOCK_STATE_BAR, FOCK_VALUE_BAR, FOCK_GRAD_BAR = 1e-5, 1e-5, 1e-4
+# the MPS at full bond against the dense tensor, both complex64
+FMPS_BAR = 1e-5
+
+
+def cvqnn_layer(cir, nmode: int, rng) -> None:
+    """Killoran et al.'s CV-QNN layer (arXiv:1806.06871), trainable, values
+    from rng: an interferometer (a phase on every mode, beam splitters in
+    nmode brick columns, a phase on every mode), squeezing on every mode,
+    a second interferometer, displacement on every mode, Kerr on every
+    mode; 5 nmode + nmode (nmode - 1) operations (91 at 7 modes)."""
+    def mesh():
+        for w in range(nmode):
+            cir.add_op('PhaseShift', w, [rng.uniform(0, 2 * np.pi)], requires_grad=True)
+        for col in range(nmode):
+            for w in range(col % 2, nmode - 1, 2):
+                cir.add_op('BeamSplitter', [w, w + 1],
+                           [rng.uniform(0, np.pi / 2), rng.uniform(0, 2 * np.pi)],
+                           requires_grad=True)
+        for w in range(nmode):
+            cir.add_op('PhaseShift', w, [rng.uniform(0, 2 * np.pi)], requires_grad=True)
+
+    mesh()
+    for w in range(nmode):
+        cir.add_op('Squeezing', w, [rng.uniform(0, 0.2), rng.uniform(0, 2 * np.pi)],
+                   requires_grad=True)
+    mesh()
+    for w in range(nmode):
+        cir.add_op('Displacement', w, [rng.uniform(0, 0.3), rng.uniform(0, 2 * np.pi)],
+                   requires_grad=True)
+    for w in range(nmode):
+        cir.add_op('Kerr', w, [rng.uniform(-0.1, 0.1)], requires_grad=True)
+
+
+def cvqnn_circuit(nmode: int, cutoff: int, layers: int, seed: int, **kwargs):
+    """A CV-QNN of ``layers`` layers on the vacuum, Fock tensor mode."""
+    dqt = _pkg()[0]
+    cir = dqt.QumodeCircuit(nmode, init_state='vac', cutoff=cutoff, basis=False, **kwargs)
+    rng = np.random.default_rng(seed)
+    for _ in range(layers):
+        cvqnn_layer(cir, nmode, rng)
+    return cir
+
+
+def fock_step(cir, p):
+    """The value sum <n> of the circuit's state at parameters p and its
+    gradient."""
+    p = p.detach().requires_grad_()
+    cir(params=p)
+    value = cir.photon_number_mean_var()[0].sum()
+    value.backward()
+    return value.detach(), p.grad
+
+
+def _sgd(cir, p, steps: int):
+    """``steps`` SGD steps from p: the losses before each update, the step
+    times (CUDA events) and the final parameters."""
+    losses, times = [], []
+    for _ in range(steps):
+        (value, grad), ms = _one_call_ms(lambda: fock_step(cir, p))
+        losses.append(value.item())
+        times.append(ms)
+        p = (p - QNN_LR * grad).detach()
+    return losses, times, p
+
+
+def _fock_close(label: str, got, ref, bar: float) -> float:
+    err = (got.to(ref.dtype) - ref).abs().max().item() / ref.abs().max().item()
+    if not err <= bar:
+        raise AssertionError(f'{label}: complex64 off complex128 by {err} (bar {bar})')
+    return err
+
+
+def _build_and_contract_ms(cir, p):
+    """Each between CUDA events: building every Fock matrix of one forward
+    as the forward does (a gate family in one call), building them one gate
+    at a time, and contracting the prebuilt ones."""
+    from deepquantum_tpu_torch.ops.apply import evolve_state
+    c, n = cir.cutoff, cir.nmode
+    full = cir._full_params(p)
+    mats, build_ms = _one_call_ms(lambda: cir._fock_matrices(full))
+    _, one_by_one_ms = _one_call_ms(lambda: [op.fock(full, c) for op in cir.operators])
+    x0 = cir._fock_input(None)
+
+    def contract():
+        x = x0
+        for op, m in zip(cir.operators, mats):
+            x = evolve_state(x, m, n, list(op.wires), c)
+        return x
+
+    _, contract_ms = _one_call_ms(contract)
+    return build_ms, one_by_one_ms, contract_ms
+
+
+def check_fock_qnn(card: str):
+    """Phase 9l, the CV-QNN training step on Fock tensors at full width:
+    2 layers on 7 modes at cutoff 10 (10^7 amplitudes, 182 operations), the
+    value and gradient of sum <n>, then three SGD steps; complex64 against
+    the port's complex128 run on the card (state, value, gradient, the
+    three losses); the step's time, busy share and peak memory, and the
+    time of building the Fock matrices (a gate family a call, as the
+    forward does, and one gate a call) against contracting them. Returns
+    the complex64 circuit (its state is 9o's)."""
+    import torch
+    out = {}
+    with complex128():
+        ref = cvqnn_circuit(QNN_MODES, QNN_CUTOFF, QNN_LAYERS, SEED)
+        p0 = ref.params.detach()
+        with torch.no_grad():
+            state_ref = ref()
+        torch.cuda.reset_peak_memory_stats()
+        (value_ref, grad_ref), ms_ref = _one_call_ms(lambda: fock_step(ref, p0))
+        peak_ref = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses_ref, _, _ = _sgd(ref, p0, QNN_STEPS)
+    del ref
+    torch.cuda.empty_cache()
+    cir = cvqnn_circuit(QNN_MODES, QNN_CUTOFF, QNN_LAYERS, SEED)
+    p = p0.to(torch.float32)
+    with torch.no_grad():
+        state, fwd = _cv_stats(lambda: cir(params=p))
+    (value, grad), stats = _cv_stats(lambda: fock_step(cir, p))
+    losses, times, p_end = _sgd(cir, p, QNN_STEPS)
+    more = _sgd(cir, p_end, 2)[1]
+    with torch.no_grad():
+        build_ms, one_by_one_ms, contract_ms = _build_and_contract_ms(cir, p)
+        cir(params=p)                                  # 9o's state: the first parameters
+    out = dict(ops=len(cir.operators), amplitudes=state.numel(), forward=fwd, step=stats,
+               step_ms=float(np.median(times + more)), complex128_step_ms=ms_ref,
+               complex128_peak_gib=round(peak_ref, 3), build_ms=build_ms,
+               build_one_by_one_ms=one_by_one_ms, contract_ms=contract_ms,
+               value=value.item(), losses=losses)
+    out['state_err'] = _fock_close('9l state', state, state_ref, FOCK_STATE_BAR)
+    out['value_err'] = abs(value.item() - value_ref.item()) / abs(value_ref.item())
+    out['grad_err'] = _fock_close('9l gradient', grad, grad_ref, FOCK_GRAD_BAR)
+    out['loss_err'] = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_ref))
+    print(f"Fock CV-QNN {QNN_MODES} modes, cutoff {QNN_CUTOFF}, {QNN_LAYERS} layers: "
+          f"{out['ops']} ops, {out['amplitudes']} amplitudes, sum <n> {value.item():.6f}; "
+          f"forward {_stats_text(fwd)}; value and gradient {_stats_text(stats)}; SGD steps "
+          f"{[round(t, 1) for t in times + more]} ms (median {out['step_ms']:.1f}), losses "
+          f"{[round(v, 6) for v in losses]}; building the Fock matrices {build_ms:.1f} ms "
+          f"(a family a call; one gate a call {one_by_one_ms:.1f} ms), contracting them "
+          f"{contract_ms:.1f} ms; complex128 step {ms_ref:.1f} ms, peak "
+          f"{peak_ref:.2f} GiB; complex64 off complex128: state {out['state_err']:.1e}, value "
+          f"{out['value_err']:.1e}, gradient {out['grad_err']:.1e}, losses "
+          f"{out['loss_err']:.1e} [{card}]")
+    if not (out['value_err'] <= FOCK_VALUE_BAR and out['loss_err'] <= FOCK_VALUE_BAR):
+        raise AssertionError(f"9l value off complex128 by {out['value_err']} / "
+                             f"{out['loss_err']}")
+    if stats['launches'] or fwd['launches'] or not torch.isfinite(grad).all():
+        raise AssertionError(f"9l: kernel launches {stats['launches']} or a non-finite gradient")
+    return {}, out, cir
+
+
+def _fock_dm(seed: int):
+    cir = cvqnn_circuit(FDM_MODES, FDM_CUTOFF, 1, seed, den_mat=True)
+    for w in range(FDM_MODES):
+        cir.loss_db(w, FDM_LOSS_DB)
+    return cir
+
+
+def check_fock_dm(card: str):
+    """Phase 9m, a lossy Fock density matrix: one CV-QNN layer on 4 modes at
+    cutoff 8 (rho has 8^8 entries), then loss_db(3) on every mode: the
+    forward, the value and gradient of sum <n>, quadrature_mean, wigner(0)
+    on 100 x 100 points, measure(10^5) by a chi-square against the
+    diagonal; complex64 against complex128."""
+    import torch
+    with complex128():
+        ref = _fock_dm(SEED + 11)
+        p0 = ref.params.detach()
+        with torch.no_grad():
+            rho_ref = ref()
+            quad_ref = ref.quadrature_mean()
+            wig_ref = ref.wigner(0, npoints=WIGNER_POINTS, plot=False)
+        value_ref, grad_ref = fock_step(ref, p0)
+    del ref
+    cir = _fock_dm(SEED + 11)
+    p = p0.to(torch.float32)
+    with torch.no_grad():
+        rho, fwd = _cv_stats(lambda: cir(params=p))
+    (value, grad), stats = _cv_stats(lambda: fock_step(cir, p))
+    with torch.no_grad():
+        cir(params=p)
+        quad, qstats = _cv_stats(cir.quadrature_mean)
+        wig, wstats = _cv_stats(lambda: cir.wigner(0, npoints=WIGNER_POINTS, plot=False))
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        counts, mstats = _cv_stats(lambda: cir.measure(shots=FOCK_SHOTS, generator=gen))
+    c, n = FDM_CUTOFF, FDM_MODES
+    diag = rho.reshape(c ** n, c ** n).diagonal().real.double().cpu().numpy()
+    stat, dof, bar = _dict_chi2(counts, _fock_table(diag, c, n), FOCK_SHOTS)
+    trace = float(diag.sum())
+    step = (20 / (WIGNER_POINTS - 1)) ** 2
+    out = dict(entries=rho.numel(), trace=trace, forward=fwd, step=stats, quadrature=qstats,
+               wigner=wstats, measure=mstats, chi2=stat, dof=dof, outcomes=len(counts),
+               wigner_integral=wig.sum().item() * step)
+    out['rho_err'] = _fock_close('9m rho', rho, rho_ref, FOCK_STATE_BAR)
+    out['value_err'] = abs(value.item() - value_ref.item()) / abs(value_ref.item())
+    out['grad_err'] = _fock_close('9m gradient', grad, grad_ref, FOCK_GRAD_BAR)
+    out['quad_err'] = (quad.double() - quad_ref).abs().max().item()
+    out['wigner_err'] = _fock_close('9m Wigner', wig, wig_ref, FOCK_STATE_BAR)
+    print(f"Fock rho {n} modes, cutoff {c}, loss {FDM_LOSS_DB} dB a mode: {rho.numel()} "
+          f"entries, trace {trace:.6f}, sum <n> {value.item():.6f}; forward {_stats_text(fwd)}; "
+          f"value and gradient {_stats_text(stats)}; quadrature_mean {_stats_text(qstats)}; "
+          f"wigner(0) {WIGNER_POINTS} x {WIGNER_POINTS} {_stats_text(wstats)}, integral "
+          f"{out['wigner_integral']:.6f}; measure({FOCK_SHOTS}) {_stats_text(mstats)}, chi-square "
+          f"{stat:.1f} on {dof} dof (bound {bar:.1f}); complex64 off complex128: rho "
+          f"{out['rho_err']:.1e}, value {out['value_err']:.1e}, gradient {out['grad_err']:.1e}, "
+          f"<x> {out['quad_err']:.1e}, Wigner {out['wigner_err']:.1e} [{card}]")
+    _hold_chi2('9m samples', stat, dof, bar)
+    if not (out['value_err'] <= FOCK_VALUE_BAR and out['quad_err'] <= FOCK_STATE_BAR
+            and abs(out['wigner_integral'] - trace) <= 1e-3):
+        raise AssertionError(f'9m: value {out["value_err"]}, <x> {out["quad_err"]}, Wigner '
+                             f'integral {out["wigner_integral"]} against the trace {trace}')
+    if stats['launches'] or fwd['launches']:
+        raise AssertionError(f"9m: kernel launches {stats['launches']}")
+    return {}, out
+
+
+def _fock_table(diag: np.ndarray, c: int, n: int) -> dict:
+    """{FockState: probability} over every outcome of the diagonal."""
+    dqt = _pkg()[0]
+    keys = np.stack(np.unravel_index(np.arange(c ** n), (c,) * n), -1)
+    return {dqt.FockState(list(k), n, c): float(p) for k, p in zip(keys, diag)}
+
+
+def check_fock_mps(card: str):
+    """Phase 9n, the Fock MPS: one CV-QNN layer on 8 modes at cutoff 4 with
+    chi = 256 (exact) against the dense tensor of 9l's code path, both
+    complex64, with its busy share; then 16 modes at cutoff 4 with chi = 32:
+    the forward and measure(1000), their times and factorisation calls."""
+    import torch
+    from deepquantum_tpu_torch.mps import full_tensor
+    out = {}
+    with torch.no_grad():
+        mps = cvqnn_circuit(FMPS_EXACT_MODES, FMPS_CUTOFF, 1, SEED + 12, mps=True,
+                            chi=FMPS_EXACT_CHI)
+        dense = cvqnn_circuit(FMPS_EXACT_MODES, FMPS_CUTOFF, 1, SEED + 12)
+        psi = dense().reshape(-1)
+        sites, exact = _cv_stats(mps)
+        err = _fock_close('9n MPS at full bond', full_tensor(sites),
+                          psi / torch.linalg.vector_norm(psi), FMPS_BAR)
+        big = cvqnn_circuit(FMPS_MODES, FMPS_CUTOFF, 1, SEED + 13, mps=True, chi=FMPS_CHI)
+        facts = {}
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with count_factorisations(facts):
+            sites, ms_first = _one_call_ms(big)
+        _, ms_again = _one_call_ms(big)
+        # no profiler window here: over this forward's 1458 factorisations
+        # one took ~50 s on an H100; the busy share is the 8-mode one's
+        fwd = dict(ms=ms_first, again_ms=ms_again,
+                   launches={k: v for k, v in read_counts().items() if v},
+                   peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3))
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        counts, ms = _one_call_ms(lambda: big.measure(shots=FMPS_SHOTS, generator=gen))
+    bonds = [t.shape[-1] for t in sites]
+    total = sum(counts.values())
+    out = dict(exact=exact, exact_err=err, forward=fwd, measure_ms=ms, bonds=bonds,
+               factorisations=facts, outcomes=len(counts),
+               ops=len(big.operators))
+    print(f'Fock MPS {FMPS_EXACT_MODES} modes, cutoff {FMPS_CUTOFF}, chi {FMPS_EXACT_CHI}: '
+          f'{_stats_text(exact)}, off the dense tensor {err:.1e}; {FMPS_MODES} modes, chi '
+          f"{FMPS_CHI}, {len(big.operators)} ops: forward {ms_first:.1f} ms (again "
+          f"{ms_again:.1f}), peak {fwd['peak_gib']} GiB, bonds {bonds}, "
+          f"factorisations in the first forward (the families' split bases included) "
+          f"{out['factorisations']}; measure({FMPS_SHOTS}) {ms:.1f} ms, "
+          f'{len(counts)} outcomes [{card}]')
+    if total != FMPS_SHOTS or max(bonds) > FMPS_CHI or fwd['launches'] or exact['launches'] \
+            or not all(torch.isfinite(t).all() for t in sites):
+        raise AssertionError(f'9n: {total} shots, bonds {bonds}, launches {fwd["launches"]}')
+    return {}, out
+
+
+def check_fock_homodyne(card: str, qnn):
+    """Phase 9o, homodyne on Fock tensors: measure_homodyne(10^4) on mode 0
+    of 9l's state by a chi-square against its grid pdf; a conditional
+    homodyne(0) inside a 4-mode circuit with given outcomes, complex64
+    against complex128; per-forward noise from an explicit generator,
+    bitwise the same over two runs with one seed."""
+    import torch
+    from deepquantum_tpu_torch.photonic import measurement as meas
+    from deepquantum_tpu_torch.photonic.wigner import reduced_dm
+    out = {}
+    with torch.no_grad():
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        xs, hstats = _cv_stats(lambda: qnn.measure_homodyne(shots=FOCK_HOMODYNE_SHOTS,
+                                                            wires=0, generator=gen))
+        pdf = meas.homodyne_pdf(reduced_dm(qnn.state, 0, qnn.nmode, qnn.cutoff))[0]
+        grid = meas.homodyne_grid('cpu').numpy()
+        obs = np.bincount(np.searchsorted(grid, xs.cpu().numpy()), minlength=len(grid))
+        pdf = pdf.double().cpu().numpy()
+        exp = FOCK_HOMODYNE_SHOTS * pdf
+        big = exp >= 5
+        stat = float(np.sum((obs[big] - exp[big]) ** 2 / exp[big]))
+        stat += float((obs[~big].sum() - exp[~big].sum()) ** 2 / max(exp[~big].sum(), 1e-300))
+        dof = int(big.sum())
+        bar = dof + 6 * np.sqrt(2 * dof)
+        states = {}
+        for dtype in ('complex128', 'complex64'):
+            _pkg()[0].set_dtype(dtype)
+            cir = cvqnn_circuit(4, FDM_CUTOFF, 1, SEED + 14)
+            cir.homodyne(0, phi=0.5)
+            state = cir()
+            states[dtype], cstats = _cv_stats(lambda: cir.measurements[0](state, samples=[0.4]))
+            cond = cir.measure_homodyne(shots=100, generator=gen)
+        _pkg()[0].set_dtype('complex64')
+        cerr = _fock_close('9o conditional homodyne', states['complex64'], states['complex128'],
+                           FOCK_STATE_BAR)
+        noisy = cvqnn_circuit(4, FDM_CUTOFF, 1, SEED + 15, noise=True, noise_per_forward=True)
+        runs = [noisy(noise_generator=torch.Generator(device='cuda').manual_seed(SEED))
+                for _ in range(2)]
+        other = noisy(noise_generator=torch.Generator(device='cuda').manual_seed(SEED + 1))
+    same, moved = torch.equal(runs[0], runs[1]), not torch.equal(runs[0], other)
+    out = dict(measure=hstats, chi2=stat, dof=dof, conditional=cstats, conditional_err=cerr,
+               mean_x=xs.mean().item(), noise_bitwise=same, noise_moves=moved)
+    print(f'Fock homodyne: measure_homodyne({FOCK_HOMODYNE_SHOTS}) on mode 0 of 9l\'s state '
+          f'{_stats_text(hstats)}, mean {xs.mean().item():.4f} (<x> '
+          f'{qnn.quadrature_mean(0).item():.4f}), chi-square {stat:.1f} on {dof} dof (bound '
+          f'{bar:.1f}); conditional homodyne(0), 4 modes: {_stats_text(cstats)}, complex64 off '
+          f'complex128 {cerr:.1e}, 100 conditional shots {tuple(cond.shape)}; noise per forward: '
+          f'one seed bitwise {same}, another seed differs {moved} [{card}]')
+    _hold_chi2('9o homodyne samples', stat, dof, bar)
+    if not (same and moved) or xs.shape != (FOCK_HOMODYNE_SHOTS,):
+        raise AssertionError(f'9o: noise bitwise {same}, moved {moved}, shape {xs.shape}')
+    return {}, out
+
+
 # ----------------------------------------------------------------- profile
 # ------------------------------------------- the rest of the qubit engine
 QFT_N = 24
@@ -4246,6 +4605,18 @@ def main() -> int:
             counts, cv[key] = check()
             add(counts)
     print(f'continuous-variable paths: {json.dumps(cv)}')
+    fock = {}
+    with phase('fock_qnn'):
+        counts, fock['qnn'], qnn = check_fock_qnn(smi)
+        add(counts)
+    for key, check in (('fock_dm', lambda: check_fock_dm(smi)),
+                       ('fock_mps', lambda: check_fock_mps(smi)),
+                       ('fock_homodyne', lambda: check_fock_homodyne(smi, qnn))):
+        with phase(key):
+            counts, fock[key] = check()
+            add(counts)
+    del qnn
+    print(f'Fock tensor paths: {json.dumps(fock)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

@@ -117,7 +117,8 @@ _SINGLE_BS = {'BeamSplitterSingle_rx': 'bs_rx', 'BeamSplitterSingle_ry': 'bs_ry'
               'BeamSplitterSingle_h': 'bs_h'}
 _BY_NAME = {'PhaseShift': 'ps', 'BeamSplitter': 'bs', 'BeamSplitterTheta': 'bs_theta',
             'BeamSplitterPhi': 'bs_phi', 'DisplacementPosition': 'x', 'DisplacementMomentum': 'z',
-            'QuadraticPhase': 'qp', 'ControlledX': 'cx', 'ControlledZ': 'cz', **_SINGLE_BS}
+            'QuadraticPhase': 'qp', 'ControlledX': 'cx', 'ControlledZ': 'cz', 'CubicPhase': 'cp',
+            'Kerr': 'k', 'CrossKerr': 'ck', **_SINGLE_BS}
 _R_THETA = {'Squeezing': 's', 'Squeezing2': 's2', 'Displacement': 'd'}
 
 
@@ -163,17 +164,23 @@ def qumode_from_jax(cir, device=None):
     states of the Bosonic backend (``_bosonic_states``), ``operators``
     (gates, loss, delay loops, barriers), the homodyne ``measurements``,
     ``_pvals``, ``_train_mask``, ``_enc_pidx``, ``encoders`` and
-    ``_custom_out_basis``. The JAX gates hold closures, so they are told
-    apart by name (an MZI's ``phi_first`` sits in the defaults of its
-    ``unitary_fn``; a fixed unitary carries ``static_unitary``). What the
-    port cannot map (the Fock-only gates, tensor mode, per-forward noise, a
+    ``_custom_out_basis``; tensor mode (``basis``), ``den_mat``, ``mps``
+    and ``chi`` (an MPS's site tensors as numpy), and the noise settings
+    (``noise``, ``mu``, ``sigma``, ``noise_per_forward`` and the noisy
+    slots ``_noise_pidx``; build-time jitter is in ``_pvals`` already).
+    The JAX gates hold closures, so they are told apart by name (an MZI's
+    ``phi_first`` sits in the defaults of its ``unitary_fn``; a fixed
+    unitary carries ``static_unitary``). What the port cannot map (a
     measurement other than Homodyne) raises NotImplementedError."""
     from .photonic import QumodeCircuit, QumodeCircuitTDM
 
-    if getattr(cir, '_noise_pidx', None):
-        raise NotImplementedError('qumode_from_jax: per-forward noise is not ported yet')
     init = cir.init_state
-    if cir.backend == 'fock':
+    mps = bool(getattr(cir, 'mps', False))
+    noise = dict(noise=bool(getattr(cir, 'noise', False)), mu=getattr(cir, 'mu', 0),
+                 sigma=getattr(cir, 'sigma', 0.1))
+    if cir.backend == 'fock' and mps:
+        state = [np.asarray(t) for t in init.tensors]
+    elif cir.backend == 'fock':
         state = np.asarray(init.state)
     elif cir.backend == 'gaussian':
         state = [np.asarray(init.cov, np.float64), np.asarray(init.mean, np.float64)]
@@ -181,12 +188,16 @@ def qumode_from_jax(cir, device=None):
         state = _bosonic_from_jax(init)
     if type(cir).__name__ == 'QumodeCircuitTDM':
         out = QumodeCircuitTDM(cir.nmode, init_state=state, cutoff=cir.cutoff,
-                               backend=cir.backend, name=cir.name, device=device)
+                               backend=cir.backend, name=cir.name, device=device, **noise)
     else:
         out = QumodeCircuit(cir.nmode, init_state=state, cutoff=cir.cutoff, backend=cir.backend,
                             basis=cir.basis if cir.backend == 'fock' else True,
                             detector=cir.detector, name=cir.name, den_mat=cir.den_mat,
-                            mps=cir.mps, device=device)
+                            mps=mps, chi=cir.chi, device=device,
+                            noise_per_forward=bool(getattr(cir, 'noise_per_forward', False)),
+                            **noise)
+    if mps:
+        out.init_state.normalize = bool(getattr(init, 'normalize', True))
     for op in cir.operators:
         _qumode_op(out, op)
         new = out.operators[-1]
@@ -205,6 +216,7 @@ def qumode_from_jax(cir, device=None):
     out._pvals = [float(v) for v in cir._pvals]
     out._train_mask = [bool(t) for t in cir._train_mask]
     out._enc_pidx = [int(i) for i in cir._enc_pidx]
+    out._noise_pidx = [int(i) for i in getattr(cir, '_noise_pidx', [])]
     out.npara, out.ndata = cir.npara, cir.ndata
     if cir._custom_out_basis is not None:
         out._custom_out_basis = [tuple(int(v) for v in b) for b in cir._custom_out_basis]

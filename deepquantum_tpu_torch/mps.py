@@ -9,9 +9,10 @@ SVD are ``qr_stable`` / ``svd_safe`` (ops/linalg.py), so gradients flow
 through truncation. Every core function is pure: (tensors, center) in,
 (tensors, center) out.
 
-Sampling (``measure_mps``) is exact ancestral sampling: the right
-environments once, then a walk over the sites drawing every shot's bit of
-a site at once with ``torch.multinomial`` from an explicit generator.
+Sampling (``sample_mps``, ``measure_mps``) is exact ancestral sampling:
+the right environments once, then a walk over the sites drawing every
+shot's value of a site at once with ``torch.multinomial`` from an explicit
+generator.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from .config import cdtype, resolve_device
 from .ops.linalg import is_zero, qr_stable, rank_tol, svd_safe, undefined_gradient
 from .ops.qmath import inner_product_mps
 
-__all__ = ['MatrixProductState', 'apply_gate_mps', 'measure_mps', 'orthogonalize_left2right',
-           'orthogonalize_right2left', 'center_orthogonalization', 'gate_to_mpo', 'mpo_bases',
-           'apply_mpo', 'full_tensor', 'bitstring_amplitude', 'bitstring_prob']
+__all__ = ['MatrixProductState', 'apply_gate_mps', 'measure_mps', 'sample_mps',
+           'orthogonalize_left2right', 'orthogonalize_right2left', 'center_orthogonalization',
+           'gate_to_mpo', 'mpo_bases', 'apply_mpo', 'full_tensor', 'bitstring_amplitude',
+           'bitstring_prob']
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -337,18 +339,16 @@ class MatrixProductState:
         return err
 
 
-def measure_mps(state, shots: int = 1024, wires=None, with_prob: bool = False,
-                generator: torch.Generator | None = None) -> dict:
-    """Sample bitstrings of an MPS by exact ancestral sampling.
+def sample_mps(state, shots: int = 1024, generator: torch.Generator | None = None):
+    """(shots, n) site values of an MPS drawn by exact ancestral sampling,
+    on its device.
 
     The right environments R_i of sites i.. are built once from the right;
     then, site by site, every shot's conditional distribution over the
     site's value is p(b) ~ a_b R_{i+1} a_b^H with a_b its left environment
-    times the site tensor, and ``torch.multinomial`` draws all shots' bits
+    times the site tensor, and ``torch.multinomial`` draws all shots' values
     at once from ``generator``. The site shapes differ, so the sites are a
-    Python loop. Returns {bitstring: count} on the sorted ``wires`` (all
-    by default); ``with_prob`` adds each full bitstring's probability
-    (None for a marginal)."""
+    Python loop."""
     if isinstance(state, tuple):
         tensors = state[0]
     elif isinstance(state, MatrixProductState):
@@ -375,7 +375,19 @@ def measure_mps(state, shots: int = 1024, wires=None, with_prob: bool = False,
             bits.append(b)
             env = amp[rows, b]
             env = env / torch.linalg.vector_norm(env, dim=-1, keepdim=True)
-        samples = torch.stack(bits, dim=1).cpu().numpy()
+        return torch.stack(bits, dim=1)
+
+
+def measure_mps(state, shots: int = 1024, wires=None, with_prob: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+    """Sample bitstrings of an MPS by exact ancestral sampling
+    (``sample_mps``). Returns {bitstring: count} on the sorted ``wires``
+    (all by default); ``with_prob`` adds each full bitstring's probability
+    (None for a marginal)."""
+    tensors = state[0] if isinstance(state, tuple) else \
+        state.tensors if isinstance(state, MatrixProductState) else state
+    n = len(tensors)
+    samples = sample_mps(tensors, shots, generator).cpu().numpy()
     if wires is not None:
         samples = samples[:, sorted(wires)]
     result = dict(Counter(''.join(map(str, row)) for row in samples.tolist()))

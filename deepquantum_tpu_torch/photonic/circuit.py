@@ -1,4 +1,4 @@
-"""QumodeCircuit: the photonic circuit API (Fock basis mode, Gaussian, Bosonic).
+"""QumodeCircuit: the photonic circuit API (Fock, Gaussian and Bosonic backends).
 
 PyTorch counterpart of ``deepquantum_tpu/photonic/circuit.py``: a circuit is
 a list of operation descriptors plus a flat parameter vector, and each
@@ -9,6 +9,15 @@ are called).
   one dense vector, one Ryser permanent per state, all in ONE launch of the
   permanent kernel on the card (``qmath.permanent_batch``); ``measure``
   draws from them.
+- Fock backend, tensor mode (``basis=False``): the (cutoff,)*n state, or
+  with ``den_mat`` the (cutoff,)*2n density matrix, evolved gate by gate
+  through ``ops/apply.py`` with ``qudit=cutoff`` (each gate's Fock matrix
+  from ``gates.py``, a (B, ndata) data batch as (B, ...) matrices); photon
+  loss as one c^2 x c^2 superoperator on a mode's row and column wires;
+  photon statistics, quadrature means and Wigner functions from a mode's
+  reduced density matrix; ``measure`` draws from the probabilities on the
+  device; homodyne from a mode's grid pdf (``measurement.py``). With
+  ``mps`` the state is a matrix product state of qudits (``mps.py``).
 - Gaussian backend: affine symplectic maps and photon loss on (cov, mean),
   each applied to the rows and columns of its modes, a batch of data rows
   at once; then per outcome group one batched hafnian (``detector='pnrd'``)
@@ -19,13 +28,14 @@ are called).
   weight); cat and GKP states on chosen modes.
 - Time-domain multiplexing: ``delay`` loops unrolled onto concurrent modes,
   shifted after each time step (``tdm.QumodeCircuitTDM`` runs the steps
-  with homodyne feedback); ``global_circuit`` unrolls them in space.
+  with homodyne feedback); ``global_circuit`` unrolls them in space (on
+  the Fock backend the only way a delay runs).
+- ``noise``: Gaussian jitter on every parameter, drawn once when the gate
+  is added, or with ``noise_per_forward`` at every forward (from
+  ``noise_generator`` when one is given).
 
-Not ported yet, and raising ``NotImplementedError`` by name (the Fock
-slice): Fock tensor mode (``basis=False``), ``den_mat``, ``mps``, the gates
-that exist only as Fock matrices (``cp``, ``k``, ``ck``) and the CV gates'
-Fock matrices (``qp``, ``cx``, ``cz`` on the Fock backend), loss, delay and
-homodyne on the Fock backend, per-forward ``noise``, ``draw``. Fock-basis
+Not ported yet, and raising ``NotImplementedError`` by name: ``draw``,
+``measure(mcmc=True)`` and ``delay(loop_gates=...)``. Fock-basis
 probabilities of a Bosonic state (``is_prob`` / ``measure`` /
 ``get_prob``) raise too: they need loop hafnians with complex
 displacement, which the JAX package does not have either (it drops the
@@ -45,8 +55,9 @@ import torch
 
 from .. import config
 from ..config import cdtype, rdtype, resolve_device
+from ..ops.apply import evolve_den_mat, evolve_state, permute_matrix_wires
 from . import gates as PG
-from .channel import loss_xy, transmittance_to_theta
+from .channel import loss_superop, loss_xy, transmittance_to_theta
 from .gates import PHOTONIC_REGISTRY
 from .qmath import (fock_combinations, permanent, permanent_batch, photon_number_mean_var,
                     shift_func, sub_matrix)
@@ -54,13 +65,12 @@ from .state import BosonicState, CatState, FockState, GaussianState, GKPState, c
 
 __all__ = ['QumodeCircuit', 'PhotonicOp']
 
-_FOCK_SLICE = 'the Fock slice'
 _BOSONIC_PROBS = ("Fock-basis probabilities of a Bosonic state need loop hafnians with "
                   "complex displacement; the JAX package computes one Gaussian table per "
                   "component and drops the weights (ROADMAP queue 3)")
 
 
-def _missing(what: str, where: str = _FOCK_SLICE):
+def _missing(what: str, where: str):
     raise NotImplementedError(f'QumodeCircuit: {what} is not ported to deepquantum_tpu_torch '
                               f'yet ({where})')
 
@@ -69,12 +79,12 @@ def _delay_subgates(op, wire1: int, wire2: int) -> list:
     """A delay loop's gates on its concurrent modes: wire1 the loop's mode,
     wire2 the spatial mode. 'bs': a BeamSplitterTheta (phi = pi / 2) on
     both, then a PhaseShift on the loop; 'mzi': one MZI with
-    ``phi_first=False``."""
+    ``phi_first=False``. Their Fock matrices come from their unitaries."""
     if op.extra['convention'] == 'bs':
         return [PhotonicOp(op.name, [wire1, wire2], op.pidx[:1], 1,
                            unitary_fn=partial(PG.bs_theta_unitary, phi=np.pi / 2)),
                 PhotonicOp(op.name + '_ps', [wire1], op.pidx[1:2], 1, unitary_fn=PG.ps_unitary,
-                           xp_fn=PG.ps_xp)]
+                           xp_fn=PG.ps_xp, fock_fn=PG.ps_fock)]
     return [PhotonicOp(op.name, [wire1, wire2], op.pidx, 2,
                        unitary_fn=partial(PG.mzi_unitary, phi_first=False))]
 
@@ -93,12 +103,29 @@ def _apply_map(cov, mean, m, v, idx):
     return cov, mean
 
 
+# torch.multinomial takes at most 2^24 categories
+MULTINOMIAL_MAX = 1 << 24
+
+
+def draw_outcomes(probs, shots: int, generator=None) -> torch.Tensor:
+    """``shots`` outcome indices per row of (B, K) probabilities (need not
+    sum to 1), on their device: ``torch.multinomial`` up to
+    MULTINOMIAL_MAX categories, above that uniform draws located in the
+    cumulative sums (``searchsorted``)."""
+    if probs.shape[-1] <= MULTINOMIAL_MAX:
+        return torch.multinomial(probs, shots, replacement=True, generator=generator)
+    cdf = probs.cumsum(-1)
+    u = torch.rand((probs.shape[0], shots), generator=generator, dtype=cdf.dtype,
+                   device=cdf.device) * cdf[:, -1:]
+    return torch.searchsorted(cdf, u, right=True).clamp_(max=probs.shape[-1] - 1)
+
+
 class PhotonicOp:
     """One photonic operation of the circuit's list; ``kind`` is 'gate',
     'loss', 'delay' or 'barrier'."""
 
     def __init__(self, name, wires, pidx=(), npara=0, kind='gate', unitary_fn=None,
-                 xp_fn=None, static_unitary=None, extra=None):
+                 xp_fn=None, static_unitary=None, extra=None, fock_fn=None):
         self.name = name
         self.wires = tuple(wires)
         self.pidx = tuple(pidx)
@@ -106,6 +133,7 @@ class PhotonicOp:
         self.kind = kind
         self.unitary_fn = unitary_fn
         self.xp_fn = xp_fn
+        self.fock_fn = fock_fn
         self.static_unitary = static_unitary
         self.extra = extra or {}
 
@@ -130,20 +158,36 @@ class PhotonicOp:
             return PG.passive_xp_from_unitary(self.unitary(full))
         return self.xp_fn(self.params(full))
 
+    def fock(self, full, cutoff: int):
+        """The (..., cutoff, ..., cutoff) Fock tensor, output modes first: a
+        fixed unitary's from ``extra['static_fock']``, a passive gate's
+        without a Fock function from its unitary."""
+        if 'static_fock' in self.extra:
+            return torch.as_tensor(self.extra['static_fock'], device=full.device).to(cdtype())
+        if self.fock_fn is not None:
+            return self.fock_fn(self.params(full), cutoff)
+        if self.unitary_fn is None and self.static_unitary is None:
+            raise ValueError(f'{self.name} has no Fock representation')
+        return PG.passive_fock(self.unitary(full), cutoff)
+
 
 class QumodeCircuit:
     """Photonic quantum circuit.
 
     Args:
         nmode: number of modes.
-        init_state: Fock basis photon numbers / 'vac' / [cov, mean(, weight)]
-            / a state object.
+        init_state: Fock photon numbers / a dense Fock tensor / 'vac' /
+            [cov, mean(, weight)] / a state object (an MPS's site tensors
+            with ``mps``).
         cutoff: Fock truncation.
-        backend: 'fock' (basis mode), 'gaussian' or 'bosonic'.
-        basis: Fock basis mode (permanent-based); tensor mode is not ported.
+        backend: 'fock', 'gaussian' or 'bosonic'.
+        basis: Fock basis mode (permanent-based) or, when False, tensor mode.
         detector: 'pnrd' or 'threshold' (Gaussian probabilities).
-        den_mat, mps, chi, noise, mu, sigma: the JAX package's options, kept in
-            the signature; what is not ported raises when switched on.
+        den_mat: tensor mode on density matrices (photon loss needs it).
+        mps, chi: tensor mode as a matrix product state of bond ``chi``.
+        noise, mu, sigma: Gaussian jitter N(mu, sigma) on every parameter
+            added, drawn once when it is added (numpy's global generator);
+            with ``noise_per_forward`` drawn anew at every forward.
         device: where the circuit computes; the default device (the CUDA
             card) when None.
     """
@@ -152,23 +196,25 @@ class QumodeCircuit:
                  backend: str = 'fock', basis: bool = True, detector: str = 'pnrd',
                  name: str | None = None, den_mat: bool = False, mps: bool = False,
                  chi: int | None = None, noise: bool = False, mu: float = 0,
-                 sigma: float = 0.1, device=None) -> None:
+                 sigma: float = 0.1, noise_per_forward: bool = False, device=None) -> None:
         if backend not in ('fock', 'gaussian', 'bosonic'):
             raise ValueError(f'Unknown backend {backend}')
-        if den_mat:
-            _missing('den_mat=True')
-        if mps:
-            _missing('mps=True')
-        if noise:
-            _missing('noise=True', 'per-forward parameter noise')
-        if backend == 'fock' and not basis:
-            _missing('Fock tensor mode (basis=False)')
         self.nmode = nmode
         self.backend = backend
         self.basis = basis if backend == 'fock' else False
+        if (den_mat or mps) and self.basis:
+            raise ValueError('den_mat and mps need the Fock backend in tensor mode (basis=False)')
         self.detector = detector.lower()
         self.name = name
         self.device = resolve_device(device)
+        self.den_mat = den_mat
+        self.mps = mps
+        self.chi = chi
+        self.noise = noise
+        self.mu = mu
+        self.sigma = sigma
+        self.noise_per_forward = noise_per_forward
+        self._noise_pidx: list[int] = []
         self.operators: list[PhotonicOp] = []
         self.encoders: list[PhotonicOp] = []
         self.measurements: list = []
@@ -181,6 +227,8 @@ class QumodeCircuit:
         self.state = None
         self.state_measured = None
         self._cv_state = None
+        self._state_is_prob = False    # the last Fock tensor forward returned probabilities
+        self._cache: dict = {}         # MPO split bases of the Fock MPS, per gate family
         self._basis_table = None       # output basis of the last Fock forward
         self._custom_out_basis = None  # user override via set_fock_basis
         self._bosonic_states = None    # per-mode Bosonic states (cat / gkp)
@@ -201,10 +249,23 @@ class QumodeCircuit:
         if self.backend == 'fock':
             if init_state is None:
                 init_state = [0] * self.nmode
+            if self.mps:
+                from ..mps import MatrixProductState
+                if isinstance(init_state, MatrixProductState):
+                    self.init_state = init_state
+                else:
+                    if isinstance(init_state, str):
+                        init_state = [0] * self.nmode
+                    sites = [int(v) if np.ndim(v) == 0 else v for v in init_state]
+                    self.init_state = MatrixProductState(self.nmode, sites, self.chi,
+                                                         qudit=self.cutoff, device=self.device)
+                self.chi = self.init_state.chi
+                return
             if isinstance(init_state, FockState):
                 self.init_state = init_state
             else:
-                self.init_state = FockState(init_state, self.nmode, self.cutoff, self.basis)
+                self.init_state = FockState(init_state, self.nmode, self.cutoff, self.basis,
+                                            self.den_mat)
             self.cutoff = self.init_state.cutoff
             return
         cls = GaussianState if self.backend == 'gaussian' else BosonicState
@@ -241,10 +302,11 @@ class QumodeCircuit:
             return x.to(device=self.device, dtype=cdtype())
         return torch.as_tensor(np.asarray(x, np.complex128), device=self.device).to(cdtype())
 
-    def _full_params(self, params=None, data=None, data_idx=None) -> torch.Tensor:
+    def _full_params(self, params=None, data=None, data_idx=None, jitter=None) -> torch.Tensor:
         """All parameter slots as one vector: the stored values, with the
-        trainable slots from ``params`` and the encoder slots from ``data``;
-        (B, P) for a (B, ndata) batch of data rows."""
+        trainable slots from ``params``, the encoder slots from ``data``
+        and the per-forward ``jitter`` added; (B, P) for a (B, ndata) batch
+        of data rows."""
         full = torch.as_tensor(np.asarray(self._pvals, np.float64), device=self.device).to(rdtype())
         if params is not None:
             ti = torch.as_tensor(self._trainable(), dtype=torch.long, device=self.device)
@@ -253,6 +315,8 @@ class QumodeCircuit:
             vals = self._real(data)[..., list(data_idx)]
             full = full.expand(vals.shape[:-1] + full.shape).clone()
             full[..., self._enc_pidx] = vals
+        if jitter is not None:
+            full = full + jitter
         return full
 
     def _data_indices(self, data_len: int) -> list[int]:
@@ -262,10 +326,32 @@ class QumodeCircuit:
 
     def _new_params(self, values, encode, requires_grad):
         start = len(self._pvals)
+        if self.noise:
+            if self.noise_per_forward:
+                self._noise_pidx.extend(range(start, start + len(values)))
+            else:
+                values = [v + np.random.normal(self.mu, self.sigma) for v in values]
         idx = tuple(range(start, start + len(values)))
         self._pvals.extend(float(v) for v in values)
         self._train_mask.extend([requires_grad and not encode] * len(values))
         return idx
+
+    def _noise_jitter(self, generator: torch.Generator | None = None):
+        """Fresh jitter N(mu, sigma) on the per-forward noisy slots (None
+        when per-forward noise is off): from ``generator`` (normals drawn in
+        float64 on its device, then cast) or, without one, from numpy's
+        global generator, as the JAX package draws without a key."""
+        if not (self.noise and self.noise_per_forward and self._noise_pidx):
+            return None
+        pidx = torch.as_tensor(self._noise_pidx, device=self.device)
+        if generator is None:
+            eps = torch.as_tensor(np.random.normal(self.mu, self.sigma, len(self._noise_pidx)))
+        else:
+            eps = self.mu + self.sigma * torch.randn(len(self._noise_pidx), generator=generator,
+                                                     dtype=torch.float64, device=generator.device)
+        eps = eps.to(device=self.device, dtype=rdtype())
+        return torch.zeros(len(self._pvals), dtype=rdtype(), device=self.device).index_add(
+            0, pidx, eps)
 
     def init_para(self) -> None:
         """Re-randomize all trainable parameters in [0, 2 pi)."""
@@ -277,6 +363,7 @@ class QumodeCircuit:
     def _touch(self) -> None:
         """Forget what was derived from the operation list."""
         self._basis_table = None
+        self._cache.clear()
         self._unroll_dict = None
         self._operators_tdm = None
         self._measurements_tdm = None
@@ -302,13 +389,17 @@ class QumodeCircuit:
         return op
 
     def add_op(self, name: str, wires, inputs=None, encode=False, requires_grad=None,
-               unitary_fn=None, xp_fn=None, npara=None, static_unitary=None) -> PhotonicOp:
+               unitary_fn=None, xp_fn=None, npara=None, static_unitary=None,
+               fock_fn=None, extra=None) -> PhotonicOp:
         wires = [wires] if isinstance(wires, int) else list(wires)
-        if unitary_fn is None and xp_fn is None and static_unitary is None:
+        if unitary_fn is None and xp_fn is None and static_unitary is None and fock_fn is None:
             reg = PHOTONIC_REGISTRY.get(name)
             if reg is None:
                 raise ValueError(f'Unknown photonic gate {name}')
-            unitary_fn, xp_fn, npara = reg['unitary'], reg['xp'], reg['npara']
+            unitary_fn, xp_fn, fock_fn, npara = reg['unitary'], reg['xp'], reg['fock'], reg['npara']
+        if self.backend != 'fock' and xp_fn is None and unitary_fn is None \
+                and static_unitary is None:
+            raise ValueError(f"{name} exists only as a Fock matrix: it needs backend='fock'")
         npara = npara or 0
         if requires_grad is None:
             requires_grad = inputs is None and npara > 0 and not encode
@@ -323,7 +414,7 @@ class QumodeCircuit:
         else:
             pidx = ()
         return self._register(PhotonicOp(name, wires, pidx, npara, 'gate', unitary_fn, xp_fn,
-                                         static_unitary), encode)
+                                         static_unitary, extra, fock_fn), encode)
 
     def add(self, op, encode: bool = False, wires=None) -> None:
         """Append another circuit's operations and parameters, or a
@@ -337,6 +428,8 @@ class QumodeCircuit:
             offset = len(self._pvals)
             self._pvals.extend(op._pvals)
             self._train_mask.extend(op._train_mask)
+            # the sub-circuit's per-forward noisy slots keep their jitter
+            self._noise_pidx.extend(i + offset for i in op._noise_pidx)
             enc = {id(g) for g in op.encoders}
             for g in op.operators:
                 g2 = _copy.copy(g)
@@ -365,17 +458,20 @@ class QumodeCircuit:
             self._register(op, encode)
 
     # ----------------------------------------------------------- global ops
-    def get_unitary(self, params=None, data=None) -> torch.Tensor:
+    def get_unitary(self, params=None, data=None, jitter=None) -> torch.Tensor:
         """Global nmode x nmode creation-operator unitary (of one row of data)."""
         if data is not None:
             data = self._real(data).reshape(-1)
         didx = None if data is None else self._data_indices(data.shape[-1])
-        return self._unitary_of(self._full_params(params, data, didx))
+        return self._unitary_of(self._full_params(params, data, didx, jitter))
 
     def _unitary_of(self, full) -> torch.Tensor:
         eye = torch.eye(self.nmode, dtype=cdtype(), device=self.device)
         u = eye
         for op in self.operators:
+            if op.kind == 'delay' and self.backend == 'fock':
+                raise ValueError('a delay loop on the Fock backend runs through '
+                                 'global_circuit(nstep)')
             if op.kind != 'gate':
                 continue
             w = torch.as_tensor(list(op.wires), device=self.device)
@@ -420,18 +516,23 @@ class QumodeCircuit:
 
     # --------------------------------------------------------------- forward
     def __call__(self, data=None, state=None, is_prob=None, detector=None, sort=True,
-                 stepwise=False, params=None):
-        return self.forward(data, state, is_prob, detector, sort, stepwise, params)
+                 stepwise=False, params=None, noise_generator=None):
+        return self.forward(data, state, is_prob, detector, sort, stepwise, params,
+                            noise_generator)
 
     def forward(self, data=None, state=None, is_prob=None, detector=None, sort=True,
-                stepwise=False, params=None):
-        """Run the circuit. Fock backend: the unitary (``is_prob=None``) or a
-        dict FockState -> amplitude / probability. Gaussian backend:
-        [cov, mean], or with ``is_prob`` a dict FockState -> probability.
-        Bosonic backend: [cov, mean, weight]."""
+                stepwise=False, params=None, noise_generator: torch.Generator | None = None):
+        """Run the circuit. Fock basis mode: the unitary (``is_prob=None``)
+        or a dict FockState -> amplitude / probability. Fock tensor mode:
+        the state tensor ((B,) (cutoff,)*n, or *2n with ``den_mat``), its
+        probabilities (cutoff,)*n with ``is_prob``, or with ``mps`` the
+        site tensors. Gaussian backend: [cov, mean], or with ``is_prob`` a
+        dict FockState -> probability. Bosonic backend: [cov, mean,
+        weight]. ``noise_generator`` draws the per-forward noise."""
+        jitter = self._noise_jitter(noise_generator)
         if self.backend == 'fock':
-            return self._forward_fock(data, state, is_prob, sort, params)
-        return self._forward_cv(data, state, is_prob, detector, params)
+            return self._forward_fock(data, state, is_prob, sort, params, jitter)
+        return self._forward_cv(data, state, is_prob, detector, params, jitter)
 
     # Fock-basis helpers ----------------------------------------------------
     def _basis_input(self, state) -> np.ndarray:
@@ -487,23 +588,29 @@ class QumodeCircuit:
             order = np.argsort(-keys, kind='stable')
         return {FockState(list(basis[i]), self.nmode, self.cutoff): cols[i] for i in order}
 
-    def _forward_fock(self, data, state, is_prob, sort, params=None):
+    def _forward_fock(self, data, state, is_prob, sort, params=None, jitter=None):
+        if not self.basis:
+            if self.mps:
+                return self._forward_fock_mps(data, state, params, jitter)
+            return self._forward_fock_tensor(data, state, is_prob, params, jitter)
         in_state = self._basis_input(state)
         if in_state.ndim == 2:
-            outs = [self._forward_fock(data, row, is_prob, sort, params) for row in in_state]
+            outs = [self._forward_fock(data, row, is_prob, sort, params, jitter)
+                    for row in in_state]
             self.state = outs
             return outs
         if is_prob is None:
-            self.state = self.get_unitary(params, data)
+            self.state = self.get_unitary(params, data, jitter)
             return self.state
         out_basis = self._output_basis(in_state)
         self._basis_table = out_basis
-        amps = self._fock_basis_amps(data, in_state, out_basis, params)
+        amps = self._fock_basis_amps(data, in_state, out_basis, params, jitter)
         vals = amps.abs() ** 2 if is_prob else amps
         self.state = self._state_dict(out_basis, vals, sort)
         return self.state
 
-    def _fock_basis_amps(self, data, in_state, out_basis, params=None) -> torch.Tensor:
+    def _fock_basis_amps(self, data, in_state, out_basis, params=None,
+                         jitter=None) -> torch.Tensor:
         """Dense amplitude vector over the output-basis table: every
         sub-matrix of the unitary in one stack, one permanent launch."""
         basis = np.asarray(out_basis, dtype=np.int64).reshape(len(out_basis), self.nmode)
@@ -524,12 +631,161 @@ class QumodeCircuit:
             data = self._real(data)
             batch = [data] if data.ndim == 1 else list(data)
         didx = None if data is None else self._data_indices(data.shape[-1])
-        us = torch.stack([self._unitary_of(self._full_params(params, d, didx)) for d in batch])
+        us = torch.stack([self._unitary_of(self._full_params(params, d, didx, jitter))
+                          for d in batch])
         sub = us[:, rows, cols]                                     # (batch, nout, k, k)
         k = sub.shape[-1]
         perms = permanent_batch(sub.reshape(-1, k, k)).reshape(len(batch), -1)
         amps = perms / norms_t
         return amps[0] if data is None or data.ndim == 1 else amps
+
+    # Fock-tensor helpers ---------------------------------------------------
+    def _fock_input(self, state) -> torch.Tensor:
+        """The forward's input as a Fock tensor on the device: the init
+        state, a FockState, photon numbers, or a (batch,) tensor."""
+        if state is None:
+            state = self.init_state
+        if isinstance(state, (list, tuple)) and np.asarray(state).ndim == 1:
+            state = FockState(list(state), self.nmode, self.cutoff, False, self.den_mat)
+        if isinstance(state, FockState):
+            return state.tensor(self.device, cdtype())
+        return self._complex(state)
+
+    def _fock_full(self, data, params, jitter) -> torch.Tensor:
+        if data is None:
+            return self._full_params(params, jitter=jitter)
+        data = self._real(data)
+        return self._full_params(params, data, self._data_indices(data.shape[-1]), jitter)
+
+    def _forward_fock_tensor(self, data, state, is_prob, params=None, jitter=None):
+        out = self._run_fock_tensor(self._fock_full(data, params, jitter),
+                                    self._fock_input(state), is_prob)
+        self.state = out
+        self._state_is_prob = bool(is_prob)
+        return out
+
+    def _run_fock_tensor(self, full, x, is_prob=None):
+        """Evolve a Fock tensor (leading batch axes allowed; (B, P)
+        parameters make a batch of states) through the operations: each
+        gate's Fock matrix on its modes, on a density matrix U on the row
+        wires and conj(U) on the column wires, loss as its superoperator on
+        a mode's (row, column) pair."""
+        c, n = self.cutoff, self.nmode
+        dims = 2 * n if self.den_mat else n
+        if tuple(x.shape[x.dim() - dims:]) != (c,) * dims:
+            if x.numel() % c ** dims:
+                raise ValueError(f'a Fock tensor of shape {tuple(x.shape)} for {n} modes at '
+                                 f'cutoff {c}' + (' (a density matrix)' if self.den_mat else ''))
+            x = x.reshape(((-1,) if x.numel() > c ** dims else ()) + (c,) * dims)
+        mats = self._fock_matrices(full)
+        for op, mat in zip(self.operators, mats):
+            if op.kind == 'loss':
+                if not self.den_mat:
+                    raise ValueError('photon loss on Fock tensors needs den_mat=True')
+                sup = loss_superop(op.params(full), c)
+                for w in op.wires:
+                    x = evolve_state(x, sup, 2 * n, [w, w + n], c)
+            elif op.kind == 'delay':
+                raise ValueError('a delay loop on the Fock backend runs through '
+                                 'global_circuit(nstep)')
+            elif op.kind == 'gate':
+                evolve = evolve_den_mat if self.den_mat else evolve_state
+                x = evolve(x, mat, n, list(op.wires), c)
+        if not is_prob:
+            return x
+        if self.den_mat:
+            lead = x.shape[:x.dim() - 2 * n]
+            diag = x.reshape(lead + (c ** n, c ** n)).diagonal(dim1=-2, dim2=-1)
+            return diag.abs().reshape(lead + (c,) * n)
+        return x.abs() ** 2
+
+    def _fock_matrices(self, full) -> list:
+        """Every gate's (..., c^k, c^k) Fock matrix (None for the other
+        operations), each gate family's built in one call: the parameters
+        of all its gates stacked on a leading axis (all the beam splitters
+        of a circuit are one recurrence, not one each)."""
+        c = self.cutoff
+        groups = defaultdict(list)
+        mats = [None] * len(self.operators)
+        for i, op in enumerate(self.operators):
+            if op.kind != 'gate':
+                continue
+            if op.npara and 'static_fock' not in op.extra and (op.fock_fn or op.unitary_fn):
+                groups[op.fock_fn or ('passive', op.unitary_fn)].append(i)
+            else:
+                mats[i] = op.fock(full, c)
+        for fn, idx in groups.items():
+            p = torch.stack([self.operators[i].params(full) for i in idx])
+            built = PG.passive_fock(fn[1](p), c) if isinstance(fn, tuple) else fn(p, c)
+            for i, mat in zip(idx, built.unbind(0)):
+                mats[i] = mat
+        for i, mat in enumerate(mats):
+            if mat is not None:
+                k = len(self.operators[i].wires)
+                mats[i] = mat.reshape(mat.shape[:mat.dim() - 2 * k] + (c ** k, c ** k))
+        return mats
+
+    def _forward_fock_mps(self, data, state, params=None, jitter=None):
+        """The Fock MPS forward: the final site tensors (one row of data)."""
+        from ..mps import MatrixProductState
+        if state is None:
+            state = self.init_state
+        tensors = state.tensors if isinstance(state, MatrixProductState) else list(state)
+        if data is not None and np.ndim(data) > 1:
+            raise ValueError('a Fock MPS takes one row of data at a time')
+        full = self._fock_full(data, params, jitter)
+        self.state = self._run_fock_mps(full, [self._complex(t) for t in tensors])
+        self._state_is_prob = False
+        return self.state
+
+    def _run_fock_mps(self, full, tensors: list) -> list:
+        """TEBD of the gates on qudits of dimension cutoff, bond ``chi``,
+        normalised after every gate as in the JAX package."""
+        from ..mps import apply_gate_mps, gate_to_mpo
+        state = (list(tensors), -1)
+        for op, mat in zip(self.operators, self._fock_matrices(full)):
+            if op.kind == 'barrier':
+                continue
+            if op.kind != 'gate':
+                raise ValueError(f'a Fock MPS takes gates only, not {op.name}')
+            wires = sorted(op.wires)
+            order = sorted(range(len(op.wires)), key=lambda i: op.wires[i])
+            mat = permute_matrix_wires(mat.to(cdtype()), order, self.cutoff)
+            mpo = None
+            if len(wires) > 1:
+                mpo = gate_to_mpo(mat, wires, self.cutoff, bases=self._mpo_bases(op, full, order))
+            state = apply_gate_mps(state, mat, wires, self.chi, True, self.cutoff, mpo=mpo)
+        return state[0]
+
+    def _mps_matrix(self, op: PhotonicOp, full, order: list) -> torch.Tensor:
+        """The op's (c^k, c^k) Fock matrix, its modes in sorted wire order
+        (a probe of its family)."""
+        k = len(order)
+        mat = op.fock(full, self.cutoff).to(cdtype()).reshape(self.cutoff ** k, self.cutoff ** k)
+        return permute_matrix_wires(mat, order, self.cutoff)
+
+    def _mpo_bases(self, op: PhotonicOp, full, order: list) -> list:
+        """The MPO split bases of the op's gate family (``mps.mpo_bases``),
+        made once per family and cutoff from its Fock matrix at generic
+        parameters (a generic member carries the family's operator Schmidt
+        rank: c^2 for a beam splitter, c for a cross-Kerr gate)."""
+        from ..mps import mpo_bases
+        key = (op.name, id(op.fock_fn), id(op.unitary_fn), id(op.static_unitary),
+               id(op.extra.get('static_fock')), tuple(order), self.cutoff, cdtype(), full.device)
+        bases = self._cache.get(key)
+        if bases is None:
+            k = len(order)
+            with torch.no_grad():
+                if op.npara == 0:
+                    probes = [self._mps_matrix(op, full, order)]
+                else:
+                    gen = torch.Generator(device='cpu').manual_seed(0)
+                    draws = torch.rand(4 ** (k // 2), full.shape[-1], generator=gen,
+                                       dtype=torch.float64) * 2 * np.pi
+                    draws = draws.to(device=full.device, dtype=full.dtype)
+                    probes = [self._mps_matrix(op, p, order) for p in draws]
+                bases = self._cache[key] = mpo_bases(probes, k, self.cutoff)
+        return bases
 
     # CV helpers ------------------------------------------------------------
     def _cv_parts(self, state):
@@ -555,7 +811,7 @@ class QumodeCircuit:
             torch.ones((1, cov.shape[-3]), dtype=cdtype(), device=self.device)
         return [cov, mean, weight]
 
-    def _forward_cv(self, data, state, is_prob, detector, params=None):
+    def _forward_cv(self, data, state, is_prob, detector, params=None, jitter=None):
         parts = self._cv_parts(state)
         cov, mean = parts[0], parts[1]
         if self._with_delay:
@@ -563,10 +819,10 @@ class QumodeCircuit:
             self._unroll_circuit()
             cov, mean = self._unroll_init_state(cov, mean)
         if data is None:
-            full = self._full_params(params)
+            full = self._full_params(params, jitter=jitter)
         else:
             data = self._real(data)
-            full = self._full_params(params, data, self._data_indices(data.shape[-1]))
+            full = self._full_params(params, data, self._data_indices(data.shape[-1]), jitter)
             if data.ndim > 1:
                 # a batch of data rows: one state for every row, or row i with state i
                 zipped = cov.ndim > 2 and cov.shape[0] == data.shape[0] and cov.shape[0] > 1
@@ -632,12 +888,16 @@ class QumodeCircuit:
         numbers (the others summed out). Fock basis mode draws from the
         forward's dict (amplitudes or probabilities); the Gaussian backend
         from its probability table (computed here, with ``detector``, when
-        the forward returned the state). ``torch.multinomial`` on
+        the forward returned the state); Fock tensor mode from the state's
+        probabilities on the device (a dict of the outcomes drawn only), a
+        Fock MPS by ancestral sampling. ``torch.multinomial`` on
         ``generator``."""
         if mcmc:
             _missing('measure(mcmc=True)', 'Markov-chain sampling')
         if self.state is None:
             raise RuntimeError('Run the circuit forward before measurement')
+        if self.backend == 'fock' and not self.basis:
+            return self._measure_fock_tensor(shots, with_prob, wires, generator)
         if self.backend == 'bosonic':
             _missing('measure on the Bosonic backend', _BOSONIC_PROBS)
         if self.backend == 'fock':
@@ -672,15 +932,70 @@ class QumodeCircuit:
                             else int(c_row[i]) for i in hit})
         return results[0] if single else results
 
+    def _fock_state(self, what: str) -> torch.Tensor:
+        """The last forward's Fock tensor (its amplitudes or density matrix)."""
+        if self.basis or self.mps:
+            raise ValueError(f'{what} of the Fock backend needs tensor mode (basis=False), '
+                             'not an MPS')
+        if self.state is None or self._state_is_prob:
+            raise RuntimeError(f'{what}: run the circuit forward first (without is_prob)')
+        return self.state
+
+    def _measure_fock_tensor(self, shots: int, with_prob: bool, wires, generator):
+        """measure() of Fock tensor mode: the outcomes of ``wires`` (the
+        others summed out) drawn on the device; the dict holds only the
+        outcomes drawn."""
+        c, n = self.cutoff, self.nmode
+        keep = list(range(n)) if wires is None else \
+            ([wires] if isinstance(wires, int) else sorted(wires))
+        if self.mps:
+            from ..mps import bitstring_prob, sample_mps
+            sites = sample_mps(self.state, shots, generator)[:, keep]        # (shots, k)
+            weights = c ** torch.arange(len(keep) - 1, -1, -1, device=sites.device)
+            draws, flat, single = (sites * weights).sum(-1)[None], None, True
+        else:
+            x = self.state.detach()
+            if self._state_is_prob:
+                probs = x
+            elif self.den_mat:
+                lead = x.shape[:x.dim() - 2 * n]
+                probs = x.reshape(lead + (c ** n, c ** n)).diagonal(dim1=-2, dim2=-1).abs()
+            else:
+                probs = x.abs() ** 2
+            single = probs.numel() == c ** n
+            probs = probs.reshape((-1,) + (c,) * n).to(torch.float64)
+            other = tuple(i + 1 for i in range(n) if i not in keep)
+            if other:
+                probs = probs.sum(other)
+            flat = probs.reshape(probs.shape[0], -1)
+            draws = draw_outcomes(flat, shots, generator)
+        results = []
+        for row, drawn in enumerate(draws):
+            idx, counts = (t.cpu().numpy() for t in torch.unique(drawn, return_counts=True))
+            keys = np.stack(np.unravel_index(idx, (c,) * len(keep)), -1)
+            if not with_prob:
+                vals = counts.tolist()
+            elif flat is not None:
+                vals = list(zip(counts.tolist(), flat[row, torch.as_tensor(idx)].tolist()))
+            else:       # an MPS outcome's probability, of full outcomes only
+                vals = [(int(m), float(bitstring_prob(self.state, k)) if len(keep) == n else None)
+                        for m, k in zip(counts, keys)]
+            results.append({FockState(list(k), len(keep), c): v for k, v in zip(keys, vals)})
+        return results[0] if single else results
+
     def photon_number_mean_var(self, wires=None):
-        """Photon-number mean and variance per wire of the last CV forward;
-        a Bosonic state's are the mixture's (sum_k w_k <n>_k, and
-        sum_k w_k <n^2>_k - <n>^2, real parts)."""
-        if self.backend == 'fock':
-            _missing('photon statistics of the Fock backend (tensor mode)')
+        """Photon-number mean and variance per wire of the last forward:
+        (batch, nwire) of a CV state, where a Bosonic state's are the
+        mixture's (sum_k w_k <n>_k, and sum_k w_k <n^2>_k - <n>^2, real
+        parts); (nwire, batch) of a Fock tensor, as the JAX package
+        returns them."""
         if wires is None:
             wires = list(range(self.nmode))
         wires = [wires] if isinstance(wires, int) else list(wires)
+        if self.backend == 'fock':
+            from .wigner import photon_number_mean_var_fock
+            return photon_number_mean_var_fock(self._fock_state('photon statistics'), self.nmode,
+                                               self.cutoff, wires, self.den_mat)
         state = self._last_cv_state()
         if self.backend == 'gaussian':
             exp, var = photon_number_mean_var(state[0], state[1])
@@ -692,13 +1007,16 @@ class QumodeCircuit:
         return exp.real[..., wires], var.real[..., wires]
 
     def quadrature_mean(self, wires=None):
-        """<x> per wire of the last CV forward; a Bosonic state's is
-        Re sum_k w_k <x>_k."""
-        if self.backend == 'fock':
-            _missing('quadrature_mean of the Fock backend (tensor mode)')
+        """<x> per wire of the last forward: (batch, nwire) of a CV state
+        (a Bosonic state's is Re sum_k w_k <x>_k); (nwire, batch) of a Fock
+        tensor."""
         if wires is None:
             wires = list(range(self.nmode))
         wires = [wires] if isinstance(wires, int) else list(wires)
+        if self.backend == 'fock':
+            from .wigner import quadrature_mean_fock
+            return quadrature_mean_fock(self._fock_state('quadrature_mean'), self.nmode,
+                                        self.cutoff, wires, self.den_mat)
         state = self._last_cv_state()
         mean = state[1][..., wires, 0]
         if self.backend == 'bosonic':
@@ -706,10 +1024,12 @@ class QumodeCircuit:
         return mean.real
 
     def wigner(self, wire: int, **kwargs):
-        """Wigner function of one mode of the last CV forward (see
-        ``wigner.cv_to_wigner``)."""
+        """Wigner function of one mode of the last forward (see
+        ``wigner.cv_to_wigner`` and ``wigner.fock_to_wigner``)."""
         if self.backend == 'fock':
-            _missing('wigner of the Fock backend (fock_to_wigner)')
+            from .wigner import fock_to_wigner
+            return fock_to_wigner(self._fock_state('wigner'), wire, self.nmode, self.cutoff,
+                                  self.den_mat, **kwargs)
         from .wigner import cv_to_wigner
         return cv_to_wigner(self._last_cv_state(), wire, **kwargs)
 
@@ -809,7 +1129,8 @@ class QumodeCircuit:
         self._bs_single(wires, [np.pi / 2], False, 'h')
 
     def any(self, unitary, wires=None, minmax=None, name='uany'):
-        """A fixed unitary on the given wires."""
+        """A fixed unitary on the given wires (in Fock tensor mode its Fock
+        tensor, made once on the host)."""
         if wires is None:
             if minmax is None:
                 minmax = [0, self.nmode - 1]
@@ -818,7 +1139,10 @@ class QumodeCircuit:
         if torch.is_tensor(unitary):
             unitary = unitary.detach().cpu().numpy()
         u = np.asarray(unitary, dtype=np.complex128)
-        self.add_op(name, wires, None, False, static_unitary=u, npara=0)
+        extra = None
+        if self.backend == 'fock' and not self.basis:
+            extra = {'static_fock': PG.uany_fock_np(u, len(wires), self.cutoff)}
+        self.add_op(name, wires, None, False, static_unitary=u, npara=0, extra=extra)
 
     def clements(self, unitary, wires=None, minmax=None):
         """Decompose a unitary into an MZI mesh ('cssr' Clements scheme) and
@@ -871,22 +1195,29 @@ class QumodeCircuit:
     def z(self, wires, inputs=None, encode=False):
         self.add_op('DisplacementMomentum', wires, inputs, encode)
 
-    def _cv_gate(self, name: str, sugar: str, wires, inputs, encode):
-        if self.backend == 'fock':
-            _missing(f'{sugar} on the Fock backend (its Fock matrix)')
-        self.add_op(name, wires, inputs, encode)
-
     def qp(self, wires, inputs=None, encode=False):
         """Quadratic phase P(s)."""
-        self._cv_gate('QuadraticPhase', 'qp', wires, inputs, encode)
+        self.add_op('QuadraticPhase', wires, inputs, encode)
 
     def cx(self, wires, inputs=None, encode=False):
         """CV controlled-X(s) on [control, target]."""
-        self._cv_gate('ControlledX', 'cx', wires, inputs, encode)
+        self.add_op('ControlledX', wires, inputs, encode)
 
     def cz(self, wires, inputs=None, encode=False):
         """CV controlled-Z(s)."""
-        self._cv_gate('ControlledZ', 'cz', wires, inputs, encode)
+        self.add_op('ControlledZ', wires, inputs, encode)
+
+    def cp(self, wires, inputs=None, encode=False):
+        """Cubic phase V(gamma) = exp(i gamma x^3 / (3 hbar)) (Fock backend)."""
+        self.add_op('CubicPhase', wires, inputs, encode)
+
+    def k(self, wires, inputs=None, encode=False):
+        """Kerr K(kappa) = exp(i kappa n^2) (Fock backend)."""
+        self.add_op('Kerr', wires, inputs, encode)
+
+    def ck(self, wires, inputs=None, encode=False):
+        """Cross-Kerr CK(kappa) = exp(i kappa n1 n2) (Fock backend)."""
+        self.add_op('CrossKerr', wires, inputs, encode)
 
     def barrier(self, wires=None):
         """A barrier (drawing only; no operation)."""
@@ -896,9 +1227,10 @@ class QumodeCircuit:
 
     # ---------------------------------------------------------- loss, delay
     def loss(self, wires, inputs=None, encode=False):
-        """Photon loss of angle theta, transmittance T = cos^2(theta / 2)."""
-        if self.backend == 'fock':
-            _missing('loss on the Fock backend (Kraus operators on density matrices)')
+        """Photon loss of angle theta, transmittance T = cos^2(theta / 2);
+        on the Fock backend a density matrix's channel (den_mat=True)."""
+        if self.backend == 'fock' and not self.den_mat:
+            raise ValueError('photon loss on the Fock backend needs den_mat=True')
         if inputs is None:
             inputs = [float(np.random.rand() * np.pi)]
         pidx = self._new_params(list(np.asarray(inputs, np.float64).reshape(-1)), encode, False)
@@ -921,11 +1253,10 @@ class QumodeCircuit:
               encode: bool = False, loop_gates=None):
         """A delay loop of ntau time bins on one spatial mode, coupled in by
         a BeamSplitterTheta and a PhaseShift on the loop ('bs') or by an
-        MZI ('mzi'): two parameters (theta, phi)."""
+        MZI ('mzi'): two parameters (theta, phi). On the Fock backend it
+        runs through ``global_circuit``."""
         if convention not in ('bs', 'mzi'):
             raise ValueError(f'Unknown delay convention {convention}')
-        if self.backend == 'fock':
-            _missing('delay on the Fock backend')
         if loop_gates is not None:
             _missing('delay(loop_gates=...)', 'gates inside the loop; the JAX package ignores them')
         if inputs is None:
@@ -1017,7 +1348,8 @@ class QumodeCircuit:
         self._prepare_unroll_dict()
         nmode = self._nmode_tdm + (nstep - 1) * self.nmode
         cir = QumodeCircuit(nmode, init_state='vac', cutoff=self.cutoff, backend=self.backend,
-                            detector=self.detector, name=self.name, device=self.device)
+                            basis=self.basis, detector=self.detector, name=self.name,
+                            den_mat=self.den_mat, mps=self.mps, chi=self.chi, device=self.device)
 
         def proto_of(op):
             """The op's gates (a delay: its coupling gates) as descriptors
@@ -1062,9 +1394,11 @@ class QumodeCircuit:
         """A conditional homodyne measurement of the quadrature at angle phi
         (``measure_homodyne`` draws it)."""
         from .measurement import Homodyne
-        if self.backend == 'fock':
-            _missing('homodyne on the Fock backend (Homodyne.op_fock)')
-        m = Homodyne(phi=phi, nmode=self.nmode, wires=wires, cutoff=self.cutoff, eps=eps)
+        if self.backend == 'fock' and (self.basis or self.mps):
+            raise ValueError('homodyne on the Fock backend needs tensor mode (basis=False), '
+                             'not an MPS')
+        m = Homodyne(phi=phi, nmode=self.nmode, wires=wires, cutoff=self.cutoff,
+                     den_mat=self.den_mat, eps=eps)
         self.measurements.append(m)
         self.wires_homodyne.append(m.wires[0])
         self._measurements_tdm = None
@@ -1083,9 +1417,11 @@ class QumodeCircuit:
         ``self.state_measured`` (shots x batch states). Without them: a
         Gaussian state's x and p of ``wires`` (its Wigner function is a
         distribution), a Bosonic state's x quadratures of ``wires`` (its
-        Wigner function goes negative; x alone is a homodyne outcome)."""
+        Wigner function goes negative; x alone is a homodyne outcome). A
+        Fock tensor: without conditional measurements the x quadrature of
+        one wire, every shot from one grid pdf (``measurement.py``)."""
         if self.backend == 'fock':
-            _missing('measure_homodyne on the Fock backend')
+            return self._measure_homodyne_fock(shots, wires, generator)
         if self.state is None or isinstance(self.state, dict):
             raise RuntimeError('Run forward first (without is_prob)')
         measurements = self._measurements_tdm if self._with_delay else self.measurements
@@ -1123,6 +1459,31 @@ class QumodeCircuit:
                                else self.state[2], generator)
         return draws.reshape(shots, rows, -1).squeeze()
 
+    def _measure_homodyne_fock(self, shots: int, wires, generator):
+        """measure_homodyne on a Fock tensor: with conditional measurements
+        each draws in turn on shots x batch copies of the state (ending in
+        ``state_measured``); without, the x quadrature of one wire."""
+        from .measurement import sample_homodyne_fock
+        x = self._fock_state('measure_homodyne')
+        c, n = self.cutoff, self.nmode
+        dims = 2 * n if self.den_mat else n
+        measurements = self._measurements_tdm if self._with_delay else self.measurements
+        if measurements:
+            core = x.reshape((-1,) + (c,) * dims)
+            batch = core.shape[0]
+            state = core.repeat((shots,) + (1,) * dims)
+            samples = []
+            for op_m in measurements:
+                state = op_m(state, generator=generator)
+                s = op_m.samples.reshape(shots, batch, -1)[..., :len(op_m.wires)]
+                samples.append(s.transpose(0, 1))
+            self.state_measured = state
+            return torch.cat(samples, -1).squeeze()
+        wires = list(range(n)) if wires is None else ([wires] if isinstance(wires, int) else wires)
+        if len(wires) != 1:
+            raise ValueError('measure_homodyne on a Fock tensor measures one wire')
+        return sample_homodyne_fock(x, wires[0], n, c, shots, self.den_mat, generator).squeeze()
+
     # -------------------------------------------------------- Bosonic states
     def _bosonic_mode(self, wires: int, state: BosonicState) -> None:
         if self.backend != 'bosonic':
@@ -1142,14 +1503,12 @@ class QumodeCircuit:
                                            epsilon=epsilon, cutoff=self.cutoff))
 
 
-def _stub(what: str):
+def _stub(what: str, where: str):
     def method(self, *args, **kwargs):
-        _missing(what)
+        _missing(what, where)
     method.__doc__ = f'Not ported yet: {what}.'
     return method
 
 
 # the rest of the JAX package's QumodeCircuit surface raises by name
-for _name, _what in {'cp': 'cp (cubic phase, a Fock-only gate)', 'k': 'k (Kerr, a Fock-only gate)',
-                     'ck': 'ck (cross-Kerr, a Fock-only gate)', 'draw': 'draw'}.items():
-    setattr(QumodeCircuit, _name, _stub(_what))
+QumodeCircuit.draw = _stub('draw', 'circuit drawing')

@@ -20,26 +20,41 @@ Sigma_k^-1 Im mu_k / 2) N(x; Re mu_k, Sigma_k), which bounds it. (The JAX
 package draws a component by |Re w| and samples its Gaussian, which is
 not p(x) where weights are negative, as in cat and GKP states.)
 
-Homodyne on Fock tensors (``op_fock``) waits for the Fock slice.
+Homodyne on Fock tensors (``op_fock``) draws the outcome from the rotated
+mode's quadrature pdf on a grid of 2000 points over [-10, 10]
+(``homodyne_pdf``: the reduced density matrix between Hermite functions,
+all shots from one pdf) and projects the mode onto the displaced,
+infinitely squeezed vacuum at that outcome, leaving the mode in vacuum.
+The pdf's Hermite argument is x kappa sqrt(2 / hbar), the one for which
+the vacuum's x variance is hbar / (4 kappa^2), the Gaussian backend's (the
+JAX package's sampler takes x kappa / sqrt(hbar), sqrt(2) too small an
+argument: its vacuum variance is twice that; ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
 import math
+from math import factorial
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..config import cdtype
+from .. import config
+from ..config import cdtype, rdtype
+from ..ops.apply import evolve_den_mat, evolve_state
+from . import gates as PG
+from .wigner import reduced_dm
 
 __all__ = ['Generaldyne', 'Homodyne', 'GeneralBosonic', 'PhotonNumberResolvingBosonic',
-           'sample_bosonic']
+           'sample_bosonic', 'homodyne_grid', 'homodyne_pdf', 'sample_homodyne_fock']
 
 # largest (rows x candidates x components) evaluated at once by the sampler
 _SAMPLER_CHUNK = 1 << 22
 # rounds of candidates after which the sampler gives up on a row
 _MAX_ROUNDS = 10000
+# the x grid of homodyne on Fock tensors
+HOMODYNE_XRANGE, HOMODYNE_POINTS = 10.0, 2000
 
 
 def _normal(shape, device, dtype, generator):
@@ -266,8 +281,44 @@ class Homodyne(Generaldyne):
         return super().forward([cov, mean] + list(x[2:]), samples, generator)
 
     def op_fock(self, x, samples=None, generator=None):
-        raise NotImplementedError('Homodyne on Fock tensors (op_fock) is not ported to '
-                                  'deepquantum_tpu_torch yet (the Fock slice)')
+        """Homodyne on a Fock tensor ((B,) (c,)*n, or (c,)*2n with
+        ``den_mat``): the outcome drawn from the mode rotated by -phi (or
+        ``samples``: one value, or one per row), then the mode projected
+        onto R(phi) D(x) |x = 0> and sent to vacuum, each row renormalised
+        (a density matrix to trace 1). The outcomes, (B, 1), go to
+        ``self.samples``."""
+        c, n = self.cutoff, self.nmode
+        dims = 2 * n if self.den_mat else n
+        lead = x.shape[:x.dim() - dims]
+        xb = x.reshape((-1,) + (c,) * dims)
+        rows = xb.shape[0]
+        phi = torch.full((1,), self.phi, dtype=rdtype(), device=x.device)
+        evolve = evolve_den_mat if self.den_mat else evolve_state
+        if samples is None:
+            rotated = evolve(xb, PG.ps_fock(-phi, c), n, self.wires, c)
+            sample = sample_homodyne_fock(rotated, self.wires[0], n, c, 1, self.den_mat,
+                                          generator)[:, 0].to(rdtype())
+        else:
+            sample = self._given(samples, phi, (-1,)).expand(rows)
+        self.samples = sample[:, None]
+        orders = np.arange((c + 1) // 2)
+        inf_sqz = np.zeros(c, dtype=np.complex128)
+        inf_sqz[::2] = ((-0.5) ** orders * np.sqrt([factorial(2 * int(k)) for k in orders])
+                        / [factorial(int(k)) for k in orders])
+        alpha = sample * config.KAPPA / config.HBAR ** 0.5
+        theta = torch.where(alpha >= 0, torch.zeros_like(alpha), torch.full_like(alpha, np.pi))
+        d_mat = PG.disp_fock(torch.stack([alpha.abs(), theta], -1), c)     # (B, c, c)
+        vac_x = d_mat @ torch.as_tensor(inf_sqz, device=x.device).to(cdtype())   # (B, c)
+        eigen = vac_x @ PG.ps_fock(phi, c).mT
+        project = torch.zeros((rows, c, c), dtype=cdtype(), device=x.device)
+        project[:, 0, :] = eigen.conj()
+        out = evolve(xb, project.to(xb.dtype), n, self.wires, c)
+        if self.den_mat:
+            norm = out.reshape(rows, c ** n, c ** n).diagonal(dim1=-2, dim2=-1).sum(-1)
+        else:
+            norm = out.reshape(rows, -1).abs().pow(2).sum(-1).sqrt()
+        out = out / norm.reshape((rows,) + (1,) * dims)
+        return out.reshape(lead + out.shape[1:])
 
     def forward(self, x, samples=None, generator=None):
         if isinstance(x, (list, tuple)):
@@ -275,6 +326,41 @@ class Homodyne(Generaldyne):
         return self.op_fock(x, samples, generator)
 
     __call__ = forward
+
+
+def homodyne_grid(device) -> torch.Tensor:
+    """The float64 x grid homodyne on Fock tensors draws from."""
+    return torch.linspace(-HOMODYNE_XRANGE, HOMODYNE_XRANGE, HOMODYNE_POINTS,
+                          dtype=torch.float64, device=device)
+
+
+def homodyne_pdf(rdm) -> torch.Tensor:
+    """The x-quadrature pdf of a mode on ``homodyne_grid``, (B, points),
+    each row summing to 1, from its (B, c, c) reduced density matrix:
+    p(x) ~ sum_mn psi_m(x) rho_mn psi_n(x) with psi_n the Hermite functions
+    of xi = x kappa sqrt(2 / hbar)."""
+    c = rdm.shape[-1]
+    xi = np.linspace(-HOMODYNE_XRANGE, HOMODYNE_XRANGE, HOMODYNE_POINTS) \
+        * config.KAPPA * (2 / config.HBAR) ** 0.5
+    psis = np.zeros((c, HOMODYNE_POINTS))
+    psis[0] = np.pi ** -0.25 * np.exp(-xi ** 2 / 2)
+    if c > 1:
+        psis[1] = np.sqrt(2.0) * xi * psis[0]
+    for m in range(2, c):
+        psis[m] = np.sqrt(2.0 / m) * xi * psis[m - 1] - np.sqrt((m - 1) / m) * psis[m - 2]
+    psis = torch.as_tensor(psis, device=rdm.device).to(rdm.dtype)
+    pdf = torch.einsum('mx,bmn,nx->bx', psis, rdm, psis).real.clamp(min=0)
+    return pdf / pdf.sum(-1, keepdim=True)
+
+
+def sample_homodyne_fock(state, wire: int, nmode: int, cutoff: int, shots: int,
+                         den_mat: bool = False, generator=None) -> torch.Tensor:
+    """``shots`` x-quadrature outcomes of mode ``wire`` of a Fock tensor,
+    (batch, shots) float64: one pdf per state, every shot drawn from it at
+    once."""
+    pdf = homodyne_pdf(reduced_dm(state, wire, nmode, cutoff, den_mat))
+    idx = torch.multinomial(pdf.to(torch.float64), shots, replacement=True, generator=generator)
+    return homodyne_grid(state.device)[idx]
 
 
 class GeneralBosonic(Generaldyne):

@@ -7,7 +7,7 @@ a CUDA tensor, the chunked mask-matmul twin on a CPU tensor).
 ``takagi`` and ``williamson`` run on the host in numpy / scipy, as the JAX
 package's do at build time, and return tensors on the caller's device;
 ``sqrtm_herm`` and ``schur_anti_symm_even`` are ``torch.linalg.eigh``
-functions. ``ladder_ops`` is not ported yet (the Fock slice).
+functions; ``ladder_ops`` gives the truncated a and a^dagger.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from .. import config
 from ..config import cdtype, rdtype, resolve_device
 from ..ops.permanent_kernel import MAX_N, MIN_N, permanent_cuda_batch
 
-__all__ = ['xxpp_to_xpxp', 'xpxp_to_xxpp', 'quadrature_to_ladder', 'ladder_to_quadrature',
-           'permanent', 'permanent_batch', 'sub_matrix', 'fock_combinations',
+__all__ = ['ladder_ops', 'xxpp_to_xpxp', 'xpxp_to_xxpp', 'quadrature_to_ladder',
+           'ladder_to_quadrature', 'permanent', 'permanent_batch', 'sub_matrix', 'fock_combinations',
            'photon_number_mean_var', 'shift_func', 'sqrtm_herm', 'schur_anti_symm_even',
            'takagi', 'williamson']
 
@@ -33,6 +33,14 @@ def _as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     if not torch.is_tensor(x):
         x = torch.as_tensor(np.asarray(x), device=resolve_device(device))
     return x if dtype is None else x.to(dtype)
+
+
+def ladder_ops(cutoff: int, device=None):
+    """The annihilation and creation operators truncated at ``cutoff``, (a,
+    a^dagger), each (cutoff, cutoff) in the current complex dtype."""
+    a = torch.diag(torch.arange(1, cutoff, dtype=torch.float64).sqrt(), 1)
+    a = a.to(device=resolve_device(device), dtype=cdtype())
+    return a, a.mH
 
 
 def shift_func(lst: list, nstep: int) -> list:

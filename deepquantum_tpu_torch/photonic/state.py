@@ -6,8 +6,10 @@ holds basis photon numbers (hashable, a dict key); ``GaussianState`` holds
 (cov, complex mean, complex weight), with the cat, GKP and Fock
 constructors and the tensor product ``combine_bosonic_states``. All keep
 host numpy arrays in float64 / complex128, which a circuit moves to its
-device when it runs. Dense Fock tensors (``basis=False``) wait for the
-Fock slice.
+device when it runs. A dense Fock state (``basis=False``) is a (cutoff,)*n
+tensor, or with ``den_mat`` a (cutoff,)*2n density matrix (row modes
+first); one made from photon numbers keeps only those and is built where
+it is used (``tensor``), so a 10^7-amplitude vacuum costs no host array.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from .. import config
 
@@ -23,39 +26,84 @@ __all__ = ['FockState', 'GaussianState', 'BosonicState', 'CatState', 'GKPState',
 
 
 class FockState:
-    """A Fock basis state: one photon number per mode."""
+    """A Fock state: basis photon numbers (``basis=True``, hashable, a dict
+    key), or a dense state tensor (``basis=False``): given as photon numbers
+    (the basis state's tensor, a density matrix with ``den_mat``), 'vac', or
+    as a (batch,) (cutoff,)*n tensor, (cutoff,)*2n with ``den_mat``."""
 
     def __init__(self, state: Any, nmode: int | None = None, cutoff: int | None = None,
                  basis: bool = True, den_mat: bool = False) -> None:
-        if not basis or den_mat:
-            raise NotImplementedError('FockState: dense Fock tensors (basis=False) and density '
-                                      'matrices are not ported yet; basis mode only')
-        self.basis = True
-        self.den_mat = False
+        self.basis = basis
+        self.den_mat = den_mat
+        self._ints = None
+        self._dense = None
         if isinstance(state, FockState):
             state = state.state
-        state = np.asarray(state, dtype=np.int64).reshape(-1)
-        if nmode is None:
-            nmode = len(state)
-        if len(state) < nmode:
-            state = np.concatenate([np.zeros(nmode - len(state), dtype=np.int64), state])
-        state = state[:nmode]
-        if cutoff is None:
-            cutoff = int(state.sum()) + 1
-        self.state = state
+        if basis or isinstance(state, str) or (isinstance(state, (list, tuple))
+                                               and np.asarray(state).ndim == 1):
+            if isinstance(state, str):
+                if state != 'vac':
+                    raise ValueError(f'FockState: unknown state {state!r}')
+                state = [0] * (nmode or 1)
+            ints = np.asarray(state, dtype=np.int64).reshape(-1)
+            if nmode is None:
+                nmode = len(ints)
+            if len(ints) < nmode:
+                ints = np.concatenate([np.zeros(nmode - len(ints), dtype=np.int64), ints])
+            ints = ints[:nmode]
+            if cutoff is None:
+                cutoff = int(ints.sum()) + 1
+            if not basis and (ints >= cutoff).any():
+                raise ValueError(f'FockState: photon numbers {ints.tolist()} at cutoff {cutoff}')
+            self._ints = ints
+        else:
+            dense = state.detach().cpu().numpy() if hasattr(state, 'detach') else np.asarray(state)
+            if nmode is None:
+                nmode = dense.ndim // 2 if den_mat else dense.ndim
+            if cutoff is None:
+                cutoff = dense.shape[-1]
+            self._dense = dense.astype(np.complex128)
         self.nmode = nmode
         self.cutoff = cutoff
 
+    @property
+    def state(self) -> np.ndarray:
+        """Basis mode: the photon numbers. Dense: the state tensor (built
+        on the host from photon numbers on first use)."""
+        if self.basis:
+            return self._ints
+        if self._dense is None:
+            self._dense = self.tensor('cpu').numpy()
+        return self._dense
+
+    def tensor(self, device, dtype=None) -> torch.Tensor:
+        """The dense state as a tensor on ``device`` (complex128 unless
+        ``dtype``); from photon numbers, built there directly."""
+        dtype = torch.complex128 if dtype is None else dtype
+        if self._dense is not None:
+            return torch.as_tensor(self._dense, device=device).to(dtype)
+        dims = self.nmode * (2 if self.den_mat else 1)
+        out = torch.zeros((self.cutoff,) * dims, dtype=dtype, device=device)
+        idx = tuple(self._ints.tolist()) * (2 if self.den_mat else 1)
+        out[idx] = 1
+        return out
+
     def __hash__(self):
-        return hash(tuple(self.state.tolist()))
+        if self.basis:
+            return hash(tuple(self._ints.tolist()))
+        return id(self)
 
     def __eq__(self, other):
         if not isinstance(other, FockState):
             return NotImplemented
-        return self.nmode == other.nmode and list(self.state) == list(other.state)
+        if self.basis and other.basis:
+            return self.nmode == other.nmode and list(self._ints) == list(other._ints)
+        return self is other
 
     def __repr__(self):
-        return '|' + ''.join(str(int(i)) for i in self.state) + '>'
+        if self.basis:
+            return '|' + ''.join(str(int(i)) for i in self._ints) + '>'
+        return f'FockState(tensor, nmode={self.nmode}, cutoff={self.cutoff})'
 
     __str__ = __repr__
 

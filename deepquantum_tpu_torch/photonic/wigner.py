@@ -1,11 +1,14 @@
-"""Wigner functions of Gaussian and Bosonic states.
+"""Wigner functions and photon statistics of Fock, Gaussian and Bosonic states.
 
-PyTorch counterpart of ``deepquantum_tpu/photonic/wigner.py``, the
-continuous-variable half: ``cv_to_wigner`` evaluates one mode's Wigner
-function as the weighted sum of its components' Gaussians (complex means
-by analytic continuation) on a grid. The plot imports matplotlib only when
-``plot=True``. ``fock_to_wigner`` and the Fock-tensor statistics wait for
-the Fock slice.
+PyTorch counterpart of ``deepquantum_tpu/photonic/wigner.py``.
+``cv_to_wigner`` evaluates one mode's Wigner function as the weighted sum
+of its components' Gaussians (complex means by analytic continuation) on a
+grid. On Fock tensors everything goes through one mode's reduced density
+matrix (``reduced_dm``): for a pure state the mode's axis moved to the
+front, (c, c^(n-1)), times its adjoint, so that no c^n x c^n matrix is
+formed (the JAX package forms psi psi^H before its partial trace);
+``fock_to_wigner`` then runs the iterative Laguerre recurrence (the qutip
+method) on the grid. The plot imports matplotlib only when ``plot=True``.
 """
 
 from __future__ import annotations
@@ -15,9 +18,90 @@ import math
 import numpy as np
 import torch
 
-from ..config import cdtype
+from .. import config
+from ..config import cdtype, rdtype
+from ..ops.qmath import partial_trace
 
-__all__ = ['cv_to_wigner']
+__all__ = ['cv_to_wigner', 'fock_to_wigner', 'reduced_dm', 'quadrature_mean_fock',
+           'photon_number_mean_var_fock']
+
+
+def reduced_dm(state, wire: int, nmode: int, cutoff: int, den_mat: bool = False):
+    """The (batch, c, c) reduced density matrix of mode ``wire`` of a Fock
+    tensor (leading batch axes allowed; a density matrix with
+    ``den_mat``)."""
+    c = cutoff
+    if den_mat:
+        rho = state.reshape(-1, c ** nmode, c ** nmode)
+        return partial_trace(rho, nmode, [i for i in range(nmode) if i != wire], c)
+    psi = state.reshape((-1,) + (c,) * nmode)
+    t = psi.movedim(wire + 1, 1).reshape(psi.shape[0], c, -1)
+    return t @ t.mH
+
+
+def photon_number_mean_var_fock(state, nmode: int, cutoff: int, wires, den_mat: bool = False):
+    """Photon-number mean and variance of each of ``wires`` of a Fock
+    tensor: (nwire, batch) each, as the JAX package returns them."""
+    c = cutoff
+    if den_mat:
+        rho = state.reshape(-1, c ** nmode, c ** nmode)
+        prob = rho.diagonal(dim1=-2, dim2=-1).real.reshape((-1,) + (c,) * nmode)
+    else:
+        prob = state.reshape((-1,) + (c,) * nmode).abs() ** 2
+    n_op = torch.arange(c, dtype=prob.dtype, device=prob.device)
+    means, variances = [], []
+    for w in wires:
+        p_w = prob.sum(tuple(j + 1 for j in range(nmode) if j != w))
+        mean = (n_op * p_w).sum(-1)
+        means.append(mean)
+        variances.append((n_op ** 2 * p_w).sum(-1) - mean ** 2)
+    return torch.stack(means), torch.stack(variances)
+
+
+def quadrature_mean_fock(state, nmode: int, cutoff: int, wires, den_mat: bool = False):
+    """<x> of each of ``wires`` of a Fock tensor, (nwire, batch):
+    sqrt(hbar) / (2 kappa) <a + a^dagger> from the reduced density matrix's
+    first off-diagonal."""
+    factor = torch.arange(1, cutoff, dtype=rdtype(), device=state.device).sqrt()
+    scale = config.HBAR ** 0.5 / (2 * config.KAPPA)
+    means = [scale * 2 * (factor * reduced_dm(state, w, nmode, cutoff, den_mat)
+                          .diagonal(offset=1, dim1=-2, dim2=-1).real).sum(-1) for w in wires]
+    return torch.stack(means)
+
+
+def fock_to_wigner(state, wire: int, nmode: int, cutoff: int, den_mat: bool = False,
+                   xrange=10, prange=10, npoints=100, plot: bool = True, k: int = 0):
+    """Wigner function of mode ``wire`` of a Fock tensor on an npoints x
+    npoints grid of (x, p): (batch, nx, np), real, by the iterative
+    Laguerre method on the mode's reduced density matrix."""
+    rdm = reduced_dm(state, wire, nmode, cutoff, den_mat)
+    c = cutoff
+    xvec, pvec = _grid(xrange, prange, npoints)
+    coef = 2 * config.KAPPA ** 2 / config.HBAR
+    gx, gp = np.meshgrid(xvec, pvec, indexing='ij')
+    alpha_np = coef ** 0.5 * (gx + 1j * gp) / 2 ** 0.5
+    alpha = torch.as_tensor(alpha_np, device=rdm.device).to(rdm.dtype)
+    w_list = [None] * c
+    w_list[0] = torch.as_tensor(coef * np.exp(-2 * np.abs(alpha_np) ** 2) / np.pi,
+                                device=rdm.device).to(rdm.dtype)
+    w = rdm[:, 0, 0, None, None] * w_list[0]
+    for i in range(1, c):
+        w_list[i] = 2 * alpha * w_list[i - 1] / np.sqrt(i)
+        w = w + 2 * (rdm[:, 0, i, None, None] * w_list[i]).real
+    for i in range(1, c):
+        sqrt_i = i ** 0.5
+        temp = w_list[i]
+        w_list[i] = (2 * alpha.conj() * temp - sqrt_i * w_list[i - 1]) / sqrt_i
+        w = w + rdm[:, i, i, None, None] * w_list[i]
+        for j in range(i + 1, c):
+            temp2 = (2 * alpha * w_list[j - 1] - sqrt_i * temp) / j ** 0.5
+            temp = w_list[j]
+            w_list[j] = temp2
+            w = w + 2 * (rdm[:, i, j, None, None] * w_list[j]).real
+    w = w.real
+    if plot:
+        _plot_wigner(w.detach().cpu().numpy(), xvec, pvec, k)
+    return w
 
 
 def _grid(xrange, prange, npoints):

@@ -1303,3 +1303,118 @@ def test_bosonic_on_the_card(card128):
     wr = ref.wigner(0, npoints=60, plot=False, normalize=False)
     assert (w.cpu() - wr).abs().max().item() <= 1e-10
     assert abs(w.sum().item() * (20 / 59) ** 2 - 1) <= 1e-3
+
+
+# ------------------------------------------------ the Fock-tensor engine
+def _fock_qnn(device=None, den_mat=False, mps=False, chi=None, nmode=3, cutoff=6):
+    """A CV-QNN-like layer on the vacuum, trainable, fixed values."""
+    rng = np.random.default_rng(41)
+    cir = dqt.QumodeCircuit(nmode, init_state='vac', cutoff=cutoff, basis=False,
+                            den_mat=den_mat, mps=mps, chi=chi, device=device)
+    for w in range(nmode):
+        cir.add_op('Squeezing', w, [rng.uniform(0, 0.3), rng.uniform(0, 6)], requires_grad=True)
+    for w in range(nmode - 1):
+        cir.add_op('BeamSplitter', [w, w + 1], rng.uniform(0, 1.5, 2), requires_grad=True)
+    for w in range(nmode):
+        cir.add_op('Displacement', w, [rng.uniform(0, 0.4), rng.uniform(0, 6)],
+                   requires_grad=True)
+        cir.add_op('Kerr', w, [rng.uniform(-0.2, 0.2)], requires_grad=True)
+    cir.ck([0, 1], [0.2])
+    cir.cp(1, [0.1])
+    return cir
+
+
+def _fock_value_grad(cir):
+    p = cir.params.requires_grad_()
+    cir(params=p)
+    value = cir.photon_number_mean_var()[0].sum()
+    value.backward()
+    return value.detach(), p.grad
+
+
+def _rel(a, b):
+    return ((a.cpu().to(b.dtype) - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize('name', ['PhaseShift', 'BeamSplitter', 'MZI', 'Squeezing', 'Squeezing2',
+                                  'Displacement', 'DisplacementPosition', 'DisplacementMomentum',
+                                  'QuadraticPhase', 'ControlledX', 'ControlledZ', 'CubicPhase',
+                                  'Kerr', 'CrossKerr'])
+def test_fock_gate_matrices_on_the_card(card, name):
+    """complex64 on the card against complex128 on the CPU, a batch of 4."""
+    from deepquantum_tpu_torch.photonic.gates import PHOTONIC_REGISTRY
+    reg = PHOTONIC_REGISTRY[name]
+    p = np.random.default_rng(42).uniform(-1, 1, (4, reg['npara']))
+    got = reg['fock'](torch.as_tensor(p, dtype=torch.float32, device='cuda'), 7)
+    dqt.set_dtype('complex128')
+    want = reg['fock'](torch.as_tensor(p), 7)
+    assert got.device.type == 'cuda' and got.dtype == torch.complex64
+    assert _rel(got, want) <= 1e-5
+
+
+def test_fock_tensor_forward_and_gradient_on_the_card(card):
+    cir = _fock_qnn()
+    state = cir()
+    value, grad = _fock_value_grad(cir)
+    assert state.device.type == 'cuda' and state.shape == (6, 6, 6)
+    dqt.set_dtype('complex128')
+    ref = _fock_qnn('cpu')
+    rvalue, rgrad = _fock_value_grad(ref)
+    assert _rel(state, ref()) <= 1e-5 and _rel(grad, rgrad) <= 1e-4
+    assert abs(value.item() - rvalue.item()) <= 1e-5 * abs(rvalue.item())
+
+
+def test_lossy_fock_rho_on_the_card(card):
+    cir = _fock_qnn(den_mat=True)
+    for w in range(3):
+        cir.loss_db(w, 3.0)
+    rho = cir()
+    value, grad = _fock_value_grad(cir)
+    cir()
+    counts = cir.measure(shots=20000, generator=torch.Generator('cuda').manual_seed(0))
+    wig = cir.wigner(0, npoints=40, plot=False)
+    dqt.set_dtype('complex128')
+    ref = _fock_qnn('cpu', den_mat=True)
+    for w in range(3):
+        ref.loss_db(w, 3.0)
+    rvalue, rgrad = _fock_value_grad(ref)
+    rrho = ref()
+    assert rho.device.type == 'cuda' and _rel(rho, rrho) <= 1e-5 and _rel(grad, rgrad) <= 1e-4
+    assert abs(value.item() - rvalue.item()) <= 1e-5 * abs(rvalue.item())
+    assert _rel(wig, ref.wigner(0, npoints=40, plot=False)) <= 1e-5
+    assert sum(counts.values()) == 20000
+    diag = rrho.reshape(216, 216).diagonal().real
+    for key in counts:
+        assert diag[int(np.ravel_multi_index(tuple(key.state), (6, 6, 6)))] > 0
+
+
+def test_fock_mps_on_the_card(card):
+    from deepquantum_tpu_torch.mps import full_tensor
+    mps = _fock_qnn(mps=True, chi=36, nmode=4, cutoff=4)
+    dense = _fock_qnn(nmode=4, cutoff=4)
+    psi = dense().reshape(-1)
+    sites = mps()
+    assert sites[0].device.type == 'cuda'
+    assert _rel(full_tensor(sites), (psi / torch.linalg.vector_norm(psi)).cpu()) <= 1e-5
+    counts = mps.measure(shots=500, generator=torch.Generator('cuda').manual_seed(1))
+    assert sum(counts.values()) == 500
+
+
+def test_fock_homodyne_sampling_on_the_card(card):
+    cir = _fock_qnn(cutoff=8)
+    cir.homodyne(0, phi=0.3)
+    state = cir()
+    xs = dqt.QumodeCircuit.measure_homodyne(cir, shots=50, generator=torch.Generator(
+        'cuda').manual_seed(2))
+    assert xs.shape == (50,) and xs.device.type == 'cuda' and torch.isfinite(xs).all()
+    post = cir.measurements[0](state, samples=[0.4])
+    cir.measurements.clear()
+    ideal = cir.measure_homodyne(shots=2000, wires=0, generator=torch.Generator(
+        'cuda').manual_seed(3))
+    assert ideal.shape == (2000,) and abs(ideal.mean().item()
+                                         - cir.quadrature_mean(0).item()) <= 0.2
+    dqt.set_dtype('complex128')
+    ref = _fock_qnn('cpu', cutoff=8)
+    ref.homodyne(0, phi=0.3)
+    rpost = ref.measurements[0](ref(), samples=[0.4])
+    assert _rel(post, rpost) <= 1e-5

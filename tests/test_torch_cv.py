@@ -261,12 +261,21 @@ def test_fock_basis_sugar_and_refusals():
     jcir, tcir = build(jph), build(tph)
     _close(tcir.get_unitary(), _jit(jcir.get_unitary)())
     assert tcir.max_depth == jcir.max_depth == 4
-    for method in ('qp', 'cx', 'cz'):
-        with pytest.raises(NotImplementedError, match=method):
-            getattr(tcir, method)([0, 1] if method != 'qp' else 0, [0.1])
-    for method in ('loss', 'delay', 'homodyne'):
-        with pytest.raises(NotImplementedError, match=method):
-            getattr(tcir, method)(0)
+    # basis mode takes passive gates only: the Fock-matrix gates add, and
+    # the unitary refuses them; loss, homodyne and delay need tensor mode,
+    # a density matrix or global_circuit
+    for method in ('qp', 'cx', 'cz', 'cp', 'k', 'ck'):
+        cir = build(tph)
+        getattr(cir, method)([0, 1] if method in ('cx', 'cz', 'ck') else 0, [0.1])
+        with pytest.raises(ValueError, match='passive'):
+            cir.get_unitary()
+    with pytest.raises(ValueError, match='den_mat'):
+        tcir.loss(0)
+    with pytest.raises(ValueError, match='tensor mode'):
+        tcir.homodyne(0)
+    tcir.delay(0)
+    with pytest.raises(ValueError, match='global_circuit'):
+        tcir.get_unitary()
 
 
 def test_descriptors_share_parameters_and_init_para():

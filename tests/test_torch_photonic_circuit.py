@@ -95,11 +95,15 @@ def test_gate_symplectics_match_jax(name, npara):
 
 
 def test_registry_names_match_jax_and_carry_no_fock():
+    # since the Fock slice every entry carries its Fock matrix, as the JAX
+    # package's do, and the Fock-only gates are in the registry too
+    assert tgates.PHOTONIC_REGISTRY.keys() == jgates.PHOTONIC_REGISTRY.keys()
     for name, reg in tgates.PHOTONIC_REGISTRY.items():
         jreg = jgates.PHOTONIC_REGISTRY[name]
         assert (reg['nwires'], reg['npara']) == (jreg['nwires'], jreg['npara'])
-        assert reg['fock'] is None
+        assert reg['fock'] is not None and jreg['fock'] is not None
         assert (reg['unitary'] is None) == (jreg['unitary'] is None)
+        assert (reg['xp'] is None) == (jreg['xp'] is None)
 
 
 # ---------------------------------------------------- unitary and symplectic
@@ -276,22 +280,11 @@ def test_qumode_from_jax_carries_parameters_encoders_and_basis():
 
 
 def test_qumode_from_jax_refuses_what_is_not_ported():
-    cases = []
-    c = jph.QumodeCircuit(2, init_state=[1, 0])
-    c.qp(0, [0.3])                              # a CV gate's Fock matrix
-    cases.append(c)
-    c = jph.QumodeCircuit(2, init_state=[1, 0], cutoff=3, basis=False)
-    c.k(0, [0.3])
-    cases.append(c)
-    c = jph.QumodeCircuit(2, backend='gaussian', noise=True, noise_per_forward=True)
-    c.s(0, 0.3, 0.0)
-    cases.append(c)
+    # since the Fock slice only a measurement other than Homodyne is refused
     c = jph.QumodeCircuit(2, backend='gaussian')
     c.measurements.append(jph.measurement.Generaldyne(np.eye(2), nmode=2, wires=[0]))
-    cases.append(c)
-    for jcir in cases:
-        with pytest.raises(NotImplementedError):
-            dqt.qumode_from_jax(jcir)
+    with pytest.raises(NotImplementedError):
+        dqt.qumode_from_jax(c)
 
 
 # ------------------------------------------------- path (a): boson sampling
@@ -493,19 +486,31 @@ def test_gbs_rejects_a_non_unitary():
 
 
 # -------------------------------------------------------- not ported options
-@pytest.mark.parametrize('kwargs', [dict(basis=False), dict(den_mat=True), dict(mps=True),
-                                    dict(backend='gaussian', noise=True), dict(noise=True)])
-def test_constructor_options_not_ported_raise(kwargs):
+def _bosonic_cat():
+    cir = tph.QumodeCircuit(1, backend='bosonic')
+    cir.cat(0, r=1.0, theta=0.0)
+    return cir
+
+
+# what still raises by name: Markov-chain sampling, the Fock-basis
+# probabilities of a Bosonic state, noise on a general-dyne measurement
+NOT_PORTED_OPTIONS = {
+    'measure(mcmc=True)': lambda: tph.QumodeCircuit(2, init_state=[1, 0]).measure(mcmc=True),
+    'bosonic is_prob': lambda: _bosonic_cat()(is_prob=True),
+    'bosonic measure': lambda: (lambda c: (c(), c.measure(10)))(_bosonic_cat()),
+    'bosonic get_prob': lambda: (lambda c: (c(), c.get_prob([1])))(_bosonic_cat()),
+    'Generaldyne(noise=True)': lambda: tph.Generaldyne(np.eye(2), nmode=1, noise=True),
+}
+
+
+@pytest.mark.parametrize('option', list(NOT_PORTED_OPTIONS))
+def test_constructor_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match='not ported'):
-        tph.QumodeCircuit(2, **kwargs)
+        NOT_PORTED_OPTIONS[option]()
 
 
-# the methods that still raise on a Fock basis-mode circuit (the Fock slice);
-# the CV backends run them since the continuous-variable engine was ported
-@pytest.mark.parametrize('method', ['delay', 'loss', 'loss_t', 'loss_db', 'homodyne',
-                                    'homodyne_x', 'homodyne_p', 'measure_homodyne', 'draw',
-                                    'wigner', 'qp', 'cx', 'cz', 'cp', 'k', 'ck',
-                                    'quadrature_mean'])
+# the method that still raises on a Fock basis-mode circuit
+@pytest.mark.parametrize('method', ['draw'])
 def test_methods_not_ported_raise(method):
     cir = tph.QumodeCircuit(2, init_state=[1, 0])
     with pytest.raises(NotImplementedError, match='(?i)' + method.split('_')[0]):
@@ -513,8 +518,9 @@ def test_methods_not_ported_raise(method):
 
 
 def test_states_not_ported_raise_and_fock_states_hash():
-    with pytest.raises(NotImplementedError):
-        tph.FockState([1, 0], basis=False)
+    # dense Fock states are ported; a photon number past the cutoff is refused
+    with pytest.raises(ValueError, match='cutoff'):
+        tph.FockState([3, 0], cutoff=2, basis=False)
     with pytest.raises(ValueError, match='backend'):
         tph.QumodeCircuit(2, backend='tensor')
     a, b = tph.FockState([1, 0, 2]), tph.FockState([1, 0, 2], 3, 5)
