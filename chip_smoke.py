@@ -239,6 +239,29 @@ Phases (each raises on failure, so the run exits non-zero):
    (complex64 against complex128), per-forward noise from an explicit
    generator bitwise the same over two runs with one seed. 9l-9o launch
    none of the port's kernels (asserted);
+9p. the class-style API and QASM (check_class_api_qasm): the bench ansatz
+   at n=18, 5 layers, built from RxLayer / RzLayer / CnotRing with the
+   sugar-built circuit's parameters: state and <X...X> against the sugar
+   (1e-6), gradient (1e-5), window_chain_fwd launched twice; qasm3() and
+   qasm3_to_cir of its text on the card, the state again (1e-5), the
+   export and import times;
+9q. circuit cutting (check_cutting): two 12-wire halves of the bench
+   ansatz (5 layers each) joined by a cnot each way across the middle,
+   two wire cuts: 64 terms, 128 subcircuits of 13 wires on the card; the
+   reconstructed <Z Z> of the crossing wires against the uncut n=24 circuit at complex64
+   and complex128 (1e-5); the host time to build the subexperiments and
+   the time to run them, their K1 / K2 / K3 launches, the busy share;
+9r. MBQC at complex128 (check_mbqc): QubitCircuit.pattern() of random
+   5-qubit circuits of the MBQC family whose standard pattern's first
+   measurement materialises a graph state of >= 20 nodes (2^20
+   amplitudes on the card), unstandardised and standardised at three
+   generator seeds each, the output's overlap with the circuit's state
+   >= 1 - 1e-8; nodes, the largest state, ms per pattern, busy share;
+9s. the gradient-free optimizers (check_optimizers): OptimizerSPSA (10
+   steps, every parameter) and OptimizerFourier (order 2, 3 steps on the
+   12 angles of the last rz column) on the n=12 bench loss on the card: the loss falls; the ms of
+   a target evaluation. Each of 9l-9s prints its wall seconds in the
+   line of phase times;
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -3742,6 +3765,358 @@ def check_fock_homodyne(card: str, qnn):
     return {}, out
 
 
+# ------------------------------------------------- the qubit toolchain
+TOOL_N = 18                       # 9p: the class-built bench ansatz
+CUT_HALF = 12                     # 9q: two halves of the bench ansatz, n = 24
+CUT_BUSY_TERMS = 4
+MBQC_N = 5                        # 9r: random circuits of the MBQC family
+MBQC_MIN_NODES = 20
+MBQC_CIRCUITS = 2
+MBQC_SEEDS = (0, 1, 2)
+OPT_N = 12                        # 9s: the optimizers on the n=12 bench loss
+OPT_SPSA_STEPS = 10
+OPT_FOURIER_STEPS = 3
+
+
+def class_bench(n: int, layers: int = LAYERS):
+    """The bench ansatz from the class-style API: per layer an RxLayer, an
+    RzLayer, an RxLayer and a CnotRing; X string on all wires."""
+    dqt = _pkg()[0]
+    cir = dqt.QubitCircuit(n)
+    for _ in range(layers):
+        for layer in (dqt.RxLayer, dqt.RzLayer, dqt.RxLayer):
+            cir.add(layer(n))
+        cir.add(dqt.CnotRing(n))
+    cir.observable(list(range(n)), basis='x' * n)
+    return cir
+
+
+def _class_order(n: int, layers: int = LAYERS) -> list:
+    """For each parameter of class_bench, its index in bench_circuit (which
+    walks rx, rz, rx wire by wire)."""
+    return [l * 3 * n + i * 3 + g for l in range(layers) for g in range(3) for i in range(n)]
+
+
+def check_class_api_qasm(card: str, n: int = TOOL_N):
+    """Phase 9p, the class-style API and QASM at full width: the bench
+    ansatz at n=18, 5 layers, built from RxLayer / RzLayer / CnotRing with
+    the sugar-built circuit's parameters, on the card: state and <X...X>
+    against the sugar-built circuit (1e-6), the gradient (1e-5); then
+    qasm3() and qasm3_to_cir of its text, the imported state against the
+    class-built one (1e-5); the export and import times."""
+    import torch
+    dqt = _pkg()[0]
+    sugar = bench_circuit(n)
+    cls = class_bench(n)
+    order = _class_order(n)
+    cls._pvals = [sugar._pvals[i] for i in order]
+    cls._touch()
+    if cls.npara != sugar.npara or cls.device.type != 'cuda':
+        raise AssertionError(f'9p: {cls.npara} parameters on {cls.device}')
+    with torch.no_grad():
+        reset_counts()
+        state = cls.forward().clone()
+        e = cls.expectation()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref_state = sugar.forward().clone()
+        ref_e = sugar.expectation()
+    loss, grad = grad_step(cls, cls.params.requires_grad_(), update=False)
+    ref_loss, ref_grad = grad_step(sugar, sugar.params.requires_grad_(), update=False)
+    d_state = (state - ref_state).abs().max().item()
+    d_e = abs(e.item() - ref_e.item())
+    d_grad = (grad - ref_grad[order]).abs().max().item()
+    text, export_ms = _one_call_ms(cls.qasm3)
+    back, import_ms = _one_call_ms(lambda: dqt.qasm3_to_cir(text))
+    with torch.no_grad():
+        back_state = back.forward()
+    d_back = (back_state - state).abs().max().item()
+    out = dict(launches={k: v for k, v in counts.items() if v}, state_err=d_state, value_err=d_e,
+               grad_err=d_grad, qasm3_chars=len(text), export_ms=export_ms, import_ms=import_ms,
+               roundtrip_err=d_back, value=e.item())
+    print(f'class API n={n}, {LAYERS} layers: <X..X> {e.item():.8f} (sugar {ref_e.item():.8f}), '
+          f'state max|d| {d_state:.2e}, |d value| {d_e:.2e}, gradient max|d| {d_grad:.2e}, '
+          f'launches {out["launches"]}; qasm3() {len(text)} characters in {export_ms:.2f} ms, '
+          f'qasm3_to_cir {import_ms:.2f} ms, imported state max|d| {d_back:.2e} [{card}]')
+    if not (d_state <= 1e-6 and d_e <= 1e-6 and d_grad <= 1e-5 and d_back <= 1e-5):
+        raise AssertionError(f'9p: {out}')
+    if back.device.type != 'cuda' or counts['window_chain_fwd'] != 2:
+        raise AssertionError(f'9p: imported on {back.device}, launches {counts}')
+    return counts, out
+
+
+def cut_circuit(half: int = CUT_HALF, layers: int = LAYERS, cut: bool = True):
+    """Two halves of the bench ansatz (wires 0..h-1 and h..2h-1, rx, rz, rx
+    per wire and a CNOT ring per layer) joined by cnot(h-1, h) before and
+    cnot(h, h-1) after them; with ``cut`` wire h is cut after the first
+    and wire h-1 before the second, which leaves two fragments of h + 1
+    wires. Z Z on the wires h-1 and h that cross (after five random layers
+    a Pauli string over more wires reads ~1e-4: 9q holds the sum and prints
+    the sum of the terms' magnitudes beside it)."""
+    dqt = _pkg()[0]
+    n = 2 * half
+    cir = dqt.QubitCircuit(n)
+    cir.cnot(half - 1, half)
+    if cut:
+        cir.cut(half)
+    for lo, hi in ((0, half - 1), (half, n - 1)):
+        for _ in range(layers):
+            for i in range(lo, hi + 1):
+                cir.rx(i)
+                cir.rz(i)
+                cir.rx(i)
+            cir.cnot_ring(minmax=[lo, hi])
+    if cut:
+        cir.cut(half - 1)
+    cir.cnot(half, half - 1)
+    cir.observable([half - 1, half], basis='zz')
+    cir.init_para(SEED + 13)
+    return cir
+
+
+def _reconstruct(sub: dict, coeffs: list):
+    """(sum_k coeff_k prod_fragments <O>_k, sum_k |that term|), each
+    subcircuit's forward and expectation on its device."""
+    import torch
+    terms = []
+    for k, coeff in enumerate(coeffs):
+        prod = torch.ones((), dtype=torch.float64, device='cuda')
+        for subs in sub.values():
+            if subs[k].observables:
+                subs[k].forward()
+                prod = prod * subs[k].expectation().prod().double()
+        terms.append(coeff * prod)
+    terms = torch.stack(terms)
+    return terms.sum().item(), terms.abs().sum().item()
+
+
+def check_cutting(card: str):
+    """Phase 9q, circuit cutting: cut_circuit at n=24 (two 12-wire halves of
+    the bench ansatz, 5 layers, two wire cuts) -> 8^2 = 64 terms, 128
+    subcircuits of 13 wires on the card; the reconstructed <Z Z> of the
+    crossing wires against the uncut circuit on the card at complex64 and at complex128
+    (1e-5); the host time to build the subexperiments, the time to run
+    them, their K1 / K2 / K3 launches and the device's busy share over the
+    first CUT_BUSY_TERMS terms."""
+    import torch
+    dqt = _pkg()[0]
+    cut = cut_circuit()
+    (sub, coeffs), build_ms = _one_call_ms(cut.get_subexperiments)
+    widths = sorted({c.nqubit for s in sub.values() for c in s})
+    nsub = sum(len(s) for s in sub.values())
+    if len(coeffs) != 64 or nsub != 128 or widths != [CUT_HALF + 1]:
+        raise AssertionError(f'9q: {len(coeffs)} terms, {nsub} subcircuits of widths {widths}')
+    if any(c.device.type != 'cuda' for s in sub.values() for c in s):
+        raise AssertionError('9q: a subcircuit left the card')
+    # the busy share from CUT_BUSY_TERMS terms: a profiler window over all 64
+    # terms (~14 000 launches) holds the card for over a minute
+    part = {label: subs[:CUT_BUSY_TERMS] for label, subs in sub.items()}
+
+    def run_part():
+        return _reconstruct(part, coeffs[:CUT_BUSY_TERMS])
+
+    with torch.no_grad():
+        reset_counts()
+        (value, scale), run_ms = _one_call_ms(lambda: _reconstruct(sub, coeffs))
+        counts = read_counts()
+        _, part_ms = _one_call_ms(run_part)
+        device_ms = _cuda_only_device_ms(run_part)
+        uncut = cut_circuit(cut=False)
+        want64 = uncut.expectation()[0].item()
+    del uncut
+    with complex128(), torch.no_grad():
+        uncut = cut_circuit(cut=False)
+        want128 = uncut.expectation()[0].item()
+    del uncut
+    d64, d128 = abs(value - want64), abs(value - want128)
+    k123 = {k: counts[k] for k in ('planar_apply', 'window_apply', 'window_chain_fwd')}
+    out = dict(terms=len(coeffs), subcircuits=nsub, widths=widths, value=value, abs_terms=scale,
+               uncut64=want64,
+               uncut128=want128, err64=d64, err128=d128, build_ms=build_ms, run_ms=run_ms,
+               part_ms=part_ms, busy=round(device_ms / part_ms, 4), launches=k123)
+    print(f'cutting n={2 * CUT_HALF} ({LAYERS} layers a half, 2 wire cuts): {len(coeffs)} terms, '
+          f'{nsub} subcircuits of {widths} wires, built in {build_ms:.1f} ms (host), run in '
+          f'{run_ms:.1f} ms, launches K1 {k123["planar_apply"]}, K2 {k123["window_apply"]}, K3 '
+          f'{k123["window_chain_fwd"]}; {CUT_BUSY_TERMS} terms in {part_ms:.1f} ms, busy '
+          f'{100 * out["busy"]:.1f} %; reconstructed <ZZ> {value:.8f} (sum of |terms| '
+          f'{scale:.6f}), uncut {want64:.8f} '
+          f'(complex128 {want128:.8f}), |d| {d64:.2e} / {d128:.2e} [{card}]')
+    if not (d64 <= 1e-5 and d128 <= 1e-5):
+        raise AssertionError(f'9q: reconstruction off the uncut circuit: {out}')
+    if sum(k123.values()) == 0:
+        raise AssertionError(f'9q: the subexperiments launched no kernel: {counts}')
+    return counts, out
+
+
+def mbqc_circuit(seed: int, n: int = MBQC_N):
+    """A circuit of the MBQC random family (rx on every wire, a cnot, rz on
+    every wire, a cnot, h on wire 0), angles and cnot pairs from ``seed``."""
+    dqt = _pkg()[0]
+    rng = np.random.default_rng(seed)
+    cir = dqt.QubitCircuit(n)
+    for i in range(n):
+        cir.rx(i, inputs=float(rng.random() * 2 * np.pi))
+    cir.cnot(*(int(w) for w in rng.choice(n, 2, replace=False)))
+    for i in range(n):
+        cir.rz(i, inputs=float(rng.random() * 2 * np.pi))
+    cir.cnot(*(int(w) for w in rng.choice(n, 2, replace=False)))
+    cir.h(0)
+    return cir
+
+
+def _first_graph_nodes(pattern) -> int:
+    """The nodes of the graph state the first measurement of a standard
+    pattern materialises: the component of its node in the entanglement
+    graph."""
+    parent = {}
+
+    def find(a):
+        parent.setdefault(a, a)
+        while parent[a] != a:
+            a = parent[a]
+        return a
+
+    for c in pattern.commands:
+        if type(c).__name__ == 'Entanglement':
+            parent[find(c.nodes[0])] = find(c.nodes[1])
+    first = next(c.nodes[0] for c in pattern.commands if type(c).__name__ == 'Measurement')
+    root = find(first)
+    return sum(1 for v in list(parent) if find(v) == root)
+
+
+@contextlib.contextmanager
+def _largest_graph_state(record: list):
+    """Record the size of every graph state a pattern materialises."""
+    from deepquantum_tpu_torch.mbqc.state import SubGraphState
+    fget = SubGraphState.full_state.fget
+
+    def spy(self):
+        out = fget(self)
+        record.append(out.numel())
+        return out
+
+    SubGraphState.full_state = property(spy)
+    try:
+        yield record
+    finally:
+        SubGraphState.full_state = property(fget)
+
+
+def check_mbqc(card: str):
+    """Phase 9r, MBQC on the card at complex128: QubitCircuit.pattern() of
+    random 5-qubit circuits of the MBQC family, drawn until the standard
+    pattern's first measurement materialises a graph state of >= 20 nodes
+    (2^20+ amplitudes); each run unstandardised and standardised at three
+    generator seeds, the output state's overlap with the circuit's state
+    on the card >= 1 - 1e-8; nodes, the largest state, ms per pattern and
+    the busy share of a standard run."""
+    import torch
+    rows = []
+    seed = SEED + 14
+    with complex128(), torch.no_grad():
+        while len(rows) < MBQC_CIRCUITS:
+            seed += 1
+            cir = mbqc_circuit(seed)
+            probe = cir.pattern()
+            probe.standardize()
+            if _first_graph_nodes(probe) < MBQC_MIN_NODES:
+                continue
+            target = cir.forward().reshape(-1)
+            row = dict(seed=seed, nodes=len({v for c in probe.commands for v in c.nodes}),
+                       first_graph_nodes=_first_graph_nodes(probe), runs=[])
+            for standard in (False, True):
+                for gen_seed in MBQC_SEEDS:
+                    gen = torch.Generator(device='cuda').manual_seed(gen_seed)
+                    pat = cir.pattern(generator=gen)
+                    if standard:
+                        pat.standardize()
+                    sizes = []
+                    with _largest_graph_state(sizes):
+                        graph, ms = _one_call_ms(pat)
+                    out = graph.full_state.reshape(-1)
+                    if out.device.type != 'cuda' or out.dtype != torch.complex128:
+                        raise AssertionError(f'9r: output on {out.device}, {out.dtype}')
+                    overlap = ((out.conj() @ target).abs()
+                               / (torch.linalg.vector_norm(out) * torch.linalg.vector_norm(target)))
+                    row['runs'].append(dict(standard=standard, gen_seed=gen_seed, ms=ms,
+                                            largest=max(sizes), overlap=overlap.item()))
+            pat = cir.pattern(generator=torch.Generator(device='cuda').manual_seed(0))
+            pat.standardize()
+            _, wall = _one_call_ms(pat)
+            row['busy'] = round(_cuda_only_device_ms(pat) / wall, 4)
+            rows.append(row)
+    for row in rows:
+        std = [r for r in row['runs'] if r['standard']]
+        raw = [r for r in row['runs'] if not r['standard']]
+        print(f"MBQC circuit seed {row['seed']}: {row['nodes']} nodes, the standard pattern's "
+              f"first graph state {row['first_graph_nodes']} nodes; largest state "
+              f"{max(r['largest'] for r in std)} amplitudes standardised, "
+              f"{max(r['largest'] for r in raw)} not; ms per pattern "
+              f"{[round(r['ms'], 2) for r in std]} standardised, "
+              f"{[round(r['ms'], 2) for r in raw]} not; min overlap "
+              f"{min(r['overlap'] for r in row['runs']):.12f}; busy {100 * row['busy']:.1f} % "
+              f"of a standard run{' (host-bound)' if row['busy'] < 0.5 else ''} [{card}]")
+        if min(r['overlap'] for r in row['runs']) < 1 - 1e-8:
+            raise AssertionError(f'9r: a pattern output is off the circuit state: {row}')
+        if max(r['largest'] for r in std) < 1 << MBQC_MIN_NODES:
+            raise AssertionError(f'9r: the largest graph state is small: {row}')
+    return {}, rows
+
+
+def check_optimizers(card: str, n: int = OPT_N):
+    """Phase 9s, the gradient-free optimizers on the card: the n=12 bench
+    loss <X...X> (5 layers, 180 parameters) as the target of
+    OptimizerSPSA (10 steps on every parameter) and of OptimizerFourier
+    (order 2, 3 steps on the 12 angles of the last rz column, the others
+    held): the loss falls, and the ms of a target evaluation."""
+    import torch
+    from deepquantum_tpu_torch.optimizer import OptimizerFourier, OptimizerSPSA
+    cir = bench_circuit(n)
+    p0 = cir.params.double().cpu().numpy()
+    calls = []
+
+    def loss(x):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            value = cir.expectation(params=torch.as_tensor(x, device='cuda'))[0].item()
+        calls.append(time.perf_counter() - t0)
+        return value
+
+    start = loss(p0)
+    spsa = OptimizerSPSA(loss, p0, random_state=SEED)
+    spsa.set_hyperparam({'a': 0.5, 'c': 0.1, 'A': 10, 'nepoch': OPT_SPSA_STEPS, 'alpha': 0.602,
+                         'gamma': 0.101})
+    t0 = time.perf_counter()
+    spsa.run(OPT_SPSA_STEPS)
+    spsa_s = time.perf_counter() - t0
+    spsa_calls = len(calls) - 1
+    # the last layer's rz column (its rx columns commute with the X string
+    # that the CNOT ring maps the observable to: their gradient is zero)
+    last = list(range(len(p0) - 3 * n + 1, len(p0), 3))
+
+    def sub_loss(x):
+        full = p0.copy()
+        full[last] = x
+        return loss(full)
+
+    fourier = OptimizerFourier(sub_loss, p0[last], order=2, lr=0.1)
+    t0 = time.perf_counter()
+    fourier.run(OPT_FOURIER_STEPS)
+    fourier_s = time.perf_counter() - t0
+    end_fourier = sub_loss(fourier.params)
+    ms = 1e3 * float(np.median(calls))
+    out = dict(start=start, spsa_best=spsa.best_target, fourier_end=end_fourier,
+               evaluations=len(calls), spsa_s=spsa_s, fourier_s=fourier_s, eval_ms=ms)
+    print(f'optimizers on the n={n} bench loss ({len(p0)} parameters): start {start:.8f}; SPSA '
+          f'{OPT_SPSA_STEPS} steps, best {spsa.best_target:.8f} ({spsa_calls} evaluations, '
+          f'{spsa_s:.2f} s); Fourier order 2, {OPT_FOURIER_STEPS} steps on {len(last)} angles, '
+          f'{end_fourier:.8f} ({fourier_s:.2f} s); a target evaluation {ms:.2f} ms (median of '
+          f'{len(calls)}, host clock) [{card}]')
+    if not (spsa.best_target < start and end_fourier < start):
+        raise AssertionError(f'9s: the loss did not fall: {out}')
+    return {}, out
+
+
 # ----------------------------------------------------------------- profile
 # ------------------------------------------- the rest of the qubit engine
 QFT_N = 24
@@ -4617,6 +4992,13 @@ def main() -> int:
             add(counts)
     del qnn
     print(f'Fock tensor paths: {json.dumps(fock)}')
+    toolchain = {}
+    for key, check in (('class_api_qasm', check_class_api_qasm), ('cutting', check_cutting),
+                       ('mbqc', check_mbqc), ('optimizers', check_optimizers)):
+        with phase(key):
+            counts, toolchain[key] = check(smi)
+            add(counts)
+    print(f'qubit toolchain paths: {json.dumps(toolchain)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

@@ -43,6 +43,13 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     cv.cat(0, r=1.5, p=1); cv.bs([0, 1]); cv.loss_db(1, 3.0); cv.homodyne_x(1)
     cv(); xs = cv.measure_homodyne(shots=1000, generator=gen)
     tdm = dqt.QumodeCircuitTDM(1, 'vac')        # time-domain multiplexing with feedback
+
+    cir = dqt.QubitCircuit(3); cir.add(dqt.RxLayer(3)); cir.add(dqt.CnotRing(3))   # class-style API
+    back = dqt.qasm3_to_cir(cir.qasm3()); print(cir.draw())       # QASM 2 / 3, text drawing
+    out = cir.pattern(generator=gen)().full_state                  # MBQC (dqt.mbqc)
+    dqt.utils.save_params(cir, 'p.npz')                             # parameter files
+    dqt.optimizer.OptimizerSPSA(loss, x0).run(100)                  # gradient-free optimizers
+    cir.cut(1); cir.rx(1); subs, coeffs = cir.get_subexperiments()  # circuit cutting
 """
 
 from . import bitmath, photonic
@@ -50,7 +57,7 @@ from .circuit import NotPortedError, Observable, QubitCircuit
 from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
                      set_kappa)
 from .gate import GateOp
-from .interop import from_jax, params_from_numpy, qumode_from_jax
+from .interop import from_jax, params_from_numpy, pattern_from_jax, qumode_from_jax
 from .ops import qmath
 from .ops.qmath import (amplitude_encoding, expectation_pauli, inner_product_mps, measure,
                         meyer_wallach_measure, multi_kron, partial_trace, slice_state_vector)
@@ -60,7 +67,8 @@ from .photonic import (BosonicState, CatState, FockState, FockStateBosonic, Gaus
 from .state import QubitState
 
 __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 'set_device',
-           'cdtype', 'rdtype', 'default_device', 'from_jax', 'params_from_numpy', 'photonic',
+           'cdtype', 'rdtype', 'default_device', 'from_jax', 'params_from_numpy',
+           'pattern_from_jax', 'photonic',
            'QumodeCircuit', 'QumodeCircuitTDM', 'FockState', 'GaussianState', 'BosonicState',
            'CatState', 'GKPState', 'FockStateBosonic', 'permanent', 'torontonian', 'takagi',
            'williamson', 'hafnian_batch', 'cv_to_wigner',
@@ -72,7 +80,8 @@ __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 's
 # the JAX package's lazy names: those ported load on first use; the others
 # raise NotPortedError (a NotImplementedError, and an AttributeError so that
 # hasattr stays False), naming what is missing
-_LAZY_SUBMODULES = ('mps', 'models', 'adjoint', 'channel')
+_LAZY_SUBMODULES = ('mps', 'models', 'adjoint', 'channel', 'api', 'cutting', 'qasm', 'optimizer',
+                    'draw', 'utils', 'mbqc')
 _ANSATZ_NAMES = (
     'Ansatz', 'HHL', 'QuantumFourierTransform', 'QuantumPhaseEstimation',
     'QuantumPhaseEstimationSingleQubit', 'QuantumConvolutionalNeuralNetwork',
@@ -93,20 +102,22 @@ _LAZY_ATTRS = {
     'Generaldyne': ('.photonic.measurement', 'Generaldyne'),
     'GeneralBosonic': ('.photonic.measurement', 'GeneralBosonic'),
     'PhotonNumberResolvingBosonic': ('.photonic.measurement', 'PhotonNumberResolvingBosonic'),
+    'Pattern': ('.mbqc.pattern', 'Pattern'),
+    'SubGraphState': ('.mbqc.state', 'SubGraphState'),
+    'GraphState': ('.mbqc.state', 'GraphState'),
+    'cir_to_qasm3': ('.qasm', 'cir_to_qasm3'),
+    'qasm3_to_cir': ('.qasm', 'qasm3_to_cir'),
 }
 _NOT_PORTED = {
-    'mbqc': 'mbqc/', 'parallel': 'parallel/', 'api': 'api.py', 'cutting': 'cutting.py',
-    'qasm': 'qasm.py', 'optimizer': 'optimizer.py', 'draw': 'draw.py', 'utils': 'utils/',
+    'parallel': 'parallel/',
     'DistributedQubitCircuit': 'parallel/circuit.py',
     'DistributedQubitState': 'parallel/sharded.py',
     'setup_distributed': 'parallel/sharded.py', 'cleanup_distributed': 'parallel/sharded.py',
     'DistributedFockState': 'photonic/distributed.py',
     'DistributedQumodeCircuit': 'photonic/distributed.py',
     'UnitaryMapper': 'photonic/mapper.py', 'DrawClements': 'photonic/draw.py',
-    'Pattern': 'mbqc/pattern.py', 'SubGraphState': 'mbqc/state.py',
-    'GraphState': 'mbqc/state.py', 'cir_to_qasm3': 'qasm.py', 'qasm3_to_cir': 'qasm.py',
 }
-# the class-style gate and layer API of api.py
+# the class-style gate, layer and channel API (api.py)
 _API_NAMES = (
     'U3Gate', 'PhaseShift', 'Identity', 'PauliX', 'PauliY', 'PauliZ', 'Hadamard',
     'SGate', 'SDaggerGate', 'TGate', 'TDaggerGate', 'Rx', 'Ry', 'Rz', 'CNOT',
@@ -127,16 +138,17 @@ def __getattr__(name):
     if name in _ANSATZ_NAMES:
         from .models import ansatz
         return getattr(ansatz, name)
+    if name in _API_NAMES:
+        return getattr(importlib.import_module('.api', __name__), name)
     if name in _LAZY_ATTRS:
         mod, attr = _LAZY_ATTRS[name]
         return getattr(importlib.import_module(mod, __name__), attr)
-    if name in _NOT_PORTED or name in _API_NAMES:
-        where = _NOT_PORTED.get(name, 'api.py')
+    if name in _NOT_PORTED:
         raise NotPortedError(f'{name} is not ported to deepquantum_tpu_torch yet '
-                             f'(deepquantum_tpu/{where}; ROADMAP.md)')
+                             f'(deepquantum_tpu/{_NOT_PORTED[name]}; ROADMAP.md)')
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 def __dir__():
     return sorted(set(globals()) | set(_LAZY_SUBMODULES) | set(_ANSATZ_NAMES)
-                  | set(_LAZY_ATTRS))
+                  | set(_API_NAMES) | set(_LAZY_ATTRS))

@@ -52,6 +52,11 @@ MPS circuits (``mps=True, chi=...``): the state is a matrix product state
 QR / SVD sweeps (``svd_safe`` / ``qr_stable``, differentiable); forward
 returns the list of site tensors, and expectation, measure and
 get_amplitude read it without the dense state.
+
+The toolchain works on the op list: ``cut`` marks wire cuts for
+``get_subexperiments`` / ``transform_cut2move`` (cutting.py), ``pattern``
+transpiles to an MBQC pattern (mbqc/), ``qasm`` / ``qasm3`` export OpenQASM
+(qasm.py) and ``draw`` gives the text drawing (draw.py).
 """
 
 from __future__ import annotations
@@ -142,10 +147,6 @@ class NotPortedError(NotImplementedError, AttributeError):
     """A public name of the JAX package that the port does not have yet."""
 
 
-def _not_ported(name: str, where: str):
-    raise NotPortedError(f'{name} is not ported to deepquantum_tpu_torch yet ({where})')
-
-
 _PAULI_NP = {'x': np.array([[0, 1], [1, 0]], np.complex64),
              'y': np.array([[0, -1j], [1j, 0]], np.complex64),
              'z': np.array([[1, 0], [0, -1]], np.complex64)}
@@ -205,6 +206,7 @@ class QubitCircuit:
         self.depth = np.zeros(nqubit, dtype=np.int64)
         self.wires_measure: list[int] = []
         self.wires_condition: list[int] = []
+        self._cut_lst: list[tuple] = []     # (operator index, wire) of each wire cut
         self.operators: list[GateOp] = []
         self.observables: list[Observable] = []
         self.encoders: list[GateOp] = []
@@ -255,6 +257,7 @@ class QubitCircuit:
         self.depth = np.zeros(self.nqubit, dtype=np.int64)
         self.wires_measure = []
         self.wires_condition = []
+        self._cut_lst = []
         self._touch()
 
     def set_nqubit(self, nqubit: int) -> None:
@@ -444,6 +447,7 @@ class QubitCircuit:
             if op.nqubit != self.nqubit:
                 raise ValueError('the circuits have different numbers of qubits')
             offset = len(self._pvals)
+            self._cut_lst.extend((i + len(self.operators), w) for i, w in op._cut_lst)
             self._pvals.extend(op._pvals)
             self._train_mask.extend(op._train_mask)
             enc = {id(g) for g in op.encoders}
@@ -840,7 +844,7 @@ class QubitCircuit:
         normalize = getattr(self.init_state, 'normalize', True)
         state = (list(tensors), -1)
         for op in self.operators:
-            if op.kind == 'barrier':
+            if op.kind in ('barrier', 'cut'):
                 continue
             if op.kind != 'gate':
                 raise ValueError(f'MPS circuits take unitary gates only, not {op.name}')
@@ -1489,24 +1493,103 @@ class QubitCircuit:
                                      extra={'postselect': postselect}))
         self._touch()
 
-    # not ported yet: circuit cutting, MBQC, drawing, QASM (ROADMAP.md)
     def cut(self, wires):
-        _not_ported('QubitCircuit.cut', 'cutting.py')
+        """Mark a wire cut on each of ``wires`` at this point of the circuit."""
+        for w in _flat_wires(wires):
+            self._cut_lst.append((len(self.operators), w))
+            self.operators.append(GateOp(name='WireCut', wires=(w,), kind='cut'))
+        self._touch()
 
-    def transform_cut2move(self):
-        _not_ported('QubitCircuit.transform_cut2move', 'cutting.py')
+    def transform_cut2move(self) -> 'QubitCircuit':
+        """The circuit with each wire cut rewritten as a move onto a new
+        wire: it simulates the cut circuit directly, no sampling of terms."""
+        from .cutting import _ir_ops, transform_cut2move
+        observables = [(sum(o.wires, []), o.basis) for o in self.observables] or None
+        new_ops, new_obs, new_nq = transform_cut2move(_ir_ops(self), self._cut_lst, self.nqubit,
+                                                      observables, qpd_form=False)
+        cir = QubitCircuit(new_nq, den_mat=self.den_mat, device=self.device,
+                           reupload=self.reupload, shots=self.shots)
+        for op in new_ops:
+            op.add_to(cir)
+        for w, b in (new_obs or []):
+            cir.observable([[x] for x in w], basis=b)
+        return cir
 
     def get_subexperiments(self, qubit_labels=None):
-        _not_ported('QubitCircuit.get_subexperiments', 'cutting.py')
+        """The cut circuit's subexperiments and their coefficients
+        (``cutting.get_subexperiments``)."""
+        from .cutting import get_subexperiments
+        return get_subexperiments(self, qubit_labels)
 
-    def pattern(self):
-        _not_ported('QubitCircuit.pattern', 'mbqc/')
+    def pattern(self, generator: torch.Generator | None = None):
+        """The circuit as an MBQC pattern on the circuit's device: each gate
+        expands to its command template (``mbqc.templates``), a wire-to-node
+        map following each wire as measurements consume nodes. Its runs draw
+        from ``generator`` (on the circuit's device) when given."""
+        if self.den_mat or self.mps:
+            raise ValueError('the MBQC transpiler takes state-vector circuits')
+        from .mbqc import Pattern
+        from .mbqc.templates import MBQC_TEMPLATES
+
+        wire2node = {i: i for i in range(self.nqubit)}
+        init = self.init_state.state.reshape(-1)
+        zeros = torch.zeros_like(init)
+        zeros[0] = 1
+        if torch.allclose(init, zeros):
+            pattern = Pattern(device=self.device, generator=generator)
+            for i in range(self.nqubit):
+                pattern.add_graph(nodes_state=[i], state='zero')
+        else:
+            pattern = Pattern(nodes_state=self.nqubit, state=init, device=self.device,
+                              generator=generator)
+        pattern.reupload = self.reupload
+        node_next = self.nqubit
+        encoders = {id(op) for op in self.encoders}
+        for op in self.operators:
+            if op.kind == 'barrier':
+                continue
+            if op.kind != 'gate' or op.controls or op.condition:
+                raise ValueError(f'{op.name}: the MBQC transpiler takes gates without controls '
+                                 'or conditions')
+            entry = MBQC_TEMPLATES.get(op.name)
+            if entry is None:
+                raise ValueError(f'{op.name} is not supported by the MBQC transpiler')
+            template, nanc = entry
+            nodes = [wire2node[w] for w in op.wires]
+            ancilla = [node_next + i for i in range(nanc)]
+            angle = self._pvals[op.pidx[0]] if op.npara else None
+            if op.inv and angle is not None:
+                angle = -angle
+            cmds, out_nodes, enc_idx = template(nodes if len(nodes) > 1 else nodes[0], ancilla,
+                                                angle, op.requires_grad)
+            base = len(pattern.commands)
+            pattern.commands.extend(cmds)
+            if id(op) in encoders:
+                for i in enc_idx:
+                    pattern.encoders.append(pattern.commands[base + i])
+                pattern.npara += nanc - len(enc_idx)
+                pattern.ndata += len(enc_idx)
+            else:
+                pattern.npara += nanc
+            node_next += nanc
+            for wire, node in zip(op.wires, out_nodes):
+                wire2node[wire] = node
+        pattern.set_nodes_out_seq([wire2node[i] for i in range(self.nqubit)])
+        return pattern
 
     def draw(self, output: str = 'text', **kwargs):
-        _not_ported('QubitCircuit.draw', 'draw.py')
+        """The circuit as text (printed for ``output`` 'text' or 'mpl'), the
+        JAX package's drawing character for character."""
+        from .draw import draw_circuit_text
+        text = draw_circuit_text(self)
+        if output in ('text', 'mpl'):
+            print(text)
+        return text
 
-    def qasm(self):
-        _not_ported('QubitCircuit.qasm', 'qasm.py')
+    def qasm(self) -> str:
+        from .qasm import cir_to_qasm2
+        return cir_to_qasm2(self)
 
-    def qasm3(self):
-        _not_ported('QubitCircuit.qasm3', 'qasm.py')
+    def qasm3(self) -> str:
+        from .qasm import cir_to_qasm3
+        return cir_to_qasm3(self)

@@ -15,7 +15,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .config import cdtype
+from .config import cdtype, rdtype, resolve_device
 from .ops import gates as G
 
 __all__ = ['GateOp', 'GATE_REGISTRY', 'projection_j_fn', 'latent_fn', 'hamiltonian_fn']
@@ -47,17 +47,26 @@ class GateOp:
     inv: bool = False                      # apply the adjoint of the matrix
     extra: dict = dataclasses.field(default_factory=dict)
 
-    def matrix(self, full_params: torch.Tensor) -> torch.Tensor:
+    def matrix(self, full_params: torch.Tensor | None = None, device=None) -> torch.Tensor:
         """Local unitary on ``full_params``' device: (2^k, 2^k) from a (P,)
         full-parameter vector, a (B, 2^k, 2^k) stack from a (B, P) batch of
         them (a fixed gate stays one (2^k, 2^k) matrix). A channel gives its
-        Kraus set, (K, 2^k, 2^k) or (B, K, 2^k, 2^k)."""
-        device = full_params.device
+        Kraus set, (K, 2^k, 2^k) or (B, K, 2^k, 2^k). Without
+        ``full_params`` a standalone descriptor (the class-style API) uses
+        its own ``extra['inputs']``, on ``device`` (default: the one it was
+        made for, ``extra['device']``, else the default device)."""
+        if full_params is None:
+            device = resolve_device(self.extra.get('device') if device is None else device)
+        else:
+            device = full_params.device
         if self.matrix_fn is None:
             mat = torch.as_tensor(np.asarray(self.static_matrix), device=device).to(cdtype())
         else:
             if not self.npara:
                 p = None
+            elif full_params is None:
+                p = torch.as_tensor(np.asarray(self.extra['inputs'], np.float64),
+                                    device=device).to(rdtype())
             elif self.pidx == tuple(range(self.pidx[0], self.pidx[0] + len(self.pidx))):
                 # a slice: indexing with a host list would copy the index to
                 # the device and synchronise the stream on every call
@@ -69,6 +78,26 @@ class GateOp:
             # laid out anew: torch.kron refuses some transposed views
             mat = mat.conj().transpose(-1, -2).contiguous()
         return mat
+
+    def __call__(self, state, device=None) -> torch.Tensor:
+        """Apply this gate to a state (the class-style API's standalone use):
+        a flat (2^n,) vector, a (2,)*n tensor or a batch (B, 2^n), n from
+        ``extra['nqubit']`` (else from the size); the result has the
+        state's shape, on the state's device (a tensor) or on ``device``."""
+        from .ops.apply import evolve_state_controlled
+        if self.kind != 'gate':
+            raise ValueError(f'{self.name} cannot be applied standalone')
+        if not torch.is_tensor(state):
+            state = torch.as_tensor(np.asarray(state), device=resolve_device(
+                self.extra.get('device') if device is None else device))
+        state = state.to(cdtype())
+        n = self.extra.get('nqubit')
+        if n is None:
+            n = int(round(np.log2(state.numel())))
+        x = state.reshape([-1] + [2] * n)
+        y = evolve_state_controlled(x, self.matrix(device=state.device), n, list(self.wires),
+                                    list(self.controls))
+        return y.reshape(state.shape)
 
     @property
     def all_wires(self) -> tuple:

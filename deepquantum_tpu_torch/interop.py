@@ -13,7 +13,7 @@ import torch
 from .config import rdtype, resolve_device
 from .gate import GATE_REGISTRY, GateOp, hamiltonian_fn, latent_fn, projection_j_fn
 
-__all__ = ['from_jax', 'params_from_numpy', 'qumode_from_jax']
+__all__ = ['from_jax', 'params_from_numpy', 'qumode_from_jax', 'pattern_from_jax']
 
 
 def params_from_numpy(a, device=None, dtype=None, requires_grad: bool = False) -> torch.Tensor:
@@ -54,11 +54,12 @@ def from_jax(cir, device=None):
     (name, wires, controls, pidx, npara, static_matrix, inv, condition,
     extra), ``encoders``, ``_pvals``, ``_train_mask``, ``_enc_pidx``,
     ``npara``, ``ndata``, ``depth``, ``wires_condition`` and
-    ``observables``. Gates map by name through the port's GATE_REGISTRY
-    (projection J, latent and Hamiltonian gates from their arguments, a
-    fixed matrix as it is), Kraus channels through its CHANNEL_REGISTRY,
-    resets and moves with their post-selection; an op it cannot map (a
-    wire cut) raises NotImplementedError."""
+    ``observables``, and the wire cuts (``_cut_lst``). Gates map by name
+    through the port's GATE_REGISTRY (projection J, latent and Hamiltonian
+    gates from their arguments, a fixed matrix as it is), Kraus channels
+    through its CHANNEL_REGISTRY, resets and moves with their
+    post-selection, wire cuts as cut markers; an op it cannot map raises
+    NotImplementedError."""
     from .channel import CHANNEL_REGISTRY
     from .circuit import Observable, QubitCircuit
 
@@ -79,6 +80,9 @@ def from_jax(cir, device=None):
     for op in cir.operators:
         if op.kind == 'barrier':
             out.barrier(list(op.wires))
+            continue
+        if op.kind == 'cut':
+            out.operators.append(GateOp(name=op.name, wires=tuple(op.wires), kind='cut'))
             continue
         if op.kind in ('reset', 'move'):
             out.operators.append(GateOp(name=op.name, wires=tuple(op.wires), kind=op.kind,
@@ -107,6 +111,7 @@ def from_jax(cir, device=None):
     if getattr(cir, 'depth', None) is not None:
         out.depth = np.array(cir.depth, dtype=np.int64)
     out.wires_condition = [int(w) for w in getattr(cir, 'wires_condition', [])]
+    out._cut_lst = [(int(i), int(w)) for i, w in getattr(cir, '_cut_lst', [])]
     for obs in cir.observables:
         out.observables.append(Observable(cir.nqubit, [list(w) for w in obs.wires], obs.basis))
     out._touch()
@@ -220,4 +225,51 @@ def qumode_from_jax(cir, device=None):
     out.npara, out.ndata = cir.npara, cir.ndata
     if cir._custom_out_basis is not None:
         out._custom_out_basis = [tuple(int(v) for v in b) for b in cir._custom_out_basis]
+    return out
+
+
+def pattern_from_jax(pattern, device=None, generator=None):
+    """Build the port's MBQC Pattern from a deepquantum_tpu one: its initial
+    graph (each subgraph's nodes, input nodes, input state, edges with
+    their cz flags and measurement record), the commands (nodes, angles,
+    planes, s / t domains, encoding signs, correction bases and domains),
+    the encoders, ``nodes_out_seq``, ``npara``, ``ndata``, ``reupload``
+    and ``name``, on ``device`` (default: the default device)."""
+    from .mbqc import Correction, Entanglement, Measurement, Node, Pattern
+    from .mbqc.state import SubGraphState
+
+    out = Pattern(name=pattern.name, reupload=bool(pattern.reupload), device=device,
+                  generator=generator)
+    subgraphs = []
+    for sg in pattern.init_state.subgraphs:
+        edges = [(a, b, {'cz': bool(cz)}) for (a, b), cz in sg._edges.items()]
+        new = SubGraphState(list(sg.nodes_state), np.asarray(sg.state), edges, list(sg._nodes),
+                            device=out.device)
+        for node, bits in sg.measure_dict.items():
+            new.measure_dict[node] = [torch.tensor(int(b), device=out.device) for b in bits]
+        subgraphs.append(new)
+    out.init_state.subgraphs = subgraphs
+    out.init_state.nodes_out_seq = pattern.init_state.nodes_out_seq
+    commands = {}
+    for cmd in pattern.commands:
+        kind = type(cmd).__name__
+        if kind == 'Node':
+            new = Node(list(cmd.nodes))
+        elif kind == 'Entanglement':
+            new = Entanglement(*cmd.nodes)
+        elif kind == 'Measurement':
+            new = Measurement(list(cmd.nodes), angle=0.0, plane=cmd.plane,
+                              s_domain=sorted(cmd.s_domain), t_domain=sorted(cmd.t_domain),
+                              requires_grad=bool(cmd.requires_grad))
+            new.enc_sign = float(cmd.enc_sign)
+            new.angle = float(cmd.angle)
+        elif kind == 'Correction':
+            new = Correction(list(cmd.nodes), basis=cmd.basis, domain=sorted(cmd.domain))
+        else:
+            raise NotImplementedError(f'pattern_from_jax: cannot map command {kind}')
+        commands[id(cmd)] = new
+        out.commands.append(new)
+    out.encoders = [commands[id(cmd)] for cmd in pattern.encoders]
+    out.nodes_out_seq = None if pattern.nodes_out_seq is None else list(pattern.nodes_out_seq)
+    out.npara, out.ndata = int(pattern.npara), int(pattern.ndata)
     return out

@@ -26,3 +26,24 @@ __all__ = ['QumodeCircuit', 'QumodeCircuitTDM', 'PhotonicOp', 'Clements',
            'torontonian', 'torontonian_batch', 'fock_probs_gaussian', 'probs_gaussian_helper',
            'takagi', 'williamson', 'sqrtm_herm', 'schur_anti_symm_even', 'cv_to_wigner',
            'fock_to_wigner', 'ladder_ops', 'gates', 'qmath']
+
+# the class-style API (api.py), loaded on first use
+_API_NAMES = (
+    'PhaseShift', 'BeamSplitter', 'MZI', 'BeamSplitterTheta', 'BeamSplitterPhi',
+    'BeamSplitterSingle', 'UAnyGate', 'Squeezing', 'Squeezing2', 'Displacement',
+    'DisplacementPosition', 'DisplacementMomentum', 'QuadraticPhase',
+    'ControlledX', 'ControlledZ', 'CubicPhase', 'Kerr', 'CrossKerr',
+    'PhotonLoss', 'Delay', 'DelayBS', 'DelayMZI', 'Barrier',
+)
+
+
+def __getattr__(name):
+    if name == 'api' or name in _API_NAMES:
+        import importlib
+        api = importlib.import_module('.api', __name__)
+        return api if name == 'api' else getattr(api, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_API_NAMES) | {'api'})

@@ -115,14 +115,19 @@ def test_from_jax_mixed_circuit_complex64_planar(c64):
 
 
 def test_from_jax_refuses_unmapped_gates(c128):
-    """A wire cut is not ported (cutting.py): from_jax raises on it. A latent
-    gate, unmapped until the gate sugar was ported, now carries across."""
+    """A gate the port's registry does not know raises NotImplementedError.
+    A latent gate (since the gate sugar was ported) and a wire cut (since
+    cutting.py was ported) carry across."""
+    from deepquantum_tpu.gate import GateOp as JaxGateOp
     cir = dq.QubitCircuit(3)
     cir.latent([0, 1])
     np.testing.assert_allclose(dqt.from_jax(cir).forward().numpy(), np.asarray(cir.forward()),
                                atol=1e-10)
     cir.cut(1)
-    with pytest.raises(NotImplementedError):
+    port = dqt.from_jax(cir)
+    assert port._cut_lst == cir._cut_lst == [(1, 1)] and port.operators[1].kind == 'cut'
+    cir.operators.append(JaxGateOp(name='Mystery', wires=(0,), matrix_fn=lambda p: None))
+    with pytest.raises(NotImplementedError, match='Mystery'):
         dqt.from_jax(cir)
 
 

@@ -1418,3 +1418,101 @@ def test_fock_homodyne_sampling_on_the_card(card):
     ref.homodyne(0, phi=0.3)
     rpost = ref.measurements[0](ref(), samples=[0.4])
     assert _rel(post, rpost) <= 1e-5
+
+
+# -------------------------------------------- the qubit toolchain (no kernel)
+def _cut_halves(m1, m2, layers=2, cut=True):
+    """Two halves of the bench ansatz (m1 and m2 wires) joined by a cnot
+    each way across the middle, the crossing wires cut (two fragments of
+    m1 + 1 and m2 + 1 wires); Z on one wire of each half."""
+    n = m1 + m2
+    cir = dqt.QubitCircuit(n)
+    rng = np.random.default_rng(n)
+    cir.cnot(m1 - 1, m1)
+    if cut:
+        cir.cut(m1)
+    for lo, hi in ((0, m1 - 1), (m1, n - 1)):
+        for _ in range(layers):
+            for i in range(lo, hi + 1):
+                cir.rx(i, inputs=float(rng.random() * 6))
+                cir.rz(i, inputs=float(rng.random() * 6))
+            cir.cnot_ring(minmax=[lo, hi])
+    if cut:
+        cir.cut(m1 - 1)
+    cir.cnot(m1, m1 - 1)
+    cir.observable([0, m1 - 1, m1, n - 1], basis='zzxz')
+    return cir
+
+
+def test_cut_reconstruction_on_the_card(card):
+    """A cut n=16 circuit: 64 terms, fragments of 11 wires (the planar
+    kernels) and 7 (the einsum route), on the card, against the uncut
+    circuit."""
+    cut = _cut_halves(10, 6)
+    sub, coeffs = cut.get_subexperiments()
+    assert len(coeffs) == 64 and sorted(s[0].nqubit for s in sub.values()) == [7, 11]
+    assert all(c.device.type == 'cuda' for s in sub.values() for c in s)
+    total = 0.0
+    for k, coeff in enumerate(coeffs):
+        prod = 1.0
+        for s in sub.values():
+            if s[k].observables:
+                prod *= s[k].expectation().prod().item()
+        total += coeff * prod
+    want = _cut_halves(10, 6, cut=False).expectation()[0].item()
+    assert abs(total - want) <= 1e-5
+    moved = cut.transform_cut2move()
+    assert moved.device.type == 'cuda' and abs(moved.expectation()[0].item() - want) <= 1e-5
+
+
+def test_standardized_pattern_on_the_card(card128):
+    """A 4-qubit circuit of the random MBQC family: its standardised
+    pattern's first measurement holds a 20-node graph state on the card;
+    the output against the circuit's state, complex128."""
+    rng = np.random.default_rng(8)
+    cir = dqt.QubitCircuit(4)
+    for i in range(4):
+        cir.rx(i, inputs=float(rng.random() * 6))
+    cir.cnot(0, 1)
+    for i in range(4):
+        cir.rz(i, inputs=float(rng.random() * 6))
+    cir.cnot(1, 2)
+    cir.h(0)
+    target = cir().reshape(-1)
+    pat = cir.pattern(generator=torch.Generator('cuda').manual_seed(0))
+    pat.standardize()
+    first = next(c for c in pat.commands if type(c).__name__ == 'Measurement')
+    assert first.nodes == [0]
+    seen = []
+    orig = dqt.mbqc.SubGraphState.full_state.fget
+
+    def spy(self):
+        out = orig(self)
+        seen.append(out.numel())
+        return out
+
+    dqt.mbqc.SubGraphState.full_state = property(spy)
+    try:
+        graph = pat()
+    finally:
+        dqt.mbqc.SubGraphState.full_state = property(orig)
+    assert max(seen) == 1 << 20
+    out = graph.full_state.reshape(-1)
+    assert out.device.type == 'cuda' and out.dtype == torch.complex128
+    assert all(b.device.type == 'cuda' for v in graph.measure_dict.values() for b in v)
+    overlap = (out.conj() @ target).abs().item() / (out.norm() * target.norm()).item()
+    assert overlap >= 1 - 1e-8
+
+
+def test_class_api_and_qasm_on_the_card(card):
+    from deepquantum_tpu_torch import api
+    rx = api.Rx(inputs=0.3, wires=1)
+    assert rx.matrix().device.type == 'cuda'
+    assert rx(torch.ones(4, dtype=torch.complex64, device=card) / 2).device.type == 'cuda'
+    cir = dqt.QubitCircuit(12)
+    cir.add(api.RxLayer(12))
+    cir.add(api.CnotRing(12))
+    cir.add(api.RzLayer(12))
+    back = dqt.qasm3_to_cir(cir.qasm3())
+    assert back.device.type == 'cuda'
+    torch.testing.assert_close(back(), cir(), atol=1e-5, rtol=0)

@@ -330,15 +330,20 @@ def test_accessors_and_not_ported_names():
     assert t.operators == [] and t.npara == 0 and t.max_depth == 0
     t.set_nqubit(5)
     assert t.nqubit == 5 and t.init_state.state.shape == (32, 1)
-    for method in ('cut', 'transform_cut2move', 'get_subexperiments', 'pattern', 'draw', 'qasm',
-                   'qasm3'):
-        with pytest.raises(NotImplementedError, match=method):
-            fn = getattr(t, method)
-            fn(0) if method == 'cut' else fn()
-    for name in ('DistributedQubitCircuit', 'Pattern', 'cutting', 'qasm', 'UnitaryMapper', 'U3Gate'):
+    # the toolchain methods, ported: each runs (tests/test_torch_periphery.py,
+    # test_torch_cutting.py and test_torch_mbqc.py hold them to the JAX package)
+    t.h(0)
+    t.observable(0)
+    assert t.draw(output='str').startswith('q0: ') and t.qasm().startswith('OPENQASM 2.0')
+    assert t.qasm3().startswith('OPENQASM 3.0') and len(t.pattern().commands) == 4
+    t.cut(0)
+    assert t.transform_cut2move().nqubit == 6 and len(t.get_subexperiments()[1]) == 8
+    for name in ('DistributedQubitCircuit', 'UnitaryMapper', 'DrawClements', 'setup_distributed'):
         with pytest.raises(NotImplementedError, match=name):
             getattr(dqt, name)
         assert not hasattr(dqt, name)
+    for name in ('Pattern', 'cutting', 'qasm', 'U3Gate', 'GraphState', 'cir_to_qasm3'):
+        assert hasattr(dqt, name)
     assert dqt.MatrixProductState is dqt.mps.MatrixProductState
     assert dqt.QuantumFourierTransform is dqt.models.QuantumFourierTransform
 
