@@ -262,6 +262,37 @@ Phases (each raises on failure, so the run exits non-zero):
    12 angles of the last rz column) on the n=12 bench loss on the card: the loss falls; the ms of
    a target evaluation. Each of 9l-9s prints its wall seconds in the
    line of phase times;
+9t. the shardmap engine at full width (check_shardmap): the bench ansatz
+   at n=28, 5 layers, complex64 (2 GiB of state) as a
+   DistributedQubitCircuit on make_mesh(devices=['cuda:0'] * 4) (2
+   global qubits, 512 MiB a shard): forward, expectation and the
+   gradient step against the local QubitCircuit(28) with the same
+   parameters, run in turn (state 1e-5 of max|amp|, value 1e-5,
+   gradient 1e-4 of max|g|); the world-size-1 mesh's state against the
+   local one (1e-6); the step again with cir.fused_bwd = False (K1 + K5 +
+   K1 in place of K6), its gradient 1e-5 of max|g| from the fused one;
+   the step through expectation(adjoint=True) (the same engine, K1 and K6
+   launched), value and gradient against the local engine; K1, K2, K5 and
+   K6 launched; the forward and step ms (CUDA-event medians of 3), the
+   launches per kernel and the 'run' / 'g1' / 'remap' step counts, the
+   device time in the exchanges (half-shard swaps and 'g1' blends)
+   against the local runs and their relabels (CUDA events around each),
+   the busy share and the peak memory;
+9u. the 'gspmd' engine at complex128 (check_gspmd): the bench ansatz at
+   n=24, 5 layers, on 2 shards of the card against the local complex128
+   circuit (state and value 1e-10); expectation(adjoint=True) on the mesh
+   against autograd of the same mesh (1 layer: autograd keeps 256 MiB a
+   gate; value and gradient 1e-8); measure(10^5, wires=[0, 1, 2, 3])
+   across the global and local qubits by a chi-square against the local
+   state's marginal;
+9v. the sharded Fock tensor (check_sharded_fock): 9l's CV-QNN (7 modes,
+   cutoff 10, 10^7 amplitudes) as a DistributedQumodeCircuit on 2 shards
+   of the card: the forward against the local Fock tensor (complex64,
+   1e-5 of max|amp|), measure(10^5) by a chi-square on mode 0's marginal,
+   the per-forward noise bitwise the same over two runs with one
+   generator seed; the forward ms, peak memory. 9t-9v print their wall
+   seconds in the line of phase times; tools/distributed_phases.py runs
+   them alone;
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -1127,7 +1158,7 @@ def check_batched_chain(results: dict, rng):
         pe = max(rel_err(got[j][i], want[j][i])[0] for j in (2, 3) for i in gates)
         pd = max(rel_err(got[j][i], want[j][i])[1] for j in (2, 3) for i in gates)
         e_vs = {}
-        for route, (g_in, dres, dims) in (('K1b + K5b + K1b', steps_def), ('K6b', steps_fus)):
+        for route, (_, g_in, dres, dims) in (('K1b + K5b + K1b', steps_def), ('K6b', steps_fus)):
             e_vs[route] = (rel_err(got[1], g_in)[0],
                            max(rel_err(a[i], r[i])[0] for a, r in ((got[2], dres), (got[3], dims))
                                for i in gates))
@@ -4864,6 +4895,312 @@ def _table_split(table, reps: int = 3) -> dict:
     return {k: float(np.median([r.get(k, 0.0) for r in runs])) for k in runs[0]}
 
 
+
+# ------------------------------------------------- distributed circuits (9t-9v)
+SHARD_N, SHARD_K = 28, 4          # 9t: n=28 on 4 shards of the card
+GSPMD_N, GSPMD_K = 24, 2          # 9u
+GSPMD_SHOTS = 100_000
+GSPMD_WIRES = [0, 1, 2, 3]
+FOCK_K = 2                        # 9v: 9l's CV-QNN on 2 shards
+STATE_BAR, VALUE_BAR, GRAD_BAR = 1e-5, 1e-5, 1e-4
+WS1_BAR = 1e-6
+C128_BAR, ADJ_BAR = 1e-10, 1e-8
+
+
+def card_mesh(k: int):
+    """k shards on the one card."""
+    _pkg()
+    from deepquantum_tpu_torch.parallel import make_mesh
+    return make_mesh(devices=['cuda:0'] * k)
+
+
+def _rel(got, ref) -> float:
+    return ((got.to(ref.dtype) - ref).abs().max() / ref.abs().max()).item()
+
+
+@contextlib.contextmanager
+def exchange_events(record: list):
+    """CUDA events around every half-shard swap and 'g1' blend of the
+    shardmap engine, and around every forward and backward step, into
+    ``record`` as (kind, start, end); read after a synchronise."""
+    import torch
+    _pkg()
+    from deepquantum_tpu_torch.ops import planar_gate as pg
+    from deepquantum_tpu_torch.parallel import shardmap_engine as se
+
+    def timed(kind_of, fn):
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            record.append((kind_of(args), start, end))
+            return out
+        return wrapped
+
+    saved = {name: getattr(se, name) for name in ('_swap_gl', '_g1_apply', '_step_apply',
+                                                  '_step_bwd')}
+    se._swap_gl = timed(lambda a: 'exchange', saved['_swap_gl'])
+    se._g1_apply = timed(lambda a: 'exchange', saved['_g1_apply'])
+    se._step_apply = timed(lambda a: 'step:' + a[4][0], saved['_step_apply'])
+    se._step_bwd = timed(lambda a: 'step:' + a[5][0], saved['_step_bwd'])
+    rotate = pg._rotate_planar
+    pg._rotate_planar = timed(lambda a: 'relabel', rotate)
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(se, name, fn)
+        pg._rotate_planar = rotate
+
+
+def _event_split(record: list) -> dict:
+    """ms per kind: 'exchange' (swaps and blends), 'relabel' (the local
+    runs' relabel transposes), and the steps by kind ('run', 'g1', 'remap';
+    a run's time includes its relabels, a remap's and a g1's its
+    exchanges)."""
+    out: dict = {}
+    for kind, start, end in record:
+        out[kind] = out.get(kind, 0.0) + start.elapsed_time(end)
+    return {k: round(v, 3) for k, v in sorted(out.items())}
+
+
+def dist_bench(n: int, mesh, layers: int = LAYERS, engine: str = 'auto'):
+    """The bench ansatz as a DistributedQubitCircuit on ``mesh``, with
+    bench_circuit's parameters."""
+    dqt = _pkg()[0]
+    cir = dqt.DistributedQubitCircuit(n, mesh=mesh, engine=engine)
+    for _ in range(layers):
+        for i in range(n):
+            cir.rx(i)
+            cir.rz(i)
+            cir.rx(i)
+        cir.cnot_ring()
+    cir.observable(list(range(n)), basis='x' * n)
+    cir.init_para(SEED)
+    return cir
+
+
+def check_shardmap(card: str, n: int = SHARD_N, k: int = SHARD_K):
+    """Phase 9t, the shardmap engine at full width."""
+    import torch
+    dqt = _pkg()[0]
+    cir = dist_bench(n, card_mesh(k))
+    sim = cir._smap
+    if cir.engine != 'shardmap' or not sim.use_kernels or sim.nlocal != n - 2:
+        raise AssertionError(f'9t: engine {cir.engine}, kernels {sim.use_kernels}')
+    from deepquantum_tpu_torch.parallel.sharded import full_params
+    program = sim._build_program(sim._gate_list(cir, full_params(cir)))[0]
+    steps = {kind: sum(st[0] == kind for st in program) for kind in ('run', 'g1', 'remap')}
+    entries = [w[0] if w[0] in ('rot', 'win') else 'gate' for st in program if st[0] == 'run'
+               for w in st[1]]
+    steps.update({f'run:{kind}': entries.count(kind) for kind in ('gate', 'win', 'rot')})
+    swaps = sum(len(st[1]) for st in program if st[0] == 'remap')
+    p0 = cir.params
+    with torch.no_grad():
+        state = cir.forward().clone()
+    fwd_ms, _ = time_ms(lambda: cir.forward(), reps=3, warmup=0)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    events: list = []
+    with exchange_events(events):
+        (loss, grad), ms_first = _one_call_ms(
+            lambda: grad_step(cir, p0.clone().requires_grad_(), False))
+        torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = _event_split(events)
+    value = loss.item()
+    step_ms, _ = time_ms(lambda: grad_step(cir, p0.clone().requires_grad_(), False), reps=3,
+                         warmup=0)
+    device_ms = _cuda_only_device_ms(lambda: grad_step(cir, p0.clone().requires_grad_(), False))
+    cir.fused_bwd = False
+    reset_counts()
+    _, grad5 = grad_step(cir, p0.clone().requires_grad_(), update=False)
+    torch.cuda.synchronize()
+    counts5 = read_counts()
+    cir.fused_bwd = True
+    reset_counts()
+    q = p0.clone().requires_grad_()
+    (adj_value, adj_grad), adj_ms = _one_call_ms(
+        lambda: _value_grad(lambda: cir.expectation(params=q, adjoint=True)[0], q))
+    counts_adj = read_counts()
+    out = dict(n=n, shards=k, steps=steps, swaps=swaps, forward_ms=fwd_ms, step_ms=step_ms,
+               first_step_ms=ms_first, busy=round(device_ms / step_ms, 4), peak_gib=round(peak, 3),
+               launches={kk: v for kk, v in counts.items() if v},
+               launches_unfused={kk: v for kk, v in counts5.items() if v},
+               launches_adjoint={kk: v for kk, v in counts_adj.items() if v}, adjoint_ms=adj_ms,
+               events_ms=split, exchange_ms=split.get('exchange', 0.0), value=value)
+    del cir, sim
+    torch.cuda.empty_cache()
+    local = bench_circuit(n)
+    with torch.no_grad():
+        ref_state = local.forward()[:, 0].clone()
+    ref_loss, ref_grad = grad_step(local, local.params.requires_grad_(), update=False)
+    ref_value = ref_loss.item()
+    del local
+    torch.cuda.empty_cache()
+    out['state_err'] = _rel(state, ref_state)
+    out['value_err'] = abs(value - ref_value)
+    out['grad_err'] = _rel(grad, ref_grad)
+    out['unfused_grad_err'] = _rel(grad5, grad)
+    out['adjoint_value_err'] = abs(adj_value - ref_value)
+    out['adjoint_grad_err'] = _rel(adj_grad, ref_grad)
+    del state
+    one = dist_bench(n, card_mesh(1))
+    with torch.no_grad():
+        out['world_size_1_err'] = _rel(one.forward(), ref_state)
+    del one, ref_state
+    torch.cuda.empty_cache()
+    print(f"shardmap n={n} on {k} shards of the card: steps {steps} ({swaps} swaps), <X..X> "
+          f"{value:.8f} (local {ref_value:.8f}); forward {fwd_ms:.1f} ms, grad step {step_ms:.1f} "
+          f"ms (first {ms_first:.1f}), busy {100 * out['busy']:.1f} %, peak {out['peak_gib']} GiB; "
+          f"launches a step {out['launches']}, with fused_bwd off {out['launches_unfused']}, "
+          f"through expectation(adjoint=True) {out['launches_adjoint']} ({adj_ms:.1f} ms); "
+          f"device ms by kind (CUDA events) {split}; off the local engine: state "
+          f"{out['state_err']:.1e}, value {out['value_err']:.1e}, "
+          f"gradient {out['grad_err']:.1e}, unfused gradient {out['unfused_grad_err']:.1e}, "
+          f"adjoint value {out['adjoint_value_err']:.1e} and gradient "
+          f"{out['adjoint_grad_err']:.1e}; the world-size-1 mesh's state "
+          f"{out['world_size_1_err']:.1e} [{card}]")
+    if not (out['state_err'] <= STATE_BAR and out['value_err'] <= VALUE_BAR
+            and out['grad_err'] <= GRAD_BAR and out['unfused_grad_err'] <= PLANE_BAR
+            and out['adjoint_value_err'] <= VALUE_BAR and out['adjoint_grad_err'] <= GRAD_BAR
+            and out['world_size_1_err'] <= WS1_BAR):
+        raise AssertionError(f'9t: {out}')
+    for name in ('planar_apply', 'window_apply', 'planar_bwd_fused'):
+        if counts[name] <= 0:
+            raise AssertionError(f'9t: {name} was not launched: {counts}')
+    if counts5['planar_grad'] <= 0 or counts5['planar_bwd_fused'] != 0:
+        raise AssertionError(f'9t with fused_bwd off: {counts5}')
+    if counts_adj['planar_apply'] <= 0 or counts_adj['planar_bwd_fused'] <= 0:
+        raise AssertionError(f'9t through expectation(adjoint=True): {counts_adj}')
+    merged = {kk: counts[kk] + counts5[kk] + counts_adj[kk] for kk in counts}
+    return merged, out
+
+
+def check_gspmd(card: str, n: int = GSPMD_N, k: int = GSPMD_K):
+    """Phase 9u, the 'gspmd' engine at complex128."""
+    import torch
+    out = {}
+    with complex128():
+        mesh = card_mesh(k)
+        cir = dist_bench(n, mesh)
+        if cir.engine != 'gspmd':
+            raise AssertionError(f'9u: engine {cir.engine}')
+        reset_counts()
+        with torch.no_grad():
+            state, fwd_ms = _one_call_ms(lambda: cir.forward().clone())
+            value = cir.expectation()[0].item()
+            local = bench_circuit(n, 'cuda')
+            ref_state = local.forward()[:, 0]
+            ref_value = local.expectation()[0].item()
+        out.update(forward_ms=fwd_ms, state_err=(state - ref_state).abs().max().item(),
+                   value_err=abs(value - ref_value))
+        probs = (ref_state.abs() ** 2).reshape([2] * n)
+        marg = probs.sum(tuple(range(len(GSPMD_WIRES), n))).reshape(-1).double().cpu().numpy()
+        del state, ref_state, probs, local
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        counts, measure_ms = _one_call_ms(lambda: cir.measure(GSPMD_SHOTS, wires=GSPMD_WIRES,
+                                                              generator=gen))
+        stat, dof, bar = _chi2(counts, marg, GSPMD_SHOTS)
+        out.update(measure_ms=measure_ms, chi2=stat, dof=dof)
+        del cir
+        torch.cuda.empty_cache()
+        one = dist_bench(n, mesh, layers=1)
+        p = one.params
+        adj, adj_ms = _one_call_ms(lambda: one.expectation(adjoint=True)[0].item())
+        q = p.clone().requires_grad_()
+        (val_adj, g_adj), adj_grad_ms = _one_call_ms(
+            lambda: _value_grad(lambda: one.expectation(params=q, adjoint=True)[0], q))
+        q2 = p.clone().requires_grad_()
+        torch.cuda.reset_peak_memory_stats()
+        (val_ad, g_ad), ad_ms = _one_call_ms(lambda: _value_grad(
+            lambda: one.expectation(params=q2)[0], q2))
+        out.update(adjoint_ms=adj_ms, adjoint_grad_ms=adj_grad_ms, autograd_ms=ad_ms,
+                   autograd_peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+                   adjoint_value_err=abs(adj - val_ad), adjoint_grad_err=(g_adj - g_ad).abs().max()
+                   .item(), launches=sum(read_counts().values()))
+        del one
+        torch.cuda.empty_cache()
+    print(f"gspmd n={n} on {k} shards, complex128: forward {fwd_ms:.1f} ms, state off the local "
+          f"circuit {out['state_err']:.1e}, value {out['value_err']:.1e}; measure({GSPMD_SHOTS}, "
+          f"wires={GSPMD_WIRES}) {measure_ms:.1f} ms, chi-square {stat:.1f} on {dof} dof (bound "
+          f"{bar:.1f}); 1 layer: expectation(adjoint=True) {adj_ms:.1f} ms, with its gradient "
+          f"{adj_grad_ms:.1f} ms, autograd {ad_ms:.1f} ms (peak {out['autograd_peak_gib']} GiB); "
+          f"adjoint off autograd: value {out['adjoint_value_err']:.1e}, gradient "
+          f"{out['adjoint_grad_err']:.1e} [{card}]")
+    if not (out['state_err'] <= C128_BAR and out['value_err'] <= C128_BAR
+            and out['adjoint_value_err'] <= ADJ_BAR and out['adjoint_grad_err'] <= ADJ_BAR):
+        raise AssertionError(f'9u: {out}')
+    _hold_chi2('9u measure', stat, dof, bar)
+    if out['launches']:
+        raise AssertionError(f"9u: the complex128 engine launched {out['launches']} kernels")
+    return {}, out
+
+
+def _value_grad(fn, p):
+    value = fn()
+    value.backward()
+    return value.item(), p.grad
+
+
+def check_sharded_fock(card: str, k: int = FOCK_K):
+    """Phase 9v, the sharded Fock tensor."""
+    import torch
+    dqt = _pkg()[0]
+
+    def build(**kwargs):
+        cir = dqt.DistributedQumodeCircuit(QNN_MODES, 'vac', cutoff=QNN_CUTOFF, mesh=card_mesh(k),
+                                           **kwargs)
+        rng = np.random.default_rng(SEED)
+        for _ in range(QNN_LAYERS):
+            cvqnn_layer(cir, QNN_MODES, rng)
+        return cir
+
+    cir = build()
+    local = cvqnn_circuit(QNN_MODES, QNN_CUTOFF, QNN_LAYERS, SEED)
+    out = {}
+    with torch.no_grad():
+        ref = local().reshape(-1)
+        torch.cuda.reset_peak_memory_stats()
+        state, first_ms = _one_call_ms(lambda: cir().clone())
+        out['peak_gib'] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+        fwd_ms, _ = time_ms(lambda: cir(), reps=3, warmup=0)
+        out.update(ops=len(cir.operators), amplitudes=state.numel(), first_ms=first_ms,
+                   forward_ms=fwd_ms, state_err=_rel(state, ref))
+        marg = (ref.abs() ** 2).reshape(QNN_CUTOFF, -1).sum(1).double().cpu().numpy()
+        local_ms, _ = time_ms(lambda: local(), reps=3, warmup=0)
+        out['local_forward_ms'] = local_ms
+        cir()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        res, measure_ms = _one_call_ms(lambda: cir.measure(shots=FOCK_SHOTS, generator=gen))
+        counts = {}
+        for key, v in res.items():
+            counts[format(key.state[0], 'b')] = counts.get(format(key.state[0], 'b'), 0) + v
+        stat, dof, bar = _chi2(counts, marg, FOCK_SHOTS)
+        out.update(measure_ms=measure_ms, chi2=stat, dof=dof)
+        noisy = build(noise=True, noise_per_forward=True, sigma=0.05)
+        a = noisy(noise_generator=torch.Generator(device='cuda').manual_seed(SEED)).clone()
+        b = noisy(noise_generator=torch.Generator(device='cuda').manual_seed(SEED))
+        out['noise_bitwise'] = bool(torch.equal(a, b))
+        out['noise_moves'] = _rel(a, state)
+    del cir, local, noisy, state, ref, a, b
+    torch.cuda.empty_cache()
+    print(f"sharded Fock CV-QNN {QNN_MODES} modes, cutoff {QNN_CUTOFF}, on {k} shards: "
+          f"{out['ops']} ops, {out['amplitudes']} amplitudes; forward {fwd_ms:.1f} ms (first "
+          f"{first_ms:.1f}, local tensor {local_ms:.1f}), peak {out['peak_gib']} GiB; state off "
+          f"the local tensor {out['state_err']:.1e}; measure({FOCK_SHOTS}) {measure_ms:.1f} ms, mode 0 "
+          f"chi-square {stat:.1f} on {dof} dof (bound {bar:.1f}); per-forward noise bitwise over "
+          f"two runs of one seed: {out['noise_bitwise']} (it moves the state by "
+          f"{out['noise_moves']:.1e}) [{card}]")
+    if not (out['state_err'] <= FOCK_STATE_BAR and out['noise_bitwise']
+            and out['noise_moves'] > 0):
+        raise AssertionError(f'9v: {out}')
+    _hold_chi2('9v measure', stat, dof, bar)
+    return {}, out
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -4999,6 +5336,13 @@ def main() -> int:
             counts, toolchain[key] = check(smi)
             add(counts)
     print(f'qubit toolchain paths: {json.dumps(toolchain)}')
+    distributed = {}
+    for key, check in (('shardmap', check_shardmap), ('gspmd', check_gspmd),
+                       ('sharded_fock', check_sharded_fock)):
+        with phase(key):
+            counts, distributed[key] = check(smi)
+            add(counts)
+    print(f'distributed paths: {json.dumps(distributed)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

@@ -50,10 +50,15 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     dqt.utils.save_params(cir, 'p.npz')                             # parameter files
     dqt.optimizer.OptimizerSPSA(loss, x0).run(100)                  # gradient-free optimizers
     cir.cut(1); cir.rx(1); subs, coeffs = cir.get_subexperiments()  # circuit cutting
+
+    mesh = dqt.parallel.make_mesh(devices=['cuda:0'] * 4)   # four shards on one card
+    dist = dqt.DistributedQubitCircuit(28, mesh=mesh)        # the pair-exchange engine
+    two = dqt.parallel.make_mesh(devices=['cuda:0'] * 2)
+    fock = dqt.DistributedQumodeCircuit(7, 'vac', cutoff=10, mesh=two)   # a sharded Fock tensor
 """
 
 from . import bitmath, photonic
-from .circuit import NotPortedError, Observable, QubitCircuit
+from .circuit import Observable, QubitCircuit
 from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
                      set_kappa)
 from .gate import GateOp
@@ -74,14 +79,11 @@ __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 's
            'williamson', 'hafnian_batch', 'cv_to_wigner',
            'qumode_from_jax', 'set_hbar', 'set_kappa', 'amplitude_encoding',
            'expectation_pauli', 'inner_product_mps', 'measure', 'meyer_wallach_measure',
-           'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath',
-           'NotPortedError']
+           'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath']
 
-# the JAX package's lazy names: those ported load on first use; the others
-# raise NotPortedError (a NotImplementedError, and an AttributeError so that
-# hasattr stays False), naming what is missing
+# the JAX package's lazy names, loaded on first use
 _LAZY_SUBMODULES = ('mps', 'models', 'adjoint', 'channel', 'api', 'cutting', 'qasm', 'optimizer',
-                    'draw', 'utils', 'mbqc')
+                    'draw', 'utils', 'mbqc', 'parallel')
 _ANSATZ_NAMES = (
     'Ansatz', 'HHL', 'QuantumFourierTransform', 'QuantumPhaseEstimation',
     'QuantumPhaseEstimationSingleQubit', 'QuantumConvolutionalNeuralNetwork',
@@ -107,15 +109,14 @@ _LAZY_ATTRS = {
     'GraphState': ('.mbqc.state', 'GraphState'),
     'cir_to_qasm3': ('.qasm', 'cir_to_qasm3'),
     'qasm3_to_cir': ('.qasm', 'qasm3_to_cir'),
-}
-_NOT_PORTED = {
-    'parallel': 'parallel/',
-    'DistributedQubitCircuit': 'parallel/circuit.py',
-    'DistributedQubitState': 'parallel/sharded.py',
-    'setup_distributed': 'parallel/sharded.py', 'cleanup_distributed': 'parallel/sharded.py',
-    'DistributedFockState': 'photonic/distributed.py',
-    'DistributedQumodeCircuit': 'photonic/distributed.py',
-    'UnitaryMapper': 'photonic/mapper.py', 'DrawClements': 'photonic/draw.py',
+    'DistributedQubitCircuit': ('.parallel.circuit', 'DistributedQubitCircuit'),
+    'DistributedQubitState': ('.parallel.sharded', 'DistributedQubitState'),
+    'setup_distributed': ('.parallel.sharded', 'setup_distributed'),
+    'cleanup_distributed': ('.parallel.sharded', 'cleanup_distributed'),
+    'DistributedFockState': ('.photonic.distributed', 'DistributedFockState'),
+    'DistributedQumodeCircuit': ('.photonic.distributed', 'DistributedQumodeCircuit'),
+    'UnitaryMapper': ('.photonic.mapper', 'UnitaryMapper'),
+    'DrawClements': ('.photonic.draw', 'DrawClements'),
 }
 # the class-style gate, layer and channel API (api.py)
 _API_NAMES = (
@@ -143,9 +144,6 @@ def __getattr__(name):
     if name in _LAZY_ATTRS:
         mod, attr = _LAZY_ATTRS[name]
         return getattr(importlib.import_module(mod, __name__), attr)
-    if name in _NOT_PORTED:
-        raise NotPortedError(f'{name} is not ported to deepquantum_tpu_torch yet '
-                             f'(deepquantum_tpu/{_NOT_PORTED[name]}; ROADMAP.md)')
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 

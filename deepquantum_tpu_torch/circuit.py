@@ -143,10 +143,6 @@ def _apply_reset(x: torch.Tensor, wires, postselect: int, n: int) -> torch.Tenso
     return x
 
 
-class NotPortedError(NotImplementedError, AttributeError):
-    """A public name of the JAX package that the port does not have yet."""
-
-
 _PAULI_NP = {'x': np.array([[0, 1], [1, 0]], np.complex64),
              'y': np.array([[0, -1j], [1j, 0]], np.complex64),
              'z': np.array([[1, 0], [0, -1]], np.complex64)}

@@ -44,10 +44,27 @@ def _gate_fn(op):
     return reg['fn'], None
 
 
-def from_jax(cir, device=None):
+def _mesh_for(cir, device, mesh):
+    """The mesh of a carried-over distributed circuit: ``mesh`` when given,
+    else as many shards as the JAX circuit's mesh has devices: on the
+    cards for a CUDA ``device`` (raising if too few are visible), on the
+    CPU for a CPU one."""
+    if mesh is not None:
+        return mesh
+    from .parallel.sharded import make_mesh
+    size = int(np.asarray(cir.mesh.devices).size)
+    dev = resolve_device(device)
+    if dev.type == 'cpu':
+        return make_mesh(devices=[dev] * size)
+    return make_mesh(size)
+
+
+def from_jax(cir, device=None, mesh=None):
     """Build the port's QubitCircuit from a deepquantum_tpu QubitCircuit (an
     Ansatz too: it becomes a plain QubitCircuit of the same ops,
-    parameters and observables).
+    parameters and observables). A JAX ``DistributedQubitCircuit`` becomes
+    the port's, with the same engine ('gspmd' or 'shardmap'), on ``mesh``
+    or on a mesh of its mesh's size (``_mesh_for``).
 
     Reads ``nqubit``, ``den_mat``, ``reupload``, ``shots``, ``mps`` and
     ``chi``, the init state (an MPS's site tensors as numpy), ``operators``
@@ -65,16 +82,22 @@ def from_jax(cir, device=None):
 
     init = cir.init_state
     mps = bool(getattr(cir, 'mps', False))
-    if mps:
-        state = [np.asarray(t) for t in init.tensors]
+    if type(cir).__name__ == 'DistributedQubitCircuit':
+        from .parallel.circuit import DistributedQubitCircuit
+        out = DistributedQubitCircuit(cir.nqubit, mesh=_mesh_for(cir, device, mesh), name=cir.name,
+                                      reupload=bool(cir.reupload), shots=int(cir.shots),
+                                      engine=cir.engine)
     else:
-        kind = getattr(init, 'kind', None)
-        state = kind if kind is not None else np.asarray(init.state)
-    out = QubitCircuit(cir.nqubit, init_state=state, name=getattr(cir, 'name', None),
-                       den_mat=bool(getattr(cir, 'den_mat', False)), device=device,
-                       reupload=bool(getattr(cir, 'reupload', False)),
-                       shots=int(getattr(cir, 'shots', 1024)), mps=mps,
-                       chi=getattr(cir, 'chi', None))
+        if mps:
+            state = [np.asarray(t) for t in init.tensors]
+        else:
+            kind = getattr(init, 'kind', None)
+            state = kind if kind is not None else np.asarray(init.state)
+        out = QubitCircuit(cir.nqubit, init_state=state, name=getattr(cir, 'name', None),
+                           den_mat=bool(getattr(cir, 'den_mat', False)), device=device,
+                           reupload=bool(getattr(cir, 'reupload', False)),
+                           shots=int(getattr(cir, 'shots', 1024)), mps=mps,
+                           chi=getattr(cir, 'chi', None))
     if mps:
         out.init_state.normalize = bool(getattr(init, 'normalize', True))
     for op in cir.operators:
@@ -160,9 +183,10 @@ def _qumode_op(out, op):
         raise NotImplementedError(f'qumode_from_jax: cannot map gate {op.name}')
 
 
-def qumode_from_jax(cir, device=None):
-    """Build the port's QumodeCircuit (or QumodeCircuitTDM) from a
-    deepquantum_tpu one.
+def qumode_from_jax(cir, device=None, mesh=None):
+    """Build the port's QumodeCircuit (or QumodeCircuitTDM, or
+    DistributedQumodeCircuit on ``mesh`` or on a mesh of its mesh's size)
+    from a deepquantum_tpu one.
 
     Reads ``nmode``, ``backend``, ``basis``, ``cutoff``, ``detector``, the
     init state (``state``, ``cov`` / ``mean`` / ``weight``), the cat / GKP
@@ -191,7 +215,13 @@ def qumode_from_jax(cir, device=None):
         state = [np.asarray(init.cov, np.float64), np.asarray(init.mean, np.float64)]
     else:
         state = _bosonic_from_jax(init)
-    if type(cir).__name__ == 'QumodeCircuitTDM':
+    if type(cir).__name__ == 'DistributedQumodeCircuit':
+        from .photonic.distributed import DistributedQumodeCircuit
+        out = DistributedQumodeCircuit(cir.nmode, init_state=state, cutoff=cir.cutoff,
+                                       name=cir.name, mesh=_mesh_for(cir, device, mesh),
+                                       noise_per_forward=bool(getattr(cir, 'noise_per_forward',
+                                                                      False)), **noise)
+    elif type(cir).__name__ == 'QumodeCircuitTDM':
         out = QumodeCircuitTDM(cir.nmode, init_state=state, cutoff=cir.cutoff,
                                backend=cir.backend, name=cir.name, device=device, **noise)
     else:

@@ -95,13 +95,19 @@ def _resident_threads(device: torch.device, n: int) -> int:
     return resident_on('dq_permanent_blocks_per_sm', index, n) * _cuda.sm_count(device) * THREADS
 
 
+# matrix size -> the twin's subset chunk (photonic.qmath.set_perm_chunksize)
+perm_chunksize_dict: dict = {}
+
+
 def permanent_plain_batch(mats: torch.Tensor) -> torch.Tensor:
     """The plain twin of K7: chunked mask-matmul Ryser in complex128.
 
     The subset masks of a chunk, as a (chunk, n) 0/1 matrix, times the stack
     give every column sum of the chunk in one batched matmul; the chunk is
-    sized so that the (B, chunk, n) intermediate stays under 256 MB.
-    Differentiable. Returns ``cdtype()``, (B,)."""
+    sized so that the (B, chunk, n) intermediate stays under 256 MB, unless
+    ``perm_chunksize_dict`` holds one for this n
+    (``photonic.qmath.set_perm_chunksize``). Differentiable. Returns
+    ``cdtype()``, (B,)."""
     if mats.ndim != 3 or mats.shape[-1] != mats.shape[-2] or not mats.is_complex():
         raise ValueError(f'permanent: expected a complex (B, n, n) stack, got {tuple(mats.shape)} '
                          f'{mats.dtype}')
@@ -110,10 +116,12 @@ def permanent_plain_batch(mats: torch.Tensor) -> torch.Tensor:
     chunk = 1 << n
     while chunk > 1 and b * chunk * n * 16 > _TWIN_BYTES:
         chunk >>= 1
+    if n in perm_chunksize_dict:
+        chunk = max(1, min(perm_chunksize_dict[n], 1 << n))
     shifts = torch.arange(n, device=mats.device)
     total = torch.zeros(b, dtype=torch.complex128, device=mats.device)
     for start in range(0, 1 << n, chunk):
-        idx = torch.arange(start, start + chunk, device=mats.device)
+        idx = torch.arange(start, min(start + chunk, 1 << n), device=mats.device)
         bits = (idx[:, None] >> shifts[None, :]) & 1                    # (chunk, n)
         sums = bits.to(torch.complex128) @ a                             # (B, chunk, n)
         signs = (1 - 2 * (bits.sum(-1) & 1)).to(torch.float64)           # (-1)^|S|

@@ -590,8 +590,9 @@ def _conj_t(mre: torch.Tensor, mim: torch.Tensor):
 def _chain_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_seq,
                     fused_bwd: bool, chain=None):
     """The adjoint recurrence over a scheduled sequence: from the final state
-    y and its cotangent g give (g_in, dres, dims), dres/dims aligned to the
-    step list with None at relabel slots. Neither y nor g is written. A
+    y and its cotangent g give (x, g_in, dres, dims): the sequence's input
+    state, the input cotangent, and dres/dims aligned to the step list with
+    None at relabel slots. Neither y nor g is written. A
     packed batched chain whose reverse walk qualifies (n <= 16) is ONE
     launch of the batched-chain kernel, whatever ``fused_bwd`` says; windows
     + relabels at 14 <= n <= 19 ONE launch of the window-chain kernel;
@@ -599,11 +600,9 @@ def _chain_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_
     from .chain_kernel import chain_fused_ok, window_chain_bwd
     from .planar_chain_batched import batched_chain_ok, planar_chain_batched_bwd
     if chain is not None and batched_chain_ok(wires_seq, n, mres, backward=True):
-        _, g_in, dres, dims = planar_chain_batched_bwd(y, g, chain)
-        return g_in, dres, dims
+        return planar_chain_batched_bwd(y, g, chain)
     if y.dtype == torch.float32 and chain_fused_ok(wires_seq, n, mres):
-        _, g_in, dres, dims = window_chain_bwd(y, g, mres, mims, n, wires_seq)
-        return g_in, dres, dims
+        return window_chain_bwd(y, g, mres, mims, n, wires_seq)
     return _steps_backward(y, g, mres, mims, n, wires_seq, fused_bwd)
 
 
@@ -612,7 +611,7 @@ def _steps_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_
     """The per-step adjoint walk, y and g copied once into work buffers: a
     gate step as planar_apply + planar_grad + planar_apply or, with
     ``fused_bwd``, as one planar_bwd_fused; a window as window_apply +
-    window_grad + window_apply; a relabel undone on both. Returns (g_in,
+    window_grad + window_apply; a relabel undone on both. Returns (x, g_in,
     dres, dims) as ``_chain_backward``."""
     from .window_gate import window_apply, window_grad
     y = y.clone(memory_format=torch.contiguous_format)
@@ -638,7 +637,7 @@ def _steps_backward(y: torch.Tensor, g: torch.Tensor, mres, mims, n: int, wires_
             planar_apply(y, mre_t, mim_t, n, ws)
             dres[i], dims[i] = planar_grad(g, y, n, ws)
             planar_apply(g, mre_t, mim_t, n, ws)
-    return g, dres, dims
+    return y, g, dres, dims
 
 
 def _split_planes(planes, wires_seq):
@@ -823,8 +822,8 @@ class _PlanarChain(torch.autograd.Function):
             # have no derivative of their own and stand aside
             g_in, dres, dims = _steps_backward_diff(y, g, mres, mims, n, wires_seq)
         else:
-            g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd,
-                                               ctx.chain)
+            _, g_in, dres, dims = _chain_backward(y, g, mres, mims, n, wires_seq, fused_bwd,
+                                                  ctx.chain)
         dplanes = [_batch_sum(d, m) for d, m in zip(_flat_planes(dres, dims, wires_seq), planes)]
         return (g_in, None, None, None, *dplanes)
 

@@ -1,7 +1,8 @@
 """Photonic stack of deepquantum_tpu_torch: Fock basis mode, Fock tensors
 (dense, density matrices, MPS), Gaussian and Bosonic states, loss, homodyne
 and general-dyne measurement, time-domain multiplexing, through the
-permanent and torontonian kernels on the card."""
+permanent and torontonian kernels on the card; a Fock tensor sharded over a
+mesh (``distributed``), drawing, the unitary mapper and sample files."""
 
 from . import gates, qmath
 from .ansatz import Clements, GaussianBosonSampling, GraphGBS
@@ -10,8 +11,8 @@ from .decompose import UnitaryDecomposer
 from .gaussian_prob import fock_probs_gaussian, probs_gaussian_helper
 from .hafnian_ import hafnian, hafnian_batch
 from .measurement import GeneralBosonic, Generaldyne, Homodyne, PhotonNumberResolvingBosonic
-from .qmath import (ladder_ops, permanent, permanent_batch, schur_anti_symm_even, sqrtm_herm,
-                    takagi, williamson)
+from .qmath import (ladder_ops, perm_chunksize_dict, permanent, permanent_batch,
+                    schur_anti_symm_even, set_perm_chunksize, sqrtm_herm, takagi, williamson)
 from .state import (BosonicState, CatState, FockState, FockStateBosonic, GaussianState, GKPState,
                     combine_bosonic_states)
 from .tdm import QumodeCircuitTDM
@@ -25,7 +26,8 @@ __all__ = ['QumodeCircuit', 'QumodeCircuitTDM', 'PhotonicOp', 'Clements',
            'UnitaryDecomposer', 'permanent', 'permanent_batch', 'hafnian', 'hafnian_batch',
            'torontonian', 'torontonian_batch', 'fock_probs_gaussian', 'probs_gaussian_helper',
            'takagi', 'williamson', 'sqrtm_herm', 'schur_anti_symm_even', 'cv_to_wigner',
-           'fock_to_wigner', 'ladder_ops', 'gates', 'qmath']
+           'fock_to_wigner', 'ladder_ops', 'gates', 'qmath', 'perm_chunksize_dict',
+           'set_perm_chunksize']
 
 # the class-style API (api.py), loaded on first use
 _API_NAMES = (
@@ -37,13 +39,28 @@ _API_NAMES = (
 )
 
 
+# the distributed Fock tensor and the periphery, loaded on first use
+_LAZY_SUBMODULES = ('api', 'distributed', 'draw', 'mapper', 'utils')
+_LAZY_ATTRS = {
+    'DistributedFockState': ('.distributed', 'DistributedFockState'),
+    'DistributedQumodeCircuit': ('.distributed', 'DistributedQumodeCircuit'),
+    'UnitaryMapper': ('.mapper', 'UnitaryMapper'),
+    'DrawCircuit': ('.draw', 'DrawCircuit'),
+    'DrawClements': ('.draw', 'DrawClements'),
+}
+
+
 def __getattr__(name):
-    if name == 'api' or name in _API_NAMES:
-        import importlib
-        api = importlib.import_module('.api', __name__)
-        return api if name == 'api' else getattr(api, name)
+    import importlib
+    if name in _LAZY_SUBMODULES:
+        return importlib.import_module(f'.{name}', __name__)
+    if name in _API_NAMES:
+        return getattr(importlib.import_module('.api', __name__), name)
+    if name in _LAZY_ATTRS:
+        mod, attr = _LAZY_ATTRS[name]
+        return getattr(importlib.import_module(mod, __name__), attr)
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_API_NAMES) | {'api'})
+    return sorted(set(globals()) | set(_API_NAMES) | set(_LAZY_SUBMODULES) | set(_LAZY_ATTRS))

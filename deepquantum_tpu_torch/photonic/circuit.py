@@ -34,8 +34,9 @@ are called).
   is added, or with ``noise_per_forward`` at every forward (from
   ``noise_generator`` when one is given).
 
-Not ported yet, and raising ``NotImplementedError`` by name: ``draw``,
-``measure(mcmc=True)`` and ``delay(loop_gates=...)``. Fock-basis
+``draw`` renders SVG text (``photonic/draw.py``). Not ported, and raising
+``NotImplementedError`` by name: ``measure(mcmc=True)`` and
+``delay(loop_gates=...)``. Fock-basis
 probabilities of a Bosonic state (``is_prob`` / ``measure`` /
 ``get_prob``) raise too: they need loop hafnians with complex
 displacement, which the JAX package does not have either (it drops the
@@ -1492,6 +1493,23 @@ class QumodeCircuit:
             self._bosonic_states = [BosonicState('vac', 1, self.cutoff) for _ in range(self.nmode)]
         self._bosonic_states[wires] = state
 
+    def draw(self, filename: str | None = None, unroll: bool = False) -> str:
+        """The circuit as SVG text (``photonic/draw.py``), also written to
+        ``filename`` when given; ``unroll`` draws a TDM circuit's
+        concurrent modes."""
+        from .draw import DrawCircuit
+        tdm = unroll and self._with_delay
+        if tdm:
+            self._prepare_unroll_dict()
+            self._unroll_circuit()
+        drawer = DrawCircuit(self.name, self._nmode_tdm if tdm else self.nmode,
+                             self._operators_tdm if tdm else self.operators, self.measurements,
+                             params=np.asarray(self._pvals, np.float64))
+        svg = drawer.draw()
+        if filename:
+            drawer.save(filename)
+        return svg
+
     def cat(self, wires: int, r=None, theta=None, p: int = 1) -> None:
         """Prepare a cat state on one mode (the others stay in vacuum)."""
         self._bosonic_mode(wires, CatState(r=r, theta=theta, p=p, cutoff=self.cutoff))
@@ -1502,13 +1520,3 @@ class QumodeCircuit:
         self._bosonic_mode(wires, GKPState(theta=theta, phi=phi, amp_cutoff=amp_cutoff,
                                            epsilon=epsilon, cutoff=self.cutoff))
 
-
-def _stub(what: str, where: str):
-    def method(self, *args, **kwargs):
-        _missing(what, where)
-    method.__doc__ = f'Not ported yet: {what}.'
-    return method
-
-
-# the rest of the JAX package's QumodeCircuit surface raises by name
-QumodeCircuit.draw = _stub('draw', 'circuit drawing')

@@ -7,8 +7,9 @@ reference (reference src/deepquantum/photonic/decompose.py:9-390): Clements
 elimination along antidiagonals using T U and U T^-1 Givens steps with the
 single-arm MZI convention U_MZI = i e^{i theta/2} [[e^{i phi} sin(theta/2),
 cos(theta/2)], [e^{i phi} cos(theta/2), -sin(theta/2)]], then commuting the
-left factors through the diagonal. The Reck variants ('rssr', 'rssl') are
-not carried over: nothing in the port uses them.
+left factors through the diagonal; and the Reck schemes 'rssr' (U T^-1
+steps eliminating each row from the right) and 'rssl' (T U steps
+eliminating each column from the left).
 """
 
 from __future__ import annotations
@@ -31,17 +32,24 @@ def _factor_inv_ss(theta):
 
 
 def _mzi_embed(n, jj, ii, phi, theta, kind):
-    """Embedded MZI factor ('ss' convention): kind in {constr_r, inv_r}."""
+    """Embedded MZI factor ('ss' convention): kind in {constr_l, inv_l,
+    constr_r, inv_r}."""
     m = np.eye(n, dtype=complex)
     s, c = np.sin(theta / 2), np.cos(theta / 2)
-    if kind == 'constr_r':
+    if kind in ('constr_l', 'constr_r'):
         f = np.conjugate(_factor_inv_ss(theta))
         e = np.exp(1j * phi)
-        m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * c, f * e * c, -f * s
+        if kind == 'constr_l':
+            m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * e * c, f * c, -f * s
+        else:
+            m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * c, f * e * c, -f * s
     else:
         f = _factor_inv_ss(theta)
         e = np.exp(-1j * phi)
-        m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * e * c, f * c, -f * s
+        if kind == 'inv_l':
+            m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * c, f * e * c, -f * s
+        else:
+            m[jj, jj], m[jj, ii], m[ii, jj], m[ii, ii] = f * e * s, f * e * c, f * c, -f * s
     return m
 
 
@@ -65,13 +73,15 @@ class UnitaryDecomposer:
                 / len(self.unitary) ** 2 > 1e-6:
             print('Make sure the input matrix is unitary.')
         self.unitary[np.abs(self.unitary) < 1e-32] = 1e-32
-        if method != 'cssr':
-            raise NotImplementedError(f"UnitaryDecomposer: method {method!r} is not ported "
-                                      "(only 'cssr')")
+        if method not in ('cssr', 'rssr', 'rssl'):
+            raise ValueError(f'Unsupported decomposition method {method}')
         self.method = method
 
     def decomp(self):
-        info = self._decomp_cssr()
+        """(info, MZI angles grouped by mode pair, phase-shifter positions
+        ('cssr' only, else None))."""
+        info = {'cssr': self._decomp_cssr, 'rssr': self._decomp_rssr,
+                'rssl': self._decomp_rssl}[self.method]()
         dic_mzi = self.sort_mzi(info)
         dic_pos = self.ps_pos(dic_mzi, info['phase_angle'])
         return info, dic_mzi, dic_pos
@@ -110,6 +120,40 @@ class UnitaryDecomposer:
         info['phase_angle'] = _period_cut(phase_angle.copy())
         return info
 
+    def _decomp_rssr(self) -> dict:
+        """Reck, right-multiplied: each row ii from the bottom eliminated
+        against the columns jj < ii."""
+        u = self.unitary.copy()
+        n = len(u)
+        info = {'N': n, 'method': 'rssr', 'MZI_list': []}
+        for i in range(n):
+            ii = n - 1 - i
+            for jj in range(ii)[::-1]:
+                ratio = u[ii, ii] / (u[ii, jj] + 1e-32)
+                theta = 2 * np.arctan(np.abs(ratio))
+                phi = -np.angle(-ratio)
+                u = u @ _mzi_embed(n, jj, ii, phi, theta, 'inv_r')
+                info['MZI_list'].append([jj, ii, _period_cut(phi), _period_cut(theta)])
+        info['phase_angle'] = _period_cut(np.angle(np.diag(u)))
+        return info
+
+    def _decomp_rssl(self) -> dict:
+        """Reck, left-multiplied: each column ii from the right eliminated
+        against the rows jj < ii."""
+        u = self.unitary.copy()
+        n = len(u)
+        info = {'N': n, 'method': 'rssl', 'MZI_list': []}
+        for i in range(n):
+            ii = n - 1 - i
+            for jj in range(ii)[::-1]:
+                ratio = u[ii, ii] / (u[jj, ii] + 1e-32)
+                theta = 2 * np.arctan(np.abs(ratio))
+                phi = -np.angle(-ratio)
+                u = _mzi_embed(n, jj, ii, phi, theta, 'inv_l') @ u
+                info['MZI_list'].append([jj, ii, _period_cut(phi), _period_cut(theta)])
+        info['phase_angle'] = _period_cut(np.angle(np.diag(u)))
+        return info
+
     def sort_mzi(self, mzi_info) -> dict:
         """Group MZI angles by mode pair (reference decompose.py:364)."""
         dic_mzi = defaultdict(list)
@@ -118,7 +162,10 @@ class UnitaryDecomposer:
         return dic_mzi
 
     def ps_pos(self, dic_mzi, phase_angle):
-        """Positions of phase shifters for 'cssr' (reference decompose.py:372)."""
+        """Positions of phase shifters for 'cssr' (reference decompose.py:372);
+        None for the Reck schemes."""
+        if self.method != 'cssr':
+            return None
         dic_pos = {}
         nmode = self.unitary.shape[0]
         for mode in range(nmode):

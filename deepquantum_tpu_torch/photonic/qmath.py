@@ -19,12 +19,19 @@ import torch
 
 from .. import config
 from ..config import cdtype, rdtype, resolve_device
-from ..ops.permanent_kernel import MAX_N, MIN_N, permanent_cuda_batch
+from ..ops.permanent_kernel import MAX_N, MIN_N, perm_chunksize_dict, permanent_cuda_batch
 
 __all__ = ['ladder_ops', 'xxpp_to_xpxp', 'xpxp_to_xxpp', 'quadrature_to_ladder',
            'ladder_to_quadrature', 'permanent', 'permanent_batch', 'sub_matrix', 'fock_combinations',
            'photon_number_mean_var', 'shift_func', 'sqrtm_herm', 'schur_anti_symm_even',
-           'takagi', 'williamson']
+           'takagi', 'williamson', 'perm_chunksize_dict', 'set_perm_chunksize']
+
+
+def set_perm_chunksize(nmode: int, chunksize: int) -> None:
+    """The subset chunk of the permanent's plain Ryser twin for n x n
+    matrices (reference photonic/qmath.py set_perm_chunksize); the CUDA
+    kernel plans its own work from the card."""
+    perm_chunksize_dict[nmode] = int(chunksize)
 
 
 def _as_tensor(x, dtype=None, device=None) -> torch.Tensor:

@@ -829,7 +829,7 @@ def test_batched_chain_matches_twin_and_steps(n, b, card):
         for i in gates:
             _plane_close(got[j][i], want[j][i])
     for fused in (False, True):
-        g_in, dres, dims = tpg._steps_backward(y, g, mres, mims, n, wseq, fused)
+        _, g_in, dres, dims = tpg._steps_backward(y, g, mres, mims, n, wseq, fused)
         _rel_close(got[1], g_in)
         for i in gates:
             _plane_close(got[2][i], dres[i])
@@ -1516,3 +1516,76 @@ def test_class_api_and_qasm_on_the_card(card):
     back = dqt.qasm3_to_cir(cir.qasm3())
     assert back.device.type == 'cuda'
     torch.testing.assert_close(back(), cir(), atol=1e-5, rtol=0)
+
+
+def _dist_bench(n, layers, mesh):
+    cir = dqt.DistributedQubitCircuit(n, mesh=mesh)
+    for _ in range(layers):
+        for i in range(n):
+            cir.rx(i)
+            cir.rz(i)
+            cir.rx(i)
+        cir.cnot_ring()
+    cir.observable(list(range(n)), basis='x' * n)
+    cir.init_para(n)
+    return cir
+
+
+def test_shardmap_grad_step_on_four_shards_of_the_card(card):
+    """The shardmap engine at n=20 on 4 shards of the one card (18 local
+    qubits): loss and gradient against the local engine (1e-5, 1e-4 of
+    max|g|); on every shard K1 and K6 launched (single gates and remaps)
+    and the window runs as one window-chain launch each way; K5 with
+    fused_bwd off."""
+    mesh = dqt.parallel.make_mesh(devices=['cuda:0'] * 4)
+    cir = _dist_bench(20, 2, mesh)
+    assert cir.engine == 'shardmap' and cir._smap.use_kernels and cir.fused_bwd
+    local = _bench(20, 2)
+    for fn in (tpg.planar_apply, tpg.planar_bwd_fused, tpg.planar_grad, tck.window_chain_fwd,
+               tck.window_chain_bwd):
+        fn.launches = 0
+    loss, grad = _grad(cir)
+    assert tpg.planar_apply.launches > 0 and tck.window_chain_fwd.launches > 0
+    assert tck.window_chain_bwd.launches > 0
+    assert tpg.planar_bwd_fused.launches > 0 and tpg.planar_grad.launches == 0
+    ref_loss, ref_grad = _grad(local)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5
+    torch.testing.assert_close(grad, ref_grad, atol=1e-4 * ref_grad.abs().max().item(), rtol=0)
+    cir.fused_bwd = False
+    _, grad5 = _grad(cir)
+    assert tpg.planar_grad.launches > 0
+    torch.testing.assert_close(grad5, grad, atol=1e-5 * grad.abs().max().item(), rtol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(cir.forward(), local.forward()[:, 0], atol=1e-5, rtol=0)
+
+
+def test_sharded_fock_forward_on_two_shards_of_the_card(card):
+    """A 5-mode Fock circuit at cutoff 6 on 2 shards of the card (mode 0's
+    range split): the forward against the local Fock tensor, complex64."""
+    mesh = dqt.parallel.make_mesh(devices=['cuda:0'] * 2)
+    dist = dqt.DistributedQumodeCircuit(5, 'vac', cutoff=6, mesh=mesh)
+    local = dqt.QumodeCircuit(5, init_state='vac', cutoff=6, basis=False)
+    for c in (dist, local):
+        r = np.random.default_rng(4)
+        for w in range(5):
+            c.s(w, r=0.2 * r.random(), theta=r.random())
+        for w in range(4):
+            c.bs([w, w + 1], inputs=r.random(2).tolist())
+        c.d(0, r=0.3, theta=0.2)
+        c.k(0, inputs=[0.05])
+    out = dist()
+    assert out.device.type == 'cuda' and dist.dstate.shards[1].device.type == 'cuda'
+    torch.testing.assert_close(out, local().reshape(-1), atol=1e-5, rtol=0)
+
+
+def test_make_mesh_does_not_repeat_the_card(card):
+    """make_mesh(k) takes k visible cards; on a one-card machine asking for
+    two raises, and listing the card twice gives two shards on it."""
+    count = torch.cuda.device_count()
+    if count == 1:
+        with pytest.raises(RuntimeError, match='visible'):
+            dqt.parallel.make_mesh(2)
+    else:
+        assert dqt.parallel.make_mesh(2).size == 2
+    assert dqt.parallel.make_mesh(devices=['cuda:0'] * 2).devices == (torch.device('cuda', 0),) * 2
+    assert dqt.parallel.make_mesh().size == count
