@@ -293,6 +293,30 @@ Phases (each raises on failure, so the run exits non-zero):
    generator seed; the forward ms, peak memory. 9t-9v print their wall
    seconds in the line of phase times; tools/distributed_phases.py runs
    them alone;
+E1-E10. the modules of deepquantum_tpu_torch/examples/ at the card's sizes
+   (run_examples; tools/examples_phases.py runs them alone), each main on
+   the kernel route and again under twin_route(): E1 hybrid_qnn (n=14,
+   B=100, 2 layers, 20 epochs on the batched chain; every loss 1e-5, the
+   first gradient of the linear layer and the circuit 1e-4 of max|g|), E2
+   vqe (n=18, 3 layers, 35 observables, 20 Adam steps on K3 / K4;
+   energies 1e-5 of max|E|, the first gradient), E3 qaoa (n=18, P=3, 27
+   edges, 20 steps on the per-step route, K2 / K1 / K5; the same bars, and
+   measure(10^5) of the trained state by a chi-square), E4
+   distributed_vqe (n=28, 2 layers, 4 shards of the card: 3 steps, a
+   checkpoint, a restart from it, 2 steps; each value 1e-5 of five
+   uninterrupted steps of the local engine; K1 / K2 / K6), E5
+   gaussian_boson_sampling (14 modes, complex128: 12 K8b calls, each click
+   pattern within its torontonian's bar, their sum 1 within 1e-6; the
+   cutoff-2 photon-number table and 10^4 samples of it by a chi-square),
+   E6 onchip_optimizer (complex128: SPSA at 12 modes, 6 photons, 30 steps
+   on K7; Fourier at the script's 4 modes; the objective at the start and
+   best points 1e-8), E7 state_transfer_1d (n=17, 1400 Trotter steps, one
+   K3 launch; the script's leak and fidelity bars, the state 1e-5 of
+   max|amp|), E8-E10 hhl, mbqc_basic_gates and unitary_mapper at the
+   scripts' sizes (their bars; 1e-6 of the twin route). Each prints its
+   wall ms, ms a step, launches per kernel and peak memory, and its wall
+   seconds in the line of phase times; K2, K3, K4, K6, K7, K8b and the
+   batched chain must each launch across them;
 10. print the kernels' JSON line (sixteen rows: the nine kernels, the
    batched forms of K1, K5, K6, K8, K9 and the two entries of the batched
    gate chain, each with its launches on the main paths), the card line,
@@ -5201,6 +5225,414 @@ def check_sharded_fock(card: str, k: int = FOCK_K):
     _hold_chi2('9v measure', stat, dof, bar)
     return {}, out
 
+
+# ----------------------------------------------------------------- examples
+# E1-E10: the modules of deepquantum_tpu_torch/examples/, each main at the
+# card's size (the CPU tests run the JAX scripts' own)
+EX_HYBRID = dict(nqubit=14, layers=2, batch=100, epochs=20)
+EX_VQE = dict(nqubit=18, layers=3, steps=20)
+EX_QAOA = dict(nqubit=18, p_layers=3, steps=20, shots=100_000)
+EX_DIST = dict(nqubit=28, nlayer=2, steps=3, ckpt_every=3, resume_steps=2)
+EX_DIST_SHARDS = 4
+EX_GBS = dict(nmode=14, cutoff=2, shots=10_000)
+EX_SPSA = dict(nmode=12, init_state=[1] * 6 + [0] * 6, target_state=[0] * 6 + [1] * 6, cutoff=7,
+               spsa_steps=30, fourier_steps=0, bar=None)
+EX_FOURIER = dict(spsa_steps=0, bar=None)           # the script's 4 modes, 6 Fourier steps
+EX_TRANSFER = dict(nqubit=17, steps=1400)
+PHOTONIC_TWIN_BAR = 1e-8
+
+
+def _example(name: str):
+    _pkg()
+    import importlib
+    return importlib.import_module(f'deepquantum_tpu_torch.examples.{name}')
+
+
+def _example_call(fn, steps: int, what: str = 'step'):
+    """(fn(), its launches, stats): one call's wall ms between CUDA events
+    (host work included), the ms a step over ``steps``, the launches of
+    each kernel in it and its peak device memory. Where the call trains
+    with an optimizer, the host clock after each of its steps (the device
+    synchronised) gives the median step and the first step's ms."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+    ends: list = []
+
+    def clock(*_):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    handle = register_optimizer_step_post_hook(clock)
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out, ms = _one_call_ms(fn)
+    finally:
+        handle.remove()
+    counts = read_counts()
+    s = dict(ms=ms, steps=steps, ms_per_step=ms / steps, per=what,
+             launches={k: v for k, v in counts.items() if v},
+             peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 3))
+    if len(ends) >= 2:
+        s.update(median_step_ms=float(np.median(np.diff(ends))) * 1e3,
+                 first_step_ms=(ends[0] - start) * 1e3)
+    return out, counts, s
+
+
+def _example_text(s: dict) -> str:
+    launches = ', '.join(f'{k} {v}' for k, v in s['launches'].items()) or 'none'
+    median = (f", median {s['median_step_ms']:.1f}, first {s['first_step_ms']:.1f}"
+              if 'median_step_ms' in s else '')
+    return (f"{s['ms']:.1f} ms ({s['ms_per_step']:.1f} ms a {s['per']} over {s['steps']}"
+            f"{median}), launches {launches}, peak {s['peak_gib']} GiB")
+
+
+def _need(label: str, counts: dict, names):
+    if any(counts[n] <= 0 for n in names):
+        raise AssertionError(f'{label}: each of {names} must launch: {counts}')
+
+
+def _max_diff(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, dtype=np.float64) - np.asarray(b, dtype=np.float64))))
+
+
+def _grad_err(g, ref) -> float:
+    return ((g - ref).abs().max() / ref.abs().max()).item()
+
+
+def _leaf_grad(loss_fn, p):
+    """(value, gradient) of loss_fn at a fresh leaf copy of p."""
+    q = p.detach().clone().requires_grad_()
+    value = loss_fn(q)
+    value.backward()
+    return value.item(), q.grad
+
+
+def check_example_hybrid(card: str):
+    """E1, hybrid_qnn at (n, B) = (14, 100), 2 layers, 20 epochs (the
+    batched gate chain, forward and backward): every epoch's loss and the
+    first step's gradient of every parameter, the linear layer's and the
+    circuit's, against the twin route."""
+    import torch
+    hq = _example('hybrid_qnn')
+
+    def run():
+        return hq.main(**EX_HYBRID, seed=SEED, bar=None)
+
+    def first_grad():
+        model, x, y, _, _ = hq.setup(EX_HYBRID['nqubit'], EX_HYBRID['layers'],
+                                     EX_HYBRID['batch'], SEED)
+        loss = hq.loss_fn(model, x, y)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+    out, counts, s = _example_call(run, EX_HYBRID['epochs'], 'epoch')
+    value, grad = first_grad()
+    with twin_route():
+        ref = run()
+        ref_value, ref_grad = first_grad()
+    s.update(loss_err=_max_diff(out['losses'], ref['losses']), grad_err=_grad_err(grad, ref_grad),
+             acc=out['acc'], acc_twin=ref['acc'], first_loss=value, last_loss=out['losses'][-1])
+    print(f"E1 hybrid_qnn n={EX_HYBRID['nqubit']}, B={EX_HYBRID['batch']}: "
+          f"{_example_text(s)}; losses {value:.6f} -> {s['last_loss']:.6f}, test accuracy "
+          f"{s['acc']:.3f} (twin route {s['acc_twin']:.3f}); off the twin route: losses "
+          f"{s['loss_err']:.1e}, first gradient {s['grad_err']:.1e} [{card}]")
+    if not (s['loss_err'] <= VALUE_BAR and s['grad_err'] <= GRAD_BAR
+            and abs(value - ref_value) <= VALUE_BAR):
+        raise AssertionError(f'E1: {s}')
+    _need('E1', counts, ('planar_chain_batched', 'planar_chain_batched_bwd'))
+    return counts, s
+
+
+def _adam_example(card: str, label: str, module: str, cfg: dict, loss_of, build, kernels):
+    """E2 / E3: a module's main on the kernel route and on the twin route,
+    each step's loss held to 1e-5 of the largest, and the first step's
+    gradient to 1e-4 of max|g|; each of ``kernels`` launched."""
+    mod = _example(module)
+
+    def run():
+        return mod.main(**cfg, seed=SEED)
+
+    def first_grad():
+        cir = build(mod)
+        cir.init_para(SEED)
+        return _leaf_grad(lambda q: loss_of(mod, cir, q), cir.params)
+
+    out, counts, s = _example_call(run, cfg['steps'])
+    value, grad = first_grad()
+    with twin_route():
+        ref = run()
+        ref_value, ref_grad = first_grad()
+    key = 'energies' if 'energies' in out else 'costs'
+    scale = max(abs(v) for v in ref[key])
+    s.update(value_err=_max_diff(out[key], ref[key]) / scale, grad_err=_grad_err(grad, ref_grad),
+             first=value, last=out[key][-1])
+    print(f"{label}: {_example_text(s)}; {key} {value:.6f} -> {s['last']:.6f}; off the twin route: "
+          f"{key} {s['value_err']:.1e} of max|{key[0].upper()}|, first gradient "
+          f"{s['grad_err']:.1e} [{card}]")
+    if not (s['value_err'] <= VALUE_BAR and s['grad_err'] <= GRAD_BAR
+            and abs(value - ref_value) <= VALUE_BAR * scale):
+        raise AssertionError(f'{label}: {s}')
+    _need(label, counts, kernels)
+    return out, counts, s
+
+
+def check_example_vqe(card: str):
+    """E2, vqe at n=18, 3 layers, 20 Adam steps (2n - 1 = 35 observables;
+    the circuit's chain is windows and relabels only: the window-chain
+    kernels K3 / K4)."""
+    _, counts, s = _adam_example(
+        card, f"E2 vqe n={EX_VQE['nqubit']}, {EX_VQE['layers']} layers", 'vqe', EX_VQE,
+        lambda mod, cir, q: mod.energy(cir, q),
+        lambda mod: mod.build(EX_VQE['nqubit'], EX_VQE['layers']),
+        ('window_chain_fwd', 'window_chain_bwd'))
+    return counts, s
+
+
+def check_example_qaoa(card: str):
+    """E3, qaoa at n=18, P=3 on a 3-regular graph (27 edges), 20 Adam steps,
+    then measure(10^5) of the trained state from a seeded generator of the
+    card, by a chi-square against the state's probabilities. The rzz gates
+    between far wires leave two-wire gate steps between the windows, so the
+    chain takes the per-step route: K2 and K1 forward, K2, K1 and K5
+    backward."""
+    import torch
+    n = EX_QAOA['nqubit']
+    edges = _example('qaoa').regular_graph(n)
+    out, counts, s = _adam_example(
+        card, f"E3 qaoa n={n}, P={EX_QAOA['p_layers']}, {len(edges)} edges", 'qaoa', EX_QAOA,
+        lambda mod, cir, q: mod.cost(cir, q),
+        lambda mod: mod.build(n, EX_QAOA['p_layers'], edges),
+        ('window_apply', 'planar_apply', 'planar_grad'))
+    cir = _example('qaoa').build(n, EX_QAOA['p_layers'], edges)
+    with torch.no_grad():
+        probs = (cir.forward(params=out['params']).abs() ** 2).reshape(-1).double().cpu().numpy()
+    stat, dof, bar = _chi2(out['counts'], probs, EX_QAOA['shots'])
+    s.update(cut=out['cut'], chi2=stat, dof=dof)
+    print(f"E3 qaoa: cut {out['cut']:.3f} of {len(edges)}; measure({EX_QAOA['shots']}) chi-square "
+          f"{stat:.1f} on {dof} dof (bound {bar:.1f})")
+    _hold_chi2('E3 measure', stat, dof, bar)
+    return counts, s
+
+
+def check_example_distributed(card: str):
+    """E4, distributed_vqe at n=28, 2 layers on 4 shards of the card: 3
+    Adam steps, a checkpoint, a restart from it and 2 more steps (K1 / K2 /
+    K6 on every shard), each value against 5 uninterrupted steps of the
+    local engine from the same parameters (1e-5)."""
+    import torch
+    dqt = _pkg()[0]
+    dv = _example('distributed_vqe')
+    from deepquantum_tpu_torch.examples import adam_steps
+    n, layers = EX_DIST['nqubit'], EX_DIST['nlayer']
+    total = EX_DIST['steps'] + EX_DIST['resume_steps']
+    out, counts, s = _example_call(
+        lambda: dv.main(**EX_DIST, mesh=card_mesh(EX_DIST_SHARDS), seed=SEED), total)
+    torch.cuda.empty_cache()
+    local = dqt.QubitCircuit(n)
+    for _ in range(layers):
+        for i in range(n):
+            local.rx(i)
+            local.rz(i)
+        local.cnot_ring()
+    local.observable(list(range(n)), basis='x' * n)
+    local.init_para(SEED)
+    p = local.params.requires_grad_()
+    t0 = time.perf_counter()
+    ref = adam_steps(lambda: local.expectation(params=p)[0], torch.optim.Adam([p], lr=0.05), total)
+    local_ms = (time.perf_counter() - t0) * 1e3
+    del local, p
+    torch.cuda.empty_cache()
+    got = out['values'] + out['resumed']
+    s.update(value_err=_max_diff(got, ref), resumed_at=out['resumed_at'], values=got,
+             local_ms_per_step=local_ms / total)
+    print(f"E4 distributed_vqe n={n}, {layers} layers, {EX_DIST_SHARDS} shards of the card: "
+          f"{_example_text(s)}; resumed at step {out['resumed_at']}, <X..X> "
+          f"{[round(v, 8) for v in got]}; off the local engine ({s['local_ms_per_step']:.1f} ms a "
+          f"step): {s['value_err']:.1e} [{card}]")
+    if not (s['value_err'] <= VALUE_BAR and out['resumed_at'] == EX_DIST['steps']
+            and len(got) == total):
+        raise AssertionError(f'E4: {s}')
+    _need('E4', counts, ('planar_apply', 'window_apply', 'planar_bwd_fused'))
+    return counts, s
+
+
+def check_example_gbs(card: str):
+    """E5, gaussian_boson_sampling at 14 modes, complex128: the
+    photon-number table at cutoff 2 (16 384 outcomes, hafnian_batch, no
+    kernel), 10^4 samples of it by a chi-square, and every click pattern's
+    probability (12 batched K8 calls), each within its torontonian's bar
+    of the twin route; the click table sums to 1 within 1e-6."""
+    import torch
+    gb = _example('gaussian_boson_sampling')
+    nmode = EX_GBS['nmode']
+
+    def run():
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        return gb.main(**EX_GBS, seed=SEED, generator=gen)
+
+    with complex128(), torch.no_grad():
+        out, counts, s = _example_call(run, 1, 'call')
+        with twin_route():
+            ref = run()
+        bars = _pattern_bars(out['circuit'], nmode, False)
+        got, want = _by_state(out['probs_click']), _by_state(ref['probs_click'])
+        worst = max((abs(got[k] - want[k]) / want[k]).item() / bars[k] for k in want)
+        pnrd = _probs_close('E5 photon-number table', out['probs'], ref['probs'], 1e-10)
+        stat, dof, bar = _dict_chi2(out['samples'], out['probs'], EX_GBS['shots'])
+    s.update(patterns=len(got), outcomes=len(out['probs']), click_total=out['click_total'],
+             worst_of_bar=worst, pnrd_err=pnrd, chi2=stat, dof=dof)
+    print(f"E5 gaussian_boson_sampling {nmode} modes: {_example_text(s)}; {len(got)} click "
+          f"patterns (sum {out['click_total']:.10f}), each within its bar of the twin route (at "
+          f"most {worst:.2e} of it); photon-number table at cutoff {EX_GBS['cutoff']}: "
+          f"{len(out['probs'])} outcomes, {pnrd:.1e} off the twin route; {EX_GBS['shots']} "
+          f"samples chi-square {stat:.1f} on {dof} dof (bound {bar:.1f}) [{card}]")
+    if not (worst <= 1 and abs(out['click_total'] - 1) <= 1e-6 and len(got) == 1 << nmode):
+        raise AssertionError(f'E5: {s}')
+    _hold_chi2('E5 samples', stat, dof, bar)
+    if counts['tor_dets_cuda_batched'] != nmode - 2:
+        raise AssertionError(f'E5: {nmode - 2} batched K8 calls expected: {counts}')
+    return counts, s
+
+
+def check_example_onchip(card: str):
+    """E6, onchip_optimizer at complex128: SPSA at 12 modes, 6 photons,
+    cutoff 7 on the 66-MZI mesh (132 phases), 30 steps, every evaluation's
+    forward and target amplitude on K7 (n=6); the Fourier optimizer at the
+    script's 4 modes (its 6 steps cost 84 evaluations each). The objective
+    at the start and at each optimizer's best point against the twin route
+    (1e-8)."""
+    import torch
+    oc = _example('onchip_optimizer')
+    out = {}
+    with complex128(), torch.no_grad():
+        spsa, counts, s = _example_call(lambda: oc.main(**EX_SPSA), EX_SPSA['spsa_steps'])
+        four, counts4, s4 = _example_call(lambda: oc.main(**EX_FOURIER), 6)
+        for label, res, cfg, name in (('spsa', spsa, EX_SPSA, 'SPSA'),
+                                      ('fourier', four, {}, 'Fourier')):
+            nmode = cfg.get('nmode', oc.NMODE)
+            init = cfg.get('init_state', [1] + [0] * (nmode - 1))
+            target = cfg.get('target_state', [0] * oc.TARGET + [1] + [0] * (nmode - 1 - oc.TARGET))
+            f = oc.objective(nmode, init, target, cfg.get('cutoff', 2))
+            points = [np.full(nmode * (nmode - 1), 0.3), res['best_params'][name]]
+            vals = [f(x) for x in points]
+            with twin_route():
+                refs = [f(x) for x in points]
+            out[label] = dict(best=res['results'][name], initial=res['initial'],
+                              objective_err=_max_diff(vals, refs))
+    s.update(out['spsa'])
+    s['fourier'] = dict(s4, **out['fourier'])
+    print(f"E6 onchip_optimizer SPSA, {EX_SPSA['nmode']} modes, {sum(EX_SPSA['init_state'])} "
+          f"photons, cutoff "
+          f"{EX_SPSA['cutoff']}: {_example_text(s)}; target probability {s['initial']:.4f} -> "
+          f"{s['best']:.4f}; Fourier at {oc.NMODE} modes: {_example_text(s4)}; "
+          f"{out['fourier']['initial']:.4f} -> {out['fourier']['best']:.4f}; objective off the "
+          f"twin route {s['objective_err']:.1e} / {out['fourier']['objective_err']:.1e} [{card}]")
+    if not (s['objective_err'] <= PHOTONIC_TWIN_BAR
+            and out['fourier']['objective_err'] <= PHOTONIC_TWIN_BAR):
+        raise AssertionError(f'E6: {s}')
+    _need('E6', counts, ('permanent_cuda_batch',))
+    return {k: counts[k] + counts4[k] for k in counts}, s
+
+
+def check_example_transfer(card: str):
+    """E7, state_transfer_1d at n=17 with 1400 Trotter steps (44 800 gates,
+    forward only, the window-chain kernel K3): the script's bars (leak
+    < 1e-3, fidelity > 0.999) and the state against the twin route (1e-5 of
+    max|amp|)."""
+    import torch
+    tr = _example('state_transfer_1d')
+    out, counts, s = _example_call(lambda: tr.main(**EX_TRANSFER), EX_TRANSFER['steps'],
+                                   'Trotter step')
+    with twin_route():
+        ref = tr.main(**EX_TRANSFER)
+    s.update(leak=out['leak'], fidelity=out['fidelity'],
+             state_err=_rel(out['state'], ref['state']))
+    print(f"E7 state_transfer_1d n={EX_TRANSFER['nqubit']}, {EX_TRANSFER['steps']} steps: "
+          f"{_example_text(s)}; leak {s['leak']:.2e} (twin route {ref['leak']:.2e}), fidelity "
+          f"{s['fidelity']:.8f}; state off the twin route {s['state_err']:.1e} [{card}]")
+    if not s['state_err'] <= STATE_BAR:
+        raise AssertionError(f'E7: {s}')
+    _need('E7', counts, ('window_chain_fwd',))
+    del out, ref
+    torch.cuda.empty_cache()
+    return counts, s
+
+
+def check_example_small(card: str):
+    """E8-E10 at the scripts' own sizes (the physics fixes them): hhl (a
+    2 x 2 system, 3 counting qubits; fidelity > 0.995), mbqc_basic_gates
+    (two-node patterns and a transpiled circuit; overlaps > 1 - 1e-6, the
+    outcomes from a seeded generator of the card) and unitary_mapper (the
+    dual-rail Hadamard and the 6-mode CNOT; transfer matrices to 1e-5 and
+    1e-4, the solver on the host, its cache in a temporary directory). HHL
+    and the patterns against the twin route (1e-6)."""
+    import os
+    import tempfile
+    import torch
+    hhl, mb, um = (_example(n) for n in ('hhl', 'mbqc_basic_gates', 'unitary_mapper'))
+    merged, out = {name: 0 for name in KERNELS}, {}
+
+    def gen():
+        return torch.Generator(device='cuda').manual_seed(SEED)
+
+    runs = (('hhl', lambda: hhl.main(), 'state'),
+            ('mbqc', lambda: mb.main(generator=gen()), 'pattern_state'),
+            ('mapper', lambda: um.main(), 'cnot_transfer'))
+    with tempfile.TemporaryDirectory() as cache:
+        saved = os.environ.get('DQ_MAPPER_CACHE')
+        os.environ['DQ_MAPPER_CACHE'] = cache
+        try:
+            for key, run, field in runs:
+                res, counts, s = _example_call(run, 1, 'call')
+                with twin_route():
+                    ref = run()
+                a, b = (torch.as_tensor(r[field]).reshape(-1).cpu() for r in (res, ref))
+                s['twin_err'] = (a - b).abs().max().item()
+                out[key] = s
+                for k, v in counts.items():
+                    merged[k] += v
+        finally:
+            if saved is None:
+                os.environ.pop('DQ_MAPPER_CACHE')
+            else:
+                os.environ['DQ_MAPPER_CACHE'] = saved
+    print(f"E8-E10 hhl: {_example_text(out['hhl'])}; mbqc_basic_gates: "
+          f"{_example_text(out['mbqc'])}; unitary_mapper: {_example_text(out['mapper'])}; off "
+          f"the twin route {out['hhl']['twin_err']:.1e} / {out['mbqc']['twin_err']:.1e} / "
+          f"{out['mapper']['twin_err']:.1e} [{card}]")
+    if not all(s['twin_err'] <= 1e-6 for s in out.values()):
+        raise AssertionError(f'E8-E10: {out}')
+    return merged, out
+
+
+EXAMPLE_CHECKS = (('hybrid_qnn', check_example_hybrid), ('vqe', check_example_vqe),
+                  ('qaoa', check_example_qaoa), ('distributed_vqe', check_example_distributed),
+                  ('gaussian_boson_sampling', check_example_gbs),
+                  ('onchip_optimizer', check_example_onchip),
+                  ('state_transfer_1d', check_example_transfer), ('hhl_mbqc_mapper',
+                                                                   check_example_small))
+# every one of these launches on the example phases' paths
+EXAMPLE_KERNELS = ('window_apply', 'window_chain_fwd', 'window_chain_bwd', 'planar_bwd_fused',
+                   'permanent_cuda_batch', 'tor_dets_cuda_batched', 'planar_chain_batched',
+                   'planar_chain_batched_bwd')
+
+
+def run_examples(card: str, phase) -> tuple:
+    """E1-E10 in order, each under ``phase(label)``: their launches summed,
+    and each phase's results."""
+    total, results = {name: 0 for name in KERNELS}, {}
+    for key, check in EXAMPLE_CHECKS:
+        with phase(f'ex_{key}'):
+            counts, results[key] = check(card)
+        for k, v in counts.items():
+            total[k] += v
+    _need('the example phases', total, EXAMPLE_KERNELS)
+    return total, results
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5343,6 +5775,9 @@ def main() -> int:
             counts, distributed[key] = check(smi)
             add(counts)
     print(f'distributed paths: {json.dumps(distributed)}')
+    example_counts, examples = run_examples(smi, phase)
+    add(example_counts)
+    print(f'example paths: {json.dumps(examples)}')
     print(f'wall seconds of each phase: {json.dumps(seconds)}')
     for name, c in main_path.items():
         if c <= 0:

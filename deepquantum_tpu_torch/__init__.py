@@ -57,6 +57,8 @@ The default device is the CUDA card; ``set_device('cpu')`` or
     fock = dqt.DistributedQumodeCircuit(7, 'vac', cutoff=10, mesh=two)   # a sharded Fock tensor
 """
 
+import torch
+
 from . import bitmath, photonic
 from .circuit import Observable, QubitCircuit
 from .config import (cdtype, default_device, rdtype, set_device, set_dtype, set_hbar,
@@ -79,7 +81,10 @@ __all__ = ['QubitCircuit', 'Observable', 'QubitState', 'GateOp', 'set_dtype', 's
            'williamson', 'hafnian_batch', 'cv_to_wigner',
            'qumode_from_jax', 'set_hbar', 'set_kappa', 'amplitude_encoding',
            'expectation_pauli', 'inner_product_mps', 'measure', 'meyer_wallach_measure',
-           'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath']
+           'multi_kron', 'partial_trace', 'slice_state_vector', 'qmath', 'bitmath', 'dtype_map']
+
+# a real dtype -> the complex dtype of the same precision
+dtype_map = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 # the JAX package's lazy names, loaded on first use
 _LAZY_SUBMODULES = ('mps', 'models', 'adjoint', 'channel', 'api', 'cutting', 'qasm', 'optimizer',

@@ -24,6 +24,7 @@ import torch
 
 from .channel import CHANNEL_REGISTRY
 from .circuit import Observable, QubitCircuit
+from .config import cdtype  # noqa: F401 — api.cdtype, as in the JAX package
 from .gate import GATE_REGISTRY, GateOp, hamiltonian_fn, latent_fn, projection_j_fn
 from .ops import gates as G
 from .ops.qmath import inner_product_mps

@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from .config import cdtype
+from .config import cdtype, rdtype
 
-__all__ = ['CHANNEL_REGISTRY']
+__all__ = ['CHANNEL_REGISTRY', 'channel_prob']
 
 
 def _probs(p: torch.Tensor) -> torch.Tensor:
@@ -95,3 +95,12 @@ CHANNEL_REGISTRY = {
     'GeneralizedAmplitudeDamping': dict(npara=2, fn=generalized_amplitude_damping_kraus),
 }
 
+
+def channel_prob(name: str, theta) -> torch.Tensor:
+    """Error probabilities sin(theta)^2 of a channel's parameters; a
+    'Pauli' channel's normalised to sum 1."""
+    theta = theta if torch.is_tensor(theta) else torch.as_tensor(theta, dtype=rdtype())
+    prob = torch.sin(theta) ** 2
+    if name == 'Pauli':
+        return prob / prob.sum()
+    return prob

@@ -53,10 +53,10 @@ import functools
 
 import torch
 
-__all__ = ['planar_apply', 'planar_evolve_xla', 'planar_grad', 'planar_grad_xla',
+__all__ = ['planar_apply', 'planar_evolve', 'planar_evolve_xla', 'planar_grad', 'planar_grad_xla',
            'planar_bwd_fused', 'planar_bwd_fused_plain', 'planar_chain',
-           'planar_pauli_expectation', 'planar_superop', 'schedule_planar_seq',
-           'schedule_rotations',
+           'planar_pauli_expectation', 'planar_superop', 'planar_superop_matrix',
+           'planar_supported', 'schedule_planar_seq', 'schedule_rotations',
            'to_planar', 'to_planar_batched', 'from_planar']
 
 _T_BITS = 7            # TPU lane block (scheduler geometry only)
@@ -850,6 +850,18 @@ def planar_chain(x: torch.Tensor, mres, mims, n: int, wires_seq,
                               *_flat_planes(mres, mims, wires_seq))
 
 
+def planar_supported(n: int, wires) -> bool:
+    """The planar engine takes k <= 3 distinct wires on n >= 10 qubits."""
+    return 10 <= n and 1 <= len(set(wires)) <= 3
+
+
+def planar_evolve(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
+    """Apply one k-wire unitary (planes in sorted-wire order) to the planar
+    state x and return the new state: a one-step ``planar_chain``, whose
+    backward recomputes the input from the output."""
+    return planar_chain(x, [mre], [mim], n, [tuple(sorted(wires))])
+
+
 def planar_superop(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int, wires):
     """Apply a general (non-unitary) map on k <= 3 sorted wires (planes in
     sorted-wire order, (K, K) or per sample (B, K, K)) to the planar state
@@ -859,6 +871,12 @@ def planar_superop(x: torch.Tensor, mre: torch.Tensor, mim: torch.Tensor, n: int
     runs as its 4^k superoperator sum_k K (x) conj(K) on the wire pair
     (w, w + n) this way."""
     return _ApplyD.apply(x, mre, mim, n, tuple(sorted(wires)))
+
+
+def planar_superop_matrix(x: torch.Tensor, matrix: torch.Tensor, n: int, wires):
+    """``planar_superop`` of a complex (2^k, 2^k) map in wires-list order."""
+    mre, mim = _sorted_mat_planes(matrix, wires)
+    return planar_superop(x, mre, mim, n, wires)
 
 
 class _PauliExpectation(torch.autograd.Function):

@@ -14,11 +14,13 @@ import numpy as np
 import torch
 
 from ..config import cdtype, rdtype
+from .apply import evolve_den_mat, evolve_state  # re-exported, as in the JAX package
 
-__all__ = ['amplitude_encoding', 'expectation_pauli', 'marginal_probs', 'sample_probs', 'measure',
-           'sample2expval', 'inverse_permutation', 'multi_kron', 'partial_trace',
-           'slice_state_vector', 'meyer_wallach_measure', 'inner_product_mps', 'is_unitary',
-           'is_density_matrix', 'int_to_bitstring', 'sample_sc_mcmc']
+__all__ = ['evolve_state', 'evolve_den_mat', 'amplitude_encoding', 'expectation_pauli',
+           'marginal_probs', 'sample_probs', 'measure', 'sample2expval', 'inverse_permutation',
+           'multi_kron', 'partial_trace', 'slice_state_vector', 'meyer_wallach_measure',
+           'inner_product_mps', 'is_unitary', 'is_density_matrix', 'int_to_bitstring',
+           'sample_sc_mcmc']
 
 
 def amplitude_encoding(data: Any, nqubit: int) -> torch.Tensor:

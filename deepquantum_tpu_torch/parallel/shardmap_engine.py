@@ -554,6 +554,10 @@ class ShardMapSimulator:
             out.append(z)
         return out
 
+    def init_state(self) -> list:
+        """|0...0> as complex shards, one a device."""
+        return [from_planar(z) for z in self._init_planes()]
+
     def _prepare_state(self, state):
         """A flat complex state (tensor, array or QubitState) or a
         DistributedQubitState's shards as plane shards, one a device;

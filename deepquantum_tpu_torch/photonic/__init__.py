@@ -4,6 +4,8 @@ and general-dyne measurement, time-domain multiplexing, through the
 permanent and torontonian kernels on the card; a Fock tensor sharded over a
 mesh (``distributed``), drawing, the unitary mapper and sample files."""
 
+from .. import config
+from ..config import set_hbar, set_kappa
 from . import gates, qmath
 from .ansatz import Clements, GaussianBosonSampling, GraphGBS
 from .circuit import PhotonicOp, QumodeCircuit
@@ -11,8 +13,10 @@ from .decompose import UnitaryDecomposer
 from .gaussian_prob import fock_probs_gaussian, probs_gaussian_helper
 from .hafnian_ import hafnian, hafnian_batch
 from .measurement import GeneralBosonic, Generaldyne, Homodyne, PhotonNumberResolvingBosonic
-from .qmath import (ladder_ops, perm_chunksize_dict, permanent, permanent_batch,
-                    schur_anti_symm_even, set_perm_chunksize, sqrtm_herm, takagi, williamson)
+from .qmath import (ladder_ops, ladder_to_quadrature, perm_chunksize_dict, permanent,
+                    permanent_batch, quadrature_to_ladder, schur_anti_symm_even,
+                    set_perm_chunksize, sqrtm_herm, takagi, williamson, xpxp_to_xxpp,
+                    xxpp_to_xpxp)
 from .state import (BosonicState, CatState, FockState, FockStateBosonic, GaussianState, GKPState,
                     combine_bosonic_states)
 from .tdm import QumodeCircuitTDM
@@ -27,7 +31,8 @@ __all__ = ['QumodeCircuit', 'QumodeCircuitTDM', 'PhotonicOp', 'Clements',
            'torontonian', 'torontonian_batch', 'fock_probs_gaussian', 'probs_gaussian_helper',
            'takagi', 'williamson', 'sqrtm_herm', 'schur_anti_symm_even', 'cv_to_wigner',
            'fock_to_wigner', 'ladder_ops', 'gates', 'qmath', 'perm_chunksize_dict',
-           'set_perm_chunksize']
+           'set_perm_chunksize', 'xxpp_to_xpxp', 'xpxp_to_xxpp', 'quadrature_to_ladder',
+           'ladder_to_quadrature', 'hbar', 'kappa', 'set_hbar', 'set_kappa']
 
 # the class-style API (api.py), loaded on first use
 _API_NAMES = (
@@ -47,7 +52,10 @@ _LAZY_ATTRS = {
     'UnitaryMapper': ('.mapper', 'UnitaryMapper'),
     'DrawCircuit': ('.draw', 'DrawCircuit'),
     'DrawClements': ('.draw', 'DrawClements'),
+    'quadrature_ladder_transform': ('.qmath', 'quadrature_to_ladder'),
 }
+# the quadrature conventions, read when asked (set_hbar / set_kappa change them)
+_CONVENTIONS = {'hbar': 'HBAR', 'kappa': 'KAPPA'}
 
 
 def __getattr__(name):
@@ -59,8 +67,11 @@ def __getattr__(name):
     if name in _LAZY_ATTRS:
         mod, attr = _LAZY_ATTRS[name]
         return getattr(importlib.import_module(mod, __name__), attr)
+    if name in _CONVENTIONS:
+        return getattr(config, _CONVENTIONS[name])
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_API_NAMES) | set(_LAZY_SUBMODULES) | set(_LAZY_ATTRS))
+    return sorted(set(globals()) | set(_API_NAMES) | set(_LAZY_SUBMODULES) | set(_LAZY_ATTRS)
+                  | set(_CONVENTIONS))

@@ -515,6 +515,12 @@ class QumodeCircuit:
                 mean = mean.index_copy(-2, idx, m.to(rdtype()) @ mean[idx] + v.to(rdtype()))
         return mean
 
+    def tensor_rep(self, x) -> torch.Tensor:
+        """A Fock state as a (batch, cutoff, ..., cutoff) tensor (2n axes of
+        cutoff for a density matrix)."""
+        n = self.nmode
+        return torch.as_tensor(x).reshape([-1] + [self.cutoff] * (2 * n if self.den_mat else n))
+
     # --------------------------------------------------------------- forward
     def __call__(self, data=None, state=None, is_prob=None, detector=None, sort=True,
                  stepwise=False, params=None, noise_generator=None):

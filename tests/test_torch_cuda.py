@@ -1589,3 +1589,32 @@ def test_make_mesh_does_not_repeat_the_card(card):
         assert dqt.parallel.make_mesh(2).size == 2
     assert dqt.parallel.make_mesh(devices=['cuda:0'] * 2).devices == (torch.device('cuda', 0),) * 2
     assert dqt.parallel.make_mesh().size == count
+
+
+EXAMPLES = ['distributed_vqe', 'gaussian_boson_sampling', 'hhl', 'hybrid_qnn', 'mbqc_basic_gates',
+            'onchip_optimizer', 'qaoa', 'state_transfer_1d', 'unitary_mapper', 'vqe']
+
+
+@pytest.mark.parametrize('name', EXAMPLES)
+def test_example_at_the_script_size_on_the_card(card, name, tmp_path, monkeypatch):
+    """Each ``examples`` module's main at the JAX script's own size on the
+    card (the distributed VQE on 4 shards of it, the photonic ones at
+    complex128): the script's assertions hold; vqe, qaoa and
+    distributed_vqe, which assert nothing, lower their loss."""
+    import importlib
+    from deepquantum_tpu_torch.parallel import make_mesh
+    monkeypatch.setenv('DQ_MAPPER_CACHE', str(tmp_path / 'mapper'))
+    mod = importlib.import_module(f'deepquantum_tpu_torch.examples.{name}')
+    kwargs = {'distributed_vqe': dict(mesh=make_mesh(devices=['cuda:0'] * 4), seed=0,
+                                      ckpt_dir=str(tmp_path / 'ckpt')),
+              'vqe': dict(seed=0), 'qaoa': dict(seed=0)}.get(name, {})
+    if name in ('gaussian_boson_sampling', 'onchip_optimizer'):
+        dqt.set_dtype('complex128')
+    out = mod.main(**kwargs)
+    losses = {'vqe': 'energies', 'qaoa': 'costs', 'distributed_vqe': 'values'}.get(name)
+    if losses:
+        assert np.isfinite(out[losses]).all() and out[losses][-1] < out[losses][0]
+    if name == 'distributed_vqe':
+        assert out['resumed_at'] == 40 and len(out['resumed']) == 5
+    if name == 'qaoa':
+        assert sum(out['counts'].values()) == 500
